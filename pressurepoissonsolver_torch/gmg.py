@@ -1,0 +1,389 @@
+"""FAC geometric multigrid: inter-level transfers and the V-cycle.
+
+Port of ``pressurepoissonsolver_tpu.gmg`` (the reference's ``GMG::*``
+layer, SURVEY.md §2.7).  Transfers between a fine and a coarse
+:class:`~pressurepoissonsolver_torch.ops.level_ops.Level` are row gathers
+driven by host-precomputed parent-slot tables followed by small per-axis
+matmuls:
+
+* Restriction (``GMG::AvgRstr``, ``GMG/AvgRstr.h:53-113``): each fine patch
+  average-pools 2^D cells into one and adds the result into its orthant
+  block of the parent patch; pass-through patches copy through unchanged.
+* Prolongation (``GMG::DrctIntp``, ``GMG/DrctIntp.h:77-113``):
+  piecewise-constant injection of the parent's orthant block, added into
+  the fine patch; pass-through copies.
+
+The V-cycle mirrors ``GMG::VCycle`` (``GMG/VCycle.h:44-60``) with FAC
+active-set smoothing on the coarse levels and a dense direct solve at the
+bottom.  Not ported yet: the W-cycle and linear prolongation.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .domain import DomainHierarchy, parent_slots
+from .ops.level_ops import ActiveSmoother, Level, axis_matmul, np_dtype
+
+
+@dataclass
+class CycleOpts:
+    """Reference ``GMG::CycleOpts`` (``GMG/CycleOpts.h:51-80``); the same
+    fields as ``pressurepoissonsolver_tpu.gmg.CycleOpts``."""
+
+    max_levels: int = 0  # 0 = no limit
+    patches_per_shard: float = 0  # stop when patches/shard drops below this
+    pre_sweeps: int = 1
+    post_sweeps: int = 1
+    mid_sweeps: int = 1
+    coarse_sweeps: int = 1
+    cycle_type: str = "V"  # only "V" is ported
+    interpolator: str = "constant"  # only "constant" (DrctIntp) is ported
+    # exact coarse solve: stop the hierarchy once a level has at most this
+    # many DOF and invert its assembled operator once
+    coarse_direct_max_dof: int = 4096
+    coarse_direct: bool = True
+    # FAC active-set relaxation: each coarse level relaxes only the region
+    # it is the finest representation of (the newly merged parents plus
+    # ``fac_active_ring`` rings of neighbours); "full" relaxes everywhere,
+    # as the reference does
+    fac_smoothing: str = "full"  # "full" | "active"
+    fac_active_ring: int = 1
+    # pre-sweeps below the finest level; 0 = use pre_sweeps everywhere
+    coarse_pre_sweeps: int = 0
+
+
+def _constant_prolong_matrix(n: int, half: int) -> np.ndarray:
+    """n×n 0/1 matrix: fine cell i of the (half)-child reads parent cell
+    ``(i + half*n)//2`` — piecewise-constant injection (``GMG::DrctIntp``)."""
+    W = np.zeros((n, n))
+    for i in range(n):
+        W[i, (i + half * n) // 2] = 1.0
+    return W
+
+
+def _restrict_matrix(n: int, half: int) -> np.ndarray:
+    """n×n matrix accumulating a full fine-child patch line into the
+    (half)-orthant of the parent line by cell averaging
+    (``GMG::AvgRstr``): parent cell ``j + half*n/2`` gets
+    ``(fine[2j] + fine[2j+1]) / 2`` per axis."""
+    R = np.zeros((n, n))
+    for j in range(n // 2):
+        J = j + half * (n // 2)
+        R[J, 2 * j] = 0.5
+        R[J, 2 * j + 1] = 0.5
+    return R
+
+
+class Transfer:
+    """Fine<->coarse transfer tables between two levels (constant
+    prolongation, the reference factory default)."""
+
+    def __init__(self, fine: Level, coarse: Level, prolong_mode: str = "constant"):
+        if prolong_mode != "constant":
+            raise NotImplementedError(
+                f"prolong_mode={prolong_mode!r}: only 'constant' is ported"
+            )
+        self.fine = fine
+        self.coarse = coarse
+        self.prolong_mode = prolong_mode
+        D, n = fine.D, fine.n
+        self.D, self.n = D, n
+        self._cells = n**D
+        dev = fine.device
+        npdt = np_dtype(fine.dtype)
+
+        def up(x):
+            return torch.as_tensor(x, device=dev)
+
+        self._wconst = [up(_constant_prolong_matrix(n, h).astype(npdt)) for h in range(2)]
+        self._wrstr = [up(_restrict_matrix(n, h).astype(npdt)) for h in range(2)]
+        pslots = parent_slots(fine.pl, coarse.pl)
+        passthrough = fine.pl.orth_on_parent < 0
+        orth = fine.pl.orth_on_parent
+
+        # prolongation sources: per orthant, the parents of the fine
+        # patches in that orthant, then the pass-through patches (padded
+        # dummy patches, parent slot -1, stay zero in both directions)
+        order = []  # fine slots in the concat order of the sources
+        self._groups = []  # (orthant, parent slots)
+        for o in range(1 << D):
+            sel = np.where((~passthrough) & (orth == o))[0]
+            if len(sel):
+                order.append(sel)
+                self._groups.append((o, up(pslots[sel])))
+        sel = np.where(passthrough & (pslots >= 0))[0]
+        self._pt_parent = None
+        if len(sel):
+            order.append(sel)
+            self._pt_parent = up(pslots[sel])
+
+        # restriction: per coarse patch, the fine slot of each orthant child
+        # (Pf = zero-pad row) and the pass-through fine slot
+        Pf, Pc = fine.P, coarse.P
+        child_slot = np.full((Pc, 1 << D), Pf, dtype=np.int64)
+        pt_slot = np.full(Pc, Pf, dtype=np.int64)
+        for i in range(Pf):
+            ps = pslots[i]
+            if ps < 0:
+                continue  # padded dummy patch
+            if passthrough[i]:
+                pt_slot[ps] = i
+            else:
+                child_slot[ps, orth[i]] = i
+        self._pt_slot = up(pt_slot)
+        # parent-compact restriction: on pass-through-heavy coarse levels
+        # most child_slot rows are padding — pool over just the parent rows
+        # and route back with one row gather
+        parents = np.where((child_slot < Pf).any(axis=1))[0]
+        self._r_inv = None
+        rows = child_slot
+        if Pc >= 256 and len(parents) < Pc // 2:
+            rows = child_slot[parents]
+            inv = np.full(Pc, len(parents), dtype=np.int64)  # pad row = zeros
+            inv[parents] = np.arange(len(parents))
+            self._r_inv = up(inv)
+        self._r_cols = [up(np.ascontiguousarray(rows[:, o])) for o in range(1 << D)]
+        # the source order inverted, so one row gather routes the
+        # prolonged blocks to their fine slots
+        order = np.concatenate(order) if order else np.zeros(0, dtype=np.int64)
+        inv = np.full(Pf, len(order), dtype=np.int64)  # pad row = zeros
+        inv[order] = np.arange(len(order))
+        self._prolong_inv = up(inv)
+
+    def _orthant_apply(self, blk_flat: torch.Tensor, o: int, axis_mats) -> torch.Tensor:
+        """Apply the orthant-``o`` per-axis transfer matrices to flat
+        ``[R, n^D]`` rows."""
+        D, n = self.D, self.n
+        blk = blk_flat.reshape((-1,) + (n,) * D)
+        for a in range(D):
+            M = axis_mats[(o >> a) & 1].to(blk.dtype)
+            blk = axis_matmul(M, blk, 1 + (D - 1 - a))
+        return blk.reshape(blk_flat.shape[0], -1)
+
+    def restrict(self, fine_u: torch.Tensor) -> torch.Tensor:
+        """Cell-averaging restriction into a new coarse-level vector: per
+        orthant, gather the full child patches by the coarse-side child
+        table and accumulate them through the averaging matrices."""
+        Pf = fine_u.shape[0]
+        cells = self._cells
+        fine_flat = torch.cat(
+            [fine_u.reshape(Pf, cells), fine_u.new_zeros(1, cells)], dim=0)
+        assembled = None
+        for o, cols in enumerate(self._r_cols):
+            block = self._orthant_apply(fine_flat.index_select(0, cols), o, self._wrstr)
+            assembled = block if assembled is None else assembled + block
+        if self._r_inv is not None:
+            assembled = torch.cat(
+                [assembled, assembled.new_zeros(1, cells)], dim=0
+            ).index_select(0, self._r_inv)
+        out = assembled + fine_flat.index_select(0, self._pt_slot)
+        return out.reshape((-1,) + tuple(fine_u.shape[1:]))
+
+    def prolong_add(self, coarse_u: torch.Tensor, fine_u: torch.Tensor) -> torch.Tensor:
+        """Constant prolongation, added into ``fine_u``: compute each orthant
+        group's blocks, stack them with the pass-through rows, and route
+        rows to fine slots with one precomputed row gather."""
+        cells = self._cells
+        cflat = coarse_u.reshape(coarse_u.shape[0], cells)
+        parts = [
+            self._orthant_apply(cflat.index_select(0, psel), o, self._wconst)
+            for o, psel in self._groups
+        ]
+        if self._pt_parent is not None:
+            parts.append(cflat.index_select(0, self._pt_parent))
+        if not parts:
+            return fine_u
+        parts.append(cflat.new_zeros(1, cells))
+        routed = torch.cat(parts, dim=0).index_select(0, self._prolong_inv)
+        return fine_u + routed.reshape(fine_u.shape)
+
+
+def _expand_ring(pl, active: np.ndarray, rings: int) -> np.ndarray:
+    """Expand a patch set by ``rings`` rings of face neighbours."""
+    active = active.copy()
+    for _ in range(rings):
+        cur = np.where(active)[0]
+        nbrs = pl.nbr_slot[cur].ravel()
+        fnbrs = pl.fine_nbr_slots[cur].ravel()
+        active[nbrs[nbrs >= 0]] = True
+        active[fnbrs[fnbrs >= 0]] = True
+    return active
+
+
+def _fac_active_mask(transfer: Transfer, ring: int):
+    """Coarse-level patches to relax under FAC active-set smoothing: the
+    parents newly merged from the finer level, expanded by ``ring`` rings
+    of face neighbours.  ``None`` when every patch is active."""
+    fine_pl, coarse_pl = transfer.fine.pl, transfer.coarse.pl
+    pslots = parent_slots(fine_pl, coarse_pl)
+    passthrough = fine_pl.orth_on_parent < 0
+    active = np.zeros(coarse_pl.num_patches, dtype=bool)
+    sel = pslots[(~passthrough) & (pslots >= 0)]
+    active[sel] = True
+    active = _expand_ring(coarse_pl, active, ring)
+    if active.all():
+        return None
+    return active
+
+
+class GMGCycle:
+    """A V-cycle over a level hierarchy, applied as ``u = M f``
+    (``GMG/Cycle.h:34-127``): the input is a residual-style RHS; the
+    initial guess is zero on every level."""
+
+    def __init__(self, levels: List[Level], transfers: List[Transfer], opts: CycleOpts):
+        assert len(transfers) == len(levels) - 1
+        if opts.cycle_type != "V":
+            raise NotImplementedError(
+                f"cycle_type={opts.cycle_type!r}: only the V-cycle is ported"
+            )
+        if opts.interpolator != "constant":
+            raise NotImplementedError(
+                f"interpolator={opts.interpolator!r}: only 'constant' is ported"
+            )
+        self.levels = levels
+        self.transfers = transfers
+        self.opts = opts
+        self._coarse_inv = None
+        if opts.coarse_direct and (
+            levels[-1].P * levels[-1].pl.cells_per_patch <= opts.coarse_direct_max_dof
+        ):
+            self._build_coarse_direct()
+        # FAC active-set state per level: an ActiveSmoother for the sweeps
+        # and one over nbr(active) for the first residual; ``_skip`` marks
+        # levels with nothing to relax
+        self._skip = [False] * len(levels)
+        self._asmooth: List[Optional[ActiveSmoother]] = [None] * len(levels)
+        self._aapply: List[Optional[ActiveSmoother]] = [None] * len(levels)
+        if opts.fac_smoothing == "active":
+            for k in range(1, len(levels)):
+                mask = _fac_active_mask(transfers[k - 1], opts.fac_active_ring)
+                if mask is None:
+                    continue
+                if not mask.any():
+                    self._skip[k] = True
+                    continue
+                self._asmooth[k] = ActiveSmoother(levels[k], mask)
+                # residual apply on nbr(active) only: after active-set
+                # smoothing u vanishes off the active set, so every
+                # nonzero row of A u lies within one ring of it
+                self._aapply[k] = ActiveSmoother(
+                    levels[k], _expand_ring(levels[k].pl, mask, 1), build_solver=False
+                )
+
+    def _build_coarse_direct(self) -> None:
+        from .matrix import assemble_composite
+
+        lvl = self.levels[-1]
+        A = assemble_composite(lvl.pl).toarray()
+        # Neumann problems have the constant nullspace -> pseudo-inverse
+        nr = lvl.pl.real_patches
+        phys = lvl.pl.nbr_type[:nr] == 0
+        all_neumann = bool(np.asarray(lvl.pl.neumann)[:nr][phys].all())
+        Ainv = np.linalg.pinv(A) if all_neumann else np.linalg.inv(A)
+        self._coarse_inv = torch.as_tensor(
+            Ainv.astype(np_dtype(lvl.dtype)), device=lvl.device)
+
+    def apply(self, f: torch.Tensor) -> torch.Tensor:
+        return self._visit(0, f)
+
+    def _pre(self, k: int) -> int:
+        if k == 0 or self.opts.coarse_pre_sweeps <= 0:
+            return self.opts.pre_sweeps
+        return self.opts.coarse_pre_sweeps
+
+    def _visit(self, k: int, f: torch.Tensor) -> torch.Tensor:
+        lvl = self.levels[k]
+        opts = self.opts
+        if k == len(self.levels) - 1:
+            if self._coarse_inv is not None:
+                sol = torch.mv(self._coarse_inv.to(f.dtype), f.reshape(-1))
+                return sol.reshape(f.shape)
+            if opts.coarse_sweeps <= 0:
+                return torch.zeros_like(f)
+            u = lvl.smooth_zero(f)
+            for _ in range(opts.coarse_sweeps - 1):
+                u = lvl.smooth(f, u)
+            return u
+        pre = self._pre(k)
+        if pre <= 0 or self._skip[k]:
+            u = torch.zeros_like(f)
+        else:
+            if self._asmooth[k] is not None:
+                u = self._asmooth[k].smooth_zero(f)
+            else:
+                u = lvl.smooth_zero(f)
+            for _ in range(pre - 1):
+                u = self._smooth(k, f, u)
+        u = self._correct(k, f, u, first=True)
+        for _ in range(opts.post_sweeps):
+            u = self._smooth(k, f, u)
+        return u
+
+    def _residual(self, k: int, f, u, first: bool):
+        """``f - A u`` on level ``k``; on the first pass of a level visit
+        ``u`` is zero off the active set, so the residual apply runs on
+        nbr(active) only (or is ``f`` exactly when nothing was relaxed)."""
+        if first and (self._skip[k] or self._pre(k) <= 0):
+            return f  # u = 0: nothing was relaxed on this level yet
+        if first and self._aapply[k] is not None:
+            return f - self._aapply[k].apply_scattered(u)
+        return f - self.levels[k].apply(u)
+
+    def _correct(self, k: int, f, u, first: bool):
+        """One coarse-grid correction: restrict the residual, visit the
+        coarser level, prolong the correction back (``GMG/Cycle.h:56-80``)."""
+        r = self._residual(k, f, u, first)
+        fc = self.transfers[k].restrict(r)
+        uc = self._visit(k + 1, fc)
+        return self.transfers[k].prolong_add(uc, u)
+
+    def _smooth(self, k: int, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """One block-Jacobi sweep on level ``k``; under FAC active-set
+        smoothing only the active patches are updated."""
+        if self._asmooth[k] is not None:
+            return self._asmooth[k].smooth(f, u)
+        if self._skip[k]:
+            return u
+        return self.levels[k].smooth(f, u)
+
+
+def build_gmg(
+    hierarchy: DomainHierarchy,
+    opts: Optional[CycleOpts] = None,
+    dtype: torch.dtype = torch.float64,
+    *,
+    device,
+    fine: Optional[Level] = None,
+) -> GMGCycle:
+    """Build the level stack + transfers (reference
+    ``GMG::CycleFactory2d::getCycle``, ``GMG/CycleFactory2d.cpp:69-134``):
+    stop adding levels when ``max_levels`` is reached or the coarsest level
+    is small enough for the direct solve.  ``fine`` reuses an existing
+    finest level of the same dtype."""
+    opts = opts or CycleOpts()
+    if fine is None:
+        fine = Level(hierarchy[0], dtype=dtype, device=device)
+    levels: List[Level] = [fine]
+    transfers: List[Transfer] = []
+    for k in range(1, len(hierarchy)):
+        if opts.max_levels > 0 and len(levels) >= opts.max_levels:
+            break
+        pl = hierarchy[k]
+        if pl.num_patches < opts.patches_per_shard:
+            break
+        if (
+            opts.coarse_direct
+            and levels[-1].P * levels[-1].pl.cells_per_patch
+            <= opts.coarse_direct_max_dof
+        ):
+            break  # current coarsest is small enough for a direct solve
+        lvl = Level(pl, dtype=dtype, device=device)
+        transfers.append(Transfer(levels[-1], lvl, prolong_mode=opts.interpolator))
+        levels.append(lvl)
+    return GMGCycle(levels, transfers, opts)

@@ -1,0 +1,665 @@
+"""Batched per-level operations (2D) in PyTorch.
+
+One :class:`Level` holds the index tables and spectral data of one
+refinement level, built in numpy and uploaded once, and exposes the
+main-path linear maps batched over the leading patch axis:
+
+* ``apply(u) -> A u`` — the composite-grid operator
+  (``SchurHelper.h:360-376``): boundary faces, the neighbour-face halo and
+  the refinement-boundary interpolation feed the ghost-closure stencil
+  kernel (:mod:`.ghost_stencil`).
+* ``smooth(f, u)`` / ``smooth_zero(f)`` — one block-Jacobi sweep of exact
+  spectral patch solves (``SchurHelper::solveWithSolution``).
+
+:class:`ActiveSmoother` is the FAC active-set form of the sweep on a
+static subset of patches.
+
+Port of ``pressurepoissonsolver_tpu.ops.level_ops``.  Layout: fields
+``[P, ny, nx]`` (x fastest), face vectors ``[P, 2D, m]``; index tables are
+int64.  TPU-only forms of the reference are not carried: the Kronecker
+spectral form, the one-hot placement fold and the refined-f32 f64 patch
+solve (the H100 has native f64).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import iface as iface_mod
+from ..domain import PatchLevel
+from . import transforms as tr
+from .ghost_stencil import ghost_stencil
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def np_dtype(dtype: torch.dtype):
+    """The numpy dtype of a floating torch dtype."""
+    return _NP_DTYPE[dtype]
+
+
+def _arr_axis(D: int, ref_axis: int) -> int:
+    """Array axis (in a [P, ...] patch array) for spatial axis ``ref_axis``."""
+    return 1 + (D - 1 - ref_axis)
+
+
+def extract_faces(u: torch.Tensor, D: int, n: int, depth: int = 1) -> torch.Tensor:
+    """Boundary-cell traces: ``[P, 2D*depth, m]`` with ``m = n**(D-1)``
+    (row order ``side * depth + d``, ``d`` cells inward)."""
+    P = u.shape[0]
+    faces = []
+    for a in range(D):
+        ax = _arr_axis(D, a)
+        for d in range(depth):
+            faces.append(u.select(ax, d).reshape(P, -1))
+        for d in range(depth):
+            faces.append(u.select(ax, n - 1 - d).reshape(P, -1))
+    return torch.stack(faces, dim=1)
+
+
+@dataclass(frozen=True)
+class _SolveGroup:
+    """Static metadata of one BC-homogeneous patch-solver batch."""
+
+    start: int
+    stop: int
+    fwd_kinds: Tuple[int, ...]  # per spatial axis
+    inv_kinds: Tuple[int, ...]
+    pin_dc: bool  # all-Neumann nullspace pin (FftwPatchSolver.h:197)
+
+
+@dataclass
+class _SolverTables:
+    """Spectral patch-solve data for a (subset of a) level, BC-sorted."""
+
+    perm: torch.Tensor  # [Ps] int64
+    inv_perm: torch.Tensor
+    identity_perm: bool
+    # factored per-axis eigenvalue rows (host, f64) and, per sorted slot
+    # and axis, the row it uses; ``denom`` is their per-cell sum, taken in
+    # f64 and cast afterwards (``_denom_of``), materialized once at setup
+    lam_tab: np.ndarray  # [K, n] f64
+    lam_idx: np.ndarray  # [Ps, D] int64
+    denom: torch.Tensor  # [Ps, *ns] in the table dtype
+    groups: List[_SolveGroup]
+    tmats: dict  # transform kind -> [n, n] tensor
+
+
+def _denom_of(lam_tab: np.ndarray, lam_idx: np.ndarray, D: int, n: int,
+              dtype: torch.dtype) -> np.ndarray:
+    """The 2D ``[Ps, n, n]`` eigen-denominator from the factored per-axis
+    rows: summed in f64, cast after (the reference's bit pattern)."""
+    Ps = lam_idx.shape[0]
+    rows = lam_tab[lam_idx.reshape(-1)].reshape(Ps, D, n)
+    dn = rows[:, 1][:, :, None] + rows[:, 0][:, None, :]  # [Ps, y, x]
+    return dn.astype(np_dtype(dtype))
+
+
+def _build_solver_tables(pl: PatchLevel, dtype: torch.dtype, slots: np.ndarray,
+                         device) -> _SolverTables:
+    """BC-grouped spectral solver tables for patch slots ``slots`` (the
+    reference's plan cache keyed on (neumann bits, h),
+    ``FftwPatchSolver.h:33-47``, generalized to an arbitrary patch subset
+    for the FAC active-set smoother)."""
+    D, n = pl.D, pl.n
+    Ps = len(slots)
+    keys = []
+    for p in slots:
+        keys.append(tuple(
+            tr.axis_transforms(bool(pl.neumann[p, 2 * a]), bool(pl.neumann[p, 2 * a + 1]))[:2]
+            for a in range(D)
+        ))
+    order = sorted(range(Ps), key=lambda i: (keys[i], i))
+    perm = np.array(order, dtype=np.int64)
+    inv_perm = np.empty(Ps, dtype=np.int64)
+    inv_perm[perm] = np.arange(Ps)
+
+    lam_keys: dict = {}
+    lam_rows: List[np.ndarray] = []
+    lam_idx = np.zeros((Ps, D), dtype=np.int64)
+    for i, si in enumerate(order):
+        p = slots[si]
+        for a in range(D):
+            delta = tr.axis_transforms(
+                bool(pl.neumann[p, 2 * a]), bool(pl.neumann[p, 2 * a + 1])
+            )[2]
+            hkey = (delta, float(pl.spacings[p, a]))
+            k = lam_keys.get(hkey)
+            if k is None:
+                k = lam_keys[hkey] = len(lam_rows)
+                lam_rows.append(tr.axis_eigenvalues(n, hkey[1], delta))
+            lam_idx[i, a] = k
+    lam_tab = np.stack(lam_rows) if lam_rows else np.zeros((1, n))
+
+    groups: List[_SolveGroup] = []
+    start = 0
+    while start < Ps:
+        stop = start
+        k = keys[order[start]]
+        while stop < Ps and keys[order[stop]] == k:
+            stop += 1
+        all_neu = bool(np.all(pl.neumann[slots[order[start]]]))
+        groups.append(_SolveGroup(
+            start=start, stop=stop,
+            fwd_kinds=tuple(kk[0] for kk in k),
+            inv_kinds=tuple(kk[1] for kk in k),
+            pin_dc=all_neu,
+        ))
+        start = stop
+    kinds_used = sorted({kk for g in groups for kk in g.fwd_kinds + g.inv_kinds})
+    npdt = np_dtype(dtype)
+    tmats = {
+        kk: torch.as_tensor(tr.transform_matrix(kk, n).astype(npdt), device=device)
+        for kk in kinds_used
+    }
+    return _SolverTables(
+        perm=torch.as_tensor(perm, device=device),
+        inv_perm=torch.as_tensor(inv_perm, device=device),
+        identity_perm=bool(np.all(perm == np.arange(Ps))),
+        lam_tab=lam_tab,
+        lam_idx=lam_idx,
+        denom=torch.as_tensor(_denom_of(lam_tab, lam_idx, D, n, dtype), device=device),
+        groups=groups,
+        tmats=tmats,
+    )
+
+
+def _fold_faces_flat(fc: torch.Tensor, gf: torch.Tensor, h2inv: torch.Tensor,
+                     D: int, n: int) -> torch.Tensor:
+    """``f_slice -= 2/h^2 * gf`` on every face
+    (``StarPatchOp::addInterfaceToRHS``, ``StarPatchOp.h:185-203``).
+
+    The reference's pad-spread sum, written as four face-slice updates of
+    one copy: each side's term lands on its boundary cells only."""
+    if D != 2:
+        raise NotImplementedError("the face fold is ported for 2D only")
+    h2 = h2inv.to(fc.dtype)
+    out = fc.clone()
+    out[:, :, 0] -= 2.0 * (h2[:, 0, None] * gf[:, 0])
+    out[:, :, n - 1] -= 2.0 * (h2[:, 0, None] * gf[:, 1])
+    out[:, 0, :] -= 2.0 * (h2[:, 1, None] * gf[:, 2])
+    out[:, n - 1, :] -= 2.0 * (h2[:, 1, None] * gf[:, 3])
+    return out
+
+
+def axis_matmul(M: torch.Tensor, x: torch.Tensor, ax: int) -> torch.Tensor:
+    """Apply the n×n matrix ``M`` along array axis ``ax`` (1 = y, 2 = x) of
+    a ``[P, n, n]`` field as one (batched) matmul, in full precision."""
+    return torch.matmul(x, M.t()) if ax == 2 else torch.matmul(M, x)
+
+
+def _spectral_apply(st: _SolverTables, fc: torch.Tensor, D: int, n: int) -> torch.Tensor:
+    """Batched spectral patch solves with the tables ``st``: per BC group,
+    forward transforms along each axis, the eigen-divide, the inverse
+    transforms and the ``(2/n)^D`` scale (``FftwPatchSolver.h:173-206``)."""
+    fs = fc if st.identity_perm else fc.index_select(0, st.perm)
+    denom = st.denom.to(fc.dtype)
+    scale = (2.0 / n) ** D
+    parts = []
+    for g in st.groups:
+        x = fs[g.start:g.stop]
+        for a in range(D):
+            x = axis_matmul(st.tmats[g.fwd_kinds[a]].to(x.dtype), x, _arr_axis(D, a))
+        x = x / denom[g.start:g.stop]
+        if g.pin_dc:
+            x[(slice(None),) + (0,) * D] = 0.0
+        for a in range(D):
+            x = axis_matmul(st.tmats[g.inv_kinds[a]].to(x.dtype), x, _arr_axis(D, a))
+        parts.append(x * scale)
+    us = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+    return us if st.identity_perm else us.index_select(0, st.inv_perm)
+
+
+@dataclass
+class _ContribPipeline:
+    """Trace-interpolation pipeline, gather form.
+
+    Scalar-weighted contributions (normal/c2c — the bulk) are stored
+    interface-major, padded to a uniform count ``Ks``, so the interface
+    reduction is a multiply + sum with no scatter; the matmul contributions
+    (refinement-boundary closures, in full precision) run case-sorted on
+    their own compact interface set and are added back with one padded
+    row gather.  Every gather is a row gather on the flattened
+    ``[P*S2f, m]`` face table."""
+
+    num_ifaces: int
+    Ks: int
+    idx_s: torch.Tensor  # [NIf*Ks] flat face-row ids (pad -> zero row)
+    w_s: torch.Tensor  # [NIf, Ks, 1] scalar weights (0 on pads)
+    idx_m: Optional[torch.Tensor]  # [Cm+1] flat face-row ids (last -> zero row)
+    mm_W: Optional[torch.Tensor]  # [m, ncase_m*m] all case templates stacked
+    mm_ncase: int
+    Km: int
+    mm_gather: Optional[torch.Tensor]  # [NIfm*Km] -> r*ncase+case (pad -> Cm*ncase)
+    mm_inv: Optional[torch.Tensor]  # [NIf] -> compact mm row (pad -> NIfm)
+
+    def interpolate(self, faces: torch.Tensor, m: int) -> torch.Tensor:
+        """gamma[NIf, m] from per-patch face traces [P, 2D*depth, m]."""
+        P, S2f = faces.shape[0], faces.shape[1]
+        ffp = torch.cat([faces.reshape(P * S2f, m), faces.new_zeros(1, m)], dim=0)
+        gs = ffp.index_select(0, self.idx_s).reshape(self.num_ifaces, self.Ks, m)
+        gamma = (gs * self.w_s.to(faces.dtype)).sum(dim=1)
+        if self.idx_m is not None:
+            # all case templates in ONE [Cm, m] @ [m, ncase*m] matmul; the
+            # per-row case selection is folded into the gather (row r,
+            # case k -> r*ncase + k); the last idx_m entry reads the zero
+            # face row, so row Cm*ncase is a guaranteed-zero pad
+            gm = ffp.index_select(0, self.idx_m)  # [Cm+1, m]
+            vals = torch.matmul(gm, self.mm_W.to(faces.dtype)).reshape(
+                gm.shape[0] * self.mm_ncase, m)
+            sums = vals.index_select(0, self.mm_gather).reshape(-1, self.Km, m).sum(dim=1)
+            sp = torch.cat([sums, sums.new_zeros(1, m)], dim=0)
+            gamma = gamma + sp.index_select(0, self.mm_inv)
+        return gamma
+
+
+def _build_contrib_pipeline(
+    contrib_patch: np.ndarray,
+    contrib_side: np.ndarray,
+    contrib_case: np.ndarray,
+    contrib_iface: np.ndarray,
+    num_ifaces: int,
+    case_T: np.ndarray,
+    case_scalar: list,
+    dtype: torch.dtype,
+    n_face_rows: int,
+    num_src_patches: int,
+    device,
+) -> _ContribPipeline:
+    flat = contrib_patch.astype(np.int64) * n_face_rows + contrib_side
+    pad_row = num_src_patches * n_face_rows  # the appended zero row
+    is_mm = np.array([case_scalar[int(k)] is None for k in contrib_case], dtype=bool)
+    # scalar part: interface-major, padded to uniform Ks
+    by_if = [[] for _ in range(num_ifaces)]
+    for c in np.where(~is_mm)[0]:
+        by_if[int(contrib_iface[c])].append(c)
+    Ks = max((len(v) for v in by_if), default=1) or 1
+    idx_s = np.full((num_ifaces, Ks), pad_row, dtype=np.int64)
+    w_s = np.zeros((num_ifaces, Ks, 1))
+    for i, v in enumerate(by_if):
+        for k, c in enumerate(v):
+            idx_s[i, k] = flat[c]
+            w_s[i, k, 0] = case_scalar[int(contrib_case[c])]
+    npdt = np_dtype(dtype)
+
+    def up(x):
+        return torch.as_tensor(x, device=device)
+
+    idx_m = mm_W = mm_gather = mm_inv = None
+    Km = ncase_m = 0
+    mc = np.where(is_mm)[0]
+    if len(mc):
+        order = mc[np.lexsort((mc, contrib_case[mc]))]
+        cs = contrib_case[order]
+        cases_present = sorted(set(int(k) for k in cs))
+        case_col = {k: j for j, k in enumerate(cases_present)}
+        ncase_m = len(cases_present)
+        W = np.concatenate([case_T[k].T for k in cases_present], axis=1)
+        mm_if = np.unique(contrib_iface[order])
+        remap = np.full(num_ifaces, -1, dtype=np.int64)
+        remap[mm_if] = np.arange(len(mm_if))
+        by_mm = [[] for _ in range(len(mm_if))]
+        for r, c in enumerate(order):
+            # row r of the merged matmul output, case block of c
+            by_mm[int(remap[contrib_iface[c]])].append(
+                r * ncase_m + case_col[int(contrib_case[c])]
+            )
+        Km = max(len(v) for v in by_mm)
+        pad_val = len(order) * ncase_m  # the appended zero-source row
+        gath = np.full((len(mm_if), Km), pad_val, dtype=np.int64)
+        for i, v in enumerate(by_mm):
+            gath[i, : len(v)] = v
+        inv = np.full(num_ifaces, len(mm_if), dtype=np.int64)
+        inv[mm_if] = np.arange(len(mm_if))
+        idx_m = up(np.concatenate([flat[order], [pad_row]]).astype(np.int64))
+        mm_W = up(np.asarray(W, dtype=npdt))
+        mm_gather = up(gath.reshape(-1))
+        mm_inv = up(inv)
+    return _ContribPipeline(
+        num_ifaces=num_ifaces,
+        Ks=Ks,
+        idx_s=up(idx_s.reshape(-1)),
+        w_s=up(np.asarray(w_s, dtype=npdt)),
+        idx_m=idx_m,
+        mm_W=mm_W,
+        mm_ncase=ncase_m,
+        Km=Km,
+        mm_gather=mm_gather,
+        mm_inv=mm_inv,
+    )
+
+
+class Level:
+    """Device tables + core ops for one 2D refinement level."""
+
+    def __init__(self, patch_level: PatchLevel, dtype: torch.dtype = torch.float64,
+                 *, device, iface_scheme: str = "bilinear"):
+        if patch_level.D != 2:
+            raise NotImplementedError("the port covers 2D levels only")
+        self.pl = patch_level
+        self.D = patch_level.D
+        self.n = patch_level.n
+        self.P = patch_level.num_patches
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.m = self.n ** (self.D - 1)
+
+        t = iface_mod.build_iface_tables(patch_level, scheme=iface_scheme)
+        self.tables = t
+        self.num_ifaces = t.num_ifaces
+        self.face_depth = t.face_depth
+        npdt = np_dtype(dtype)
+
+        # each case's (weights, source-index) template as a dense m×m
+        # matrix; cases that are a scalar multiple of the identity (normal
+        # = I/2, c2c = I/3 — the bulk) are applied as elementwise scalings
+        ncase = t.case_w.shape[0]
+        m = t.m
+        case_T = np.zeros((ncase, m, m))
+        for k in range(ncase):
+            for i in range(m):
+                for kk in range(t.case_w.shape[2]):
+                    w = t.case_w[k, i, kk]
+                    if w != 0.0:
+                        case_T[k, i, t.case_src[k, i, kk]] += w
+        self._case_T = case_T  # host f64 [ncase, m, m]
+        self._case_scalar = []
+        for k in range(ncase):
+            diag = np.diag(case_T[k])
+            if np.allclose(case_T[k], np.diag(diag)) and np.allclose(diag, diag[0] if m else 0):
+                self._case_scalar.append(float(diag[0]) if m else 0.0)
+            else:
+                self._case_scalar.append(None)
+
+        # direct gf pipeline: for a same-level interface the ghost closure
+        # collapses to the neighbour's boundary value (the classic halo),
+        # so only refinement-boundary interfaces need the contribution
+        # pipeline (a compact one)
+        self._build_gf_tables(t)
+
+        # stencil coefficients
+        h2inv = (1.0 / patch_level.spacings**2).astype(np.float64)
+        self.h2inv = torch.as_tensor(h2inv.astype(npdt), device=self.device)  # [P, D]
+        # ghost closure: ghost = c*u_b + 2*gamma; c=+1 Neumann, -1 otherwise
+        coef = np.where(patch_level.neumann, 1.0, -1.0)
+        self.ghost_coef = torch.as_tensor(coef.astype(npdt), device=self.device)
+        # apply path: own-face gf term folded into the ghost closure
+        # (ghost = (c + 2*w_own)*u_b + 2*w_mix*mix; 0 on direct sides);
+        # operands cast to the table dtype first, then combined
+        self.ghost_coef_eff = torch.as_tensor(
+            np.asarray(coef, dtype=npdt)
+            + np.asarray(2.0, dtype=npdt)
+            * np.asarray(self._gf_w_own_np[:, :, 0], dtype=npdt),
+            device=self.device,
+        )
+        self._cellvol = torch.as_tensor(
+            np.prod(patch_level.spacings, axis=1), device=self.device)
+        self._st = _build_solver_tables(
+            patch_level, dtype, np.arange(self.P, dtype=np.int64), self.device
+        )
+
+    def _build_gf_tables(self, t) -> None:
+        """Tables of the direct gf pipeline (see __init__)."""
+        D, P = self.D, self.P
+        S2 = 2 * D
+        S2f = S2 * self.face_depth
+        NR = P * S2f  # face-row count; combined source = [faces | gamma_ref | 0]
+        by_iface: dict = {}
+        for c in range(len(t.contrib_patch)):
+            by_iface.setdefault(int(t.contrib_iface[c]), []).append(c)
+        isidx = np.asarray(t.iface_side_idx)
+        ismask = np.asarray(t.iface_side_mask)
+        readers: dict = {}
+        for p in range(P):
+            for s in range(S2):
+                if ismask[p, s]:
+                    readers.setdefault(int(isidx[p, s]), []).append((p, s))
+        # direct = exactly two scalar-0.5 contributions, each being the
+        # boundary face row of one of the interface's two reader sides
+        direct = {}
+        for i, lst in by_iface.items():
+            if len(lst) != 2 or len(readers.get(i, ())) != 2:
+                continue
+            ok = all(
+                self._case_scalar[int(t.contrib_case[c])] == 0.5
+                and int(t.contrib_side[c]) % self.face_depth == 0
+                for c in lst
+            )
+            crows = {
+                int(t.contrib_patch[c]) * S2f + int(t.contrib_side[c])
+                for c in lst
+            }
+            orows = {
+                p * S2f + s * self.face_depth for p, s in readers[i]
+            }
+            if ok and crows == orows:
+                direct[i] = lst
+        ref_ids = np.array(
+            sorted(i for i in by_iface if i not in direct), dtype=np.int64
+        )
+        ref_remap = np.full(max(t.num_ifaces, 1), -1, dtype=np.int64)
+        ref_remap[ref_ids] = np.arange(len(ref_ids))
+        self._nref = len(ref_ids)
+        self._gf_ref_pipe = None
+        if self._nref:
+            keep = ref_remap[t.contrib_iface] >= 0
+            self._gf_ref_pipe = _build_contrib_pipeline(
+                t.contrib_patch[keep], t.contrib_side[keep],
+                t.contrib_case[keep], ref_remap[t.contrib_iface[keep]],
+                self._nref, self._case_T, self._case_scalar, self.dtype, S2f, P,
+                self.device,
+            )
+        mix_idx = np.full((P, S2), NR + self._nref, dtype=np.int64)  # pad->0 row
+        w_own = np.zeros((P, S2, 1))
+        w_mix = np.zeros((P, S2, 1))
+        for p in range(P):
+            for s in range(S2):
+                if not ismask[p, s]:
+                    continue
+                i = int(isidx[p, s])
+                if i in direct:
+                    own_row = p * S2f + s * self.face_depth
+                    rows = [
+                        int(t.contrib_patch[c]) * S2f + int(t.contrib_side[c])
+                        for c in direct[i]
+                    ]
+                    if own_row in rows:
+                        rows.remove(own_row)
+                        mix_idx[p, s] = rows[0]
+                        w_own[p, s] = 0.5
+                        w_mix[p, s] = 0.5
+                        continue
+                # refinement (or irregular) side: gf = full gamma of iface i
+                mix_idx[p, s] = NR + ref_remap[i]
+                w_mix[p, s] = 1.0
+                if ref_remap[i] < 0:  # direct iface read by a third side
+                    mix_idx[p, s] = NR + self._nref  # cannot happen; pad
+        npdt = np_dtype(self.dtype)
+        self._gf_mix_idx = torch.as_tensor(mix_idx.reshape(-1), device=self.device)
+        self._gf_w_own_np = w_own  # host copy (ghost_coef_eff derives from it)
+        self._gf_w_own = torch.as_tensor(w_own.astype(npdt), device=self.device)
+        self._gf_w_mix = torch.as_tensor(w_mix.astype(npdt), device=self.device)
+
+    def _gf_parts(self, u: torch.Tensor):
+        """``(w_mix * mix, own)`` of the direct gf pipeline, both
+        ``[P, 2D, m]`` (direct sides: halo of neighbour faces; refinement
+        sides: compact contribution pipeline)."""
+        D, m, P = self.D, self.m, self.P
+        S2 = 2 * D
+        if self.num_ifaces == 0:
+            z = u.new_zeros(P, S2, m)
+            return z, z
+        faces = extract_faces(u, D, self.n, self.face_depth)  # [P, S2f, m]
+        ff = faces.reshape(-1, m)
+        own = faces.reshape(P, S2, self.face_depth, m)[:, :, 0]  # [P, S2, m]
+        srcs = [ff]
+        if self._gf_ref_pipe is not None:
+            srcs.append(self._gf_ref_pipe.interpolate(faces, m))
+        srcs.append(u.new_zeros(1, m))
+        mix = torch.cat(srcs, dim=0).index_select(0, self._gf_mix_idx).reshape(P, S2, m)
+        return self._gf_w_mix.to(u.dtype) * mix, own
+
+    def _gf_faces(self, u: torch.Tensor) -> torch.Tensor:
+        """Per-patch-side interface traces ``[P, 2D, m]``."""
+        mix_scaled, own = self._gf_parts(u)
+        return self._gf_w_own.to(u.dtype) * own + mix_scaled
+
+    def apply(self, u: torch.Tensor) -> torch.Tensor:
+        """Composite-grid operator ``A u`` (``SchurHelper.h:360-376``):
+        ``ghost = c*u_b + 2*(w_own*u_b + w_mix*mix)``, with the own-face
+        term folded into the effective ghost coefficient ``c + 2*w_own``
+        (exactly 0 on direct sides, where the ghost is the neighbour-face
+        halo), through the ghost-stencil kernel."""
+        u = u.contiguous()
+        mix_scaled, _ = self._gf_parts(u)
+        return ghost_stencil(
+            u, mix_scaled, self.ghost_coef_eff.to(u.dtype), self.h2inv.to(u.dtype)
+        )
+
+    def smooth(self, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """One FFT block-Jacobi sweep (``SchurHelper::solveWithSolution``)."""
+        fc = _fold_faces_flat(f, self._gf_faces(u), self.h2inv, self.D, self.n)
+        return _spectral_apply(self._st, fc, self.D, self.n)
+
+    def smooth_zero(self, f: torch.Tensor) -> torch.Tensor:
+        """``smooth(f, 0)``: with a zero iterate the traces vanish, so the
+        sweep is just the batched spectral solve."""
+        return _spectral_apply(self._st, f, self.D, self.n)
+
+    def integrate(self, u: torch.Tensor) -> torch.Tensor:
+        """Volume integral (``Domain.h:258-278``), in f64."""
+        sums = u.reshape(self.P, -1).sum(dim=1)
+        return (sums * self._cellvol).sum()
+
+    @property
+    def volume(self) -> float:
+        return self.pl.volume()
+
+    def zeros(self) -> torch.Tensor:
+        return torch.zeros((self.P,) + self.pl.ns_shape, dtype=self.dtype,
+                           device=self.device)
+
+
+class ActiveSmoother:
+    """FAC active-set block-Jacobi smoother, subset-compute form.
+
+    One sweep replaces the iterate on a static subset of patches with their
+    exact patch solves (traces interpolated from the full current iterate);
+    every other patch is left untouched.  Only the interfaces adjacent to
+    active patches are interpolated and only active patches are solved, so
+    a sweep costs O(active) instead of O(level) (classical FAC relaxation;
+    the reference relaxes every patch, ``GMG/FFTBlockJacobiSmoother.h:31-59``).
+    """
+
+    def __init__(self, level: Level, active: np.ndarray, build_solver: bool = True):
+        self.level = level
+        D, n, m = level.D, level.n, level.m
+        self.D, self.n, self.m = D, n, m
+        P = level.P
+        dev = level.device
+        act = np.where(np.asarray(active))[0].astype(np.int64)
+        self.act = act
+        self.Pa = len(act)
+        self._act = torch.as_tensor(act, device=dev)
+        inv = np.full(P, self.Pa, dtype=np.int64)  # pad row = untouched
+        inv[act] = np.arange(self.Pa)
+        self._inv = torch.as_tensor(inv, device=dev)
+        self._mask = torch.as_tensor(
+            np.asarray(active, dtype=bool).reshape((P,) + (1,) * D), device=dev)
+
+        t = level.tables
+        # interfaces the active patches read: remap to a compact range
+        ii = np.asarray(t.iface_side_idx)[act]  # [Pa, 2D]
+        mm = np.asarray(t.iface_side_mask)[act] > 0
+        needed = np.unique(ii[mm]) if mm.any() else np.zeros(0, dtype=np.int64)
+        self.num_sub_ifaces = len(needed)
+        remap = np.full(max(t.num_ifaces, 1), -1, dtype=np.int64)
+        remap[needed] = np.arange(len(needed))
+
+        # reduced contribution pipeline: only contributions that land on a
+        # needed interface, sourcing faces from just the contributing
+        # patches (active + their face neighbours)
+        keep = remap[t.contrib_iface] >= 0
+        cp = t.contrib_patch[keep]
+        src = np.unique(cp).astype(np.int64) if len(cp) else np.zeros(0, dtype=np.int64)
+        src_remap = np.full(P, -1, dtype=np.int64)
+        src_remap[src] = np.arange(len(src))
+        self._src = torch.as_tensor(src, device=dev)
+        self._pipe = _build_contrib_pipeline(
+            src_remap[cp],
+            t.contrib_side[keep],
+            t.contrib_case[keep],
+            remap[t.contrib_iface[keep]],
+            self.num_sub_ifaces,
+            level._case_T,
+            level._case_scalar,
+            level.dtype,
+            2 * D * level.face_depth,
+            len(src),
+            dev,
+        )
+        # flattened per-(active patch, side) gamma routing (masked -> pad)
+        gidx = np.asarray(remap[ii], dtype=np.int64).copy()
+        gidx[~mm] = self.num_sub_ifaces
+        self._g_flat = torch.as_tensor(gidx.reshape(-1), device=dev)
+
+        self._st = (
+            _build_solver_tables(level.pl, level.dtype, act, dev) if build_solver else None
+        )
+        self._h2inv_act = level.h2inv.index_select(0, self._act)
+        self._ghost_act = level.ghost_coef.index_select(0, self._act)
+
+    def _gamma_faces(self, u: torch.Tensor) -> torch.Tensor:
+        """[Pa, 2D, m] interface traces at the active patches' faces,
+        interpolated from the full iterate via the reduced pipeline."""
+        faces = extract_faces(
+            u.index_select(0, self._src), self.D, self.n, self.level.face_depth
+        )
+        gamma = self._pipe.interpolate(faces, self.m)  # [NIsub, m]
+        gp = torch.cat([gamma, gamma.new_zeros(1, self.m)], dim=0)
+        return gp.index_select(0, self._g_flat).reshape(self.Pa, 2 * self.D, self.m)
+
+    def _scatter(self, sol: torch.Tensor, base: Optional[torch.Tensor]) -> torch.Tensor:
+        """Route the active solves back to their level slots (row gather,
+        no scatter), leaving ``base`` elsewhere (zero when ``None``: the
+        pad row the other slots read is zero)."""
+        sol_pad = torch.cat([sol, sol.new_zeros((1,) + sol.shape[1:])], dim=0)
+        routed = sol_pad.index_select(0, self._inv)
+        return routed if base is None else torch.where(self._mask, routed, base)
+
+    def smooth(self, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        fa = f.index_select(0, self._act)
+        if self.num_sub_ifaces:
+            fa = _fold_faces_flat(fa, self._gamma_faces(u), self._h2inv_act,
+                                  self.D, self.n)
+        sol = _spectral_apply(self._st, fa, self.D, self.n)
+        return self._scatter(sol, u)
+
+    def smooth_zero(self, f: torch.Tensor) -> torch.Tensor:
+        """``smooth(f, 0)`` — traces vanish, so just the subset solves."""
+        sol = _spectral_apply(self._st, f.index_select(0, self._act), self.D, self.n)
+        return self._scatter(sol, None)
+
+    def apply_scattered(self, u: torch.Tensor) -> torch.Tensor:
+        """``A u`` scattered into a zero field, computed on the subset only
+        (through the ghost-stencil kernel).
+
+        Exact for the full composite operator whenever ``u`` vanishes
+        outside a set A with nbr(A) ⊆ this subset: every nonzero row of
+        ``A u`` is then in the subset.  Used for the FAC coarse-level
+        residual ``r = f − A u`` after active-set pre-smoothing."""
+        if self.num_sub_ifaces:
+            gf = self._gamma_faces(u)
+        else:
+            gf = u.new_zeros(self.Pa, 2 * self.D, self.m)
+        out = ghost_stencil(
+            u.index_select(0, self._act),
+            gf,
+            self._ghost_act.to(u.dtype),
+            self._h2inv_act.to(u.dtype),
+        )
+        return self._scatter(out, None)
