@@ -10,20 +10,27 @@ Phases, any failure of which raises and exits non-zero:
 
 1. require CUDA; turn TF32 off for matmuls and convolutions; print the
    card's name and power limit;
-2. build the CUDA kernels from ``pressurepoissonsolver_torch/csrc``;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, and time both with CUDA events;
-4. drive the main path: the 2D adaptive composite-grid solve of
-   ``bench.py`` (``refined_tree(2, 5, 2)`` refined once, n=64, 4,292,608
-   DOF, ``trig`` problem) with ``PoissonSolver.solve_refined`` — f64
-   iterative refinement around f32 BiCGStab preconditioned by a V(2,1)
-   FAC cycle with active-set smoothing — to a relative residual of 1e-10;
-   check the result against the JAX reference's numbers and check that
-   the solve went through the kernels;
+2. build the CUDA kernels from ``pressurepoissonsolver_torch/csrc``, one
+   ``nvcc`` per source, all started together;
+3. 2D: hold the 2D kernel against its plain PyTorch version on the card,
+   at the main path's shapes, and time both with CUDA events; drive the 2D
+   main path: the adaptive composite-grid solve of ``bench.py``
+   (``refined_tree(2, 5, 2)`` refined once, n=64, 4,292,608 DOF, ``trig``
+   problem) with ``PoissonSolver.solve_refined`` — f64 iterative
+   refinement around f32 BiCGStab preconditioned by a V(2,1) FAC cycle
+   with active-set smoothing — to a relative residual of 1e-10; check the
+   result against the JAX reference's numbers and check that the solve
+   went through the 2D kernel;
+4. 3D: the same for the 3D kernel and the 3D FAC solve of
+   ``scripts/bench3d.py`` with its defaults, on a generated mesh
+   (``refined_tree(3, 3, 2)`` refined once, n=32, 624 patches, 20,447,232
+   DOF, V(1,1) with full FAC smoothing, ``trig`` problem); then a profile
+   of one 3D solve;
 5. print the kernel table, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -37,12 +44,29 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 
-# the JAX reference on this configuration (pressurepoissonsolver_tpu,
+# the JAX reference on the 2D configuration (pressurepoissonsolver_tpu,
 # CPU): 3 outer / 7 inner iterations, relative error 8.931e-7; and on the
-# small test mesh (refined_tree(2, 4, 2), n=8, coarse_direct_max_dof=64):
+# small 2D test mesh (refined_tree(2, 4, 2), n=8, coarse_direct_max_dof=64):
 # 3 outer / 7 inner, relative error 9.151817836e-4
 BENCH_ERROR = 8.931e-7
 SMALL_ERROR = 9.151817836e-4
+# the JAX reference on the 3D configuration (CPU): 2 outer / 7 inner,
+# relative error 8.968628605e-6; and on the small 3D mesh (the same tree
+# without the refinement, n=8, 78 patches): 2 / 7, error 5.739378412e-4
+BENCH3D_ERROR = 8.968628605e-6
+SMALL3D_ERROR = 5.739378412e-4
+
+# H100 SXM: device-memory rate, and peak rates outside the tensor cores
+# (NVIDIA's data sheet: 67 TFLOP/s float32, 34 TFLOP/s float64)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# the Pallas kernel each CUDA kernel replaces, per dimension
+REPLACES = {2: "pressurepoissonsolver_tpu/ops/pallas_stencil.py:87",
+            3: "pressurepoissonsolver_tpu/ops/pallas_stencil.py:231"}
+SOURCES = {2: "pressurepoissonsolver_torch/csrc/ghost_stencil.cu",
+           3: "pressurepoissonsolver_torch/csrc/ghost_stencil_3d.cu"}
+# patch shape (P, n) off the main path, with a ragged last tile
+ODD_SHAPE = {2: (37, 12), 3: (37, 6)}
 
 
 def card_line() -> str:
@@ -64,30 +88,46 @@ def stencil_shapes(solver):
     return {"float32": sorted(f32, reverse=True), "float64": [(solver.fine_level.P, n)]}
 
 
-def check_kernels(torch, gs, timer, card, shapes):
-    """Phase 3: the ghost stencil against its plain version at every shape
-    of the main path and at an odd one (P=37, n=12), in f32 and f64; device
+def kernel_bound(D, args, out):
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    one call, from the bytes it must move (each input read once, the output
+    written once) and the flops it does (5D - 1 per cell, 3 more per
+    ghost)."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, out))
+    P, n = args[0].shape[0], args[0].shape[1]
+    flops = P * (n**D * (5 * D - 1) + 2 * D * n ** (D - 1) * 3)
+    name = str(out.dtype).replace("torch.", "")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernels(torch, gs, timer, card, D, shapes):
+    """The ``D``-dimensional ghost stencil against its plain version at
+    every shape of the main path and at an odd one, in f32 and f64; device
     and host-paced times at the finest shape and the odd one."""
+    kernel = gs.ghost_stencil if D == 2 else gs.ghost_stencil_3d
+    plain = gs.ghost_stencil_plain if D == 2 else gs.ghost_stencil_3d_plain
     rng = np.random.default_rng(SEED)
     table = {}
     for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         name = str(dtype).replace("torch.", "")
         main = shapes[name]
-        for P, n in main + [(37, 12)]:
-            timed = (P, n) in (main[0], (37, 12))
-            u = rng.standard_normal((P, n, n))
-            gf = rng.standard_normal((P, 4, n))
-            coef = rng.choice([-1.0, 0.0, 1.0], size=(P, 4))
+        for P, n in main + [ODD_SHAPE[D]]:
+            timed = (P, n) in (main[0], ODD_SHAPE[D])
+            u = rng.standard_normal((P,) + (n,) * D)
+            gf = rng.standard_normal((P, 2 * D, n ** (D - 1)))
+            coef = rng.choice([-1.0, 0.0, 1.0], size=(P, 2 * D))
             h = 1.0 / (n * 2.0 ** rng.integers(2, 7, size=(P, 1)))
-            h2 = np.repeat(1.0 / h**2, 2, axis=1)
+            h2 = np.repeat(1.0 / h**2, D, axis=1)
             args = [torch.as_tensor(a, dtype=dtype, device="cuda")
                     for a in (u, gf, coef, h2)]
-            out_k = gs.ghost_stencil(*args)
-            out_p = gs.ghost_stencil_plain(*args)
+            out_k = kernel(*args)
+            out_p = plain(*args)
             torch.cuda.synchronize()
             err = float((out_k - out_p).abs().max())
             scale = float(out_p.abs().max())
-            line = (f"kernel ghost_stencil_2d {name} P={P} n={n} [{card}]: "
+            line = (f"kernel ghost_stencil_{D}d {name} P={P} n={n} [{card}]: "
                     f"max_abs_err={err:.3e} max|out|={scale:.3e} (limit "
                     f"{rtol:g}*max|out|)")
             if not err <= rtol * scale:
@@ -98,23 +138,29 @@ def check_kernels(torch, gs, timer, card, shapes):
             # device time (stream held until all calls are queued) and the
             # host-paced time of back-to-back calls, kernel and plain
             t = {}
-            for label, fn in (("kernel", lambda: gs.ghost_stencil(*args)),
-                              ("plain", lambda: gs.ghost_stencil_plain(*args))):
+            for label, fn in (("kernel", lambda: kernel(*args)),
+                              ("plain", lambda: plain(*args))):
                 for hold in (True, False):
                     t[label, hold] = timer.cuda_median_ms(fn, reps=50, hold=hold)
             ms, plain_ms = t["kernel", True], t["plain", True]
-            gbs = 2 * P * n * n * out_k.element_size() / (ms * 1e-3) / 1e9
+            bound_ms, bound_by = kernel_bound(D, args, out_k)
+            gbs = ((2 * P * n**D + 2 * D * P * n ** (D - 1)) * out_k.element_size()
+                   / (ms * 1e-3) / 1e9)
             print(f"{line}; device ms: kernel {ms:.5f} ({gbs:.0f} GB/s of "
-                  f"compulsory traffic) plain {plain_ms:.5f}; host-paced ms: "
-                  f"kernel {t['kernel', False]:.5f} plain "
+                  f"u, gf and out; bound {bound_ms:.5f} ms by {bound_by} = "
+                  f"{100 * bound_ms / ms:.1f}% of it) plain {plain_ms:.5f}; "
+                  f"host-paced ms: kernel {t['kernel', False]:.5f} plain "
                   f"{t['plain', False]:.5f}", flush=True)
             if (P, n) == main[0]:
-                table[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                # no single PyTorch call computes the ghost-closure stencil
+                table[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by,
+                               "library_ms": None}
     return table
 
 
 def solve_small(torch, port):
-    """A small solve on the card, held to the reference's numbers."""
+    """A small 2D solve on the card, held to the reference's numbers."""
     tree = port.refined_tree(2, 4, 2)
     hier = port.DomainHierarchy(tree, n=8)
     opts = port.SolveOptions(
@@ -134,49 +180,91 @@ def solve_small(torch, port):
     assert abs(rep["error"] - SMALL_ERROR) <= 1e-6 * SMALL_ERROR, rep
 
 
-def setup_bench(torch, port, card):
-    """The bench problem's solver, right-hand side and exact solution."""
+def solve_small_3d(torch, port):
+    """A small 3D solve on the card with the 3D bench's options, held to
+    the reference's numbers."""
+    hier = port.DomainHierarchy(port.refined_tree(3, 3, 2), n=8)
+    opts = port.SolveOptions(tol=1e-10, dtype=torch.float64,
+                             precond_dtype=torch.float32)
+    solver = port.PoissonSolver(hier, opts, device="cuda")
+    f, exact = port.init_problem(hier.finest, port.get_problem("trig", 3))
+    u, info = solver.solve_refined(f, tol=1e-10)
+    rep = solver.report(u, f, exact)
+    print(f"small 3D solve (78 patches, n=8): outer {info['outer_iterations']} "
+          f"inner {info['inner_iterations']} residual {rep['residual']:.3e} "
+          f"error {rep['error']:.10e}", flush=True)
+    assert tuple(u.shape) == (78, 8, 8, 8)
+    assert info["outer_iterations"] == 2, info
+    assert 6 <= info["inner_iterations"] <= 8, info
+    assert rep["residual"] <= 1e-10, rep
+    assert abs(rep["error"] - SMALL3D_ERROR) <= 1e-6 * SMALL3D_ERROR, rep
+
+
+def setup_bench(torch, port, card, D, base, corner, n, gmg):
+    """A bench problem's solver, right-hand side and exact solution: the
+    tree ``refined_tree(D, base, corner)`` refined once, at patch size n."""
     t0 = time.perf_counter()
-    tree = port.refined_tree(2, 5, 2)
+    tree = port.refined_tree(D, base, corner)
     tree.refine_leaves()
-    hier = port.DomainHierarchy(tree, n=64)
-    opts = port.SolveOptions(
-        tol=1e-10, dtype=torch.float64, precond_dtype=torch.float32,
-        gmg=port.CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
-                             coarse_direct_max_dof=4096))
+    hier = port.DomainHierarchy(tree, n=n)
+    opts = port.SolveOptions(tol=1e-10, dtype=torch.float64,
+                             precond_dtype=torch.float32, gmg=gmg)
     solver = port.PoissonSolver(hier, opts, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     dof = hier.finest.num_cells
-    f_np, exact_np = port.init_problem(hier.finest, port.get_problem("trig", 2))
+    f_np, exact_np = port.init_problem(hier.finest, port.get_problem("trig", D))
     f = torch.as_tensor(f_np, dtype=torch.float64, device="cuda")
     exact = torch.as_tensor(exact_np, dtype=torch.float64, device="cuda")
-    print(f"bench mesh [{card}]: {dof} DOF, patches per level "
+    label = "bench mesh" if D == 2 else "3D bench mesh"
+    print(f"{label} [{card}]: {dof} DOF, patches per level "
           f"{[pl.num_patches for pl in hier.levels]}, GMG levels "
           f"{len(solver.gmg.levels)}, setup {setup_s:.3f} s", flush=True)
-    return solver, f, exact
+    return solver, f, exact, setup_s
 
 
-def solve_bench(torch, solver, f, exact, gs, timer, card):
-    """Phase 4: the bench problem through the port's main path."""
-    dof = solver.fine_level.pl.num_cells
+def timed_solves(torch, solver, f, exact, card, label, gs, counts, **kw):
+    """One warm-up and three timed ``solve_refined`` calls, with every
+    launch count set to 0 just before them; the last solution, its info
+    and report, and ``counts`` as read just after the solves."""
     gs.reset_launches()
     times = []
-    for rep_i in range(4):  # one warm-up, three timed
+    for rep_i in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        u, info = solver.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+        u, info = solver.solve_refined(f, tol=1e-10, **kw)
         torch.cuda.synchronize()
         if rep_i:
             times.append(time.perf_counter() - t0)
-    launches = dict(gs.launches)
+    launches = dict(counts)
     rep = solver.report(u, f, exact)
+    dof = solver.fine_level.pl.num_cells
     best = min(times)
-    print(f"bench solve [{card}]: outer {info['outer_iterations']} inner "
+    print(f"{label} [{card}]: outer {info['outer_iterations']} inner "
           f"{info['inner_iterations']} residual {rep['residual']:.3e} error "
           f"{rep['error']:.6e} best {best:.6f} s of {[round(t, 6) for t in times]}"
-          f" -> {dof / best:.1f} DOF/s; kernel launches in the 4 solves "
-          f"{launches}", flush=True)
+          f" -> {dof / best:.1f} DOF/s", flush=True)
+    return u, info, rep, launches
+
+
+def time_applies(torch, solver, u, timer, card, label):
+    """Whole composite applies (gf gathers + kernel) at the bench size:
+    device time and host-paced time."""
+    u32 = u.to(torch.float32)
+    for name, lvl, x in (("f32", solver._fine_low, u32), ("f64", solver.fine_level, u)):
+        dev_ms = timer.cuda_median_ms(lambda: lvl.apply(x), reps=50, hold=True)
+        host_ms = timer.cuda_median_ms(lambda: lvl.apply(x), reps=50)
+        print(f"{label} {name} [{card}]: device {dev_ms:.5f} ms, host-paced "
+              f"{host_ms:.5f} ms", flush=True)
+
+
+def solve_bench(torch, solver, f, exact, gs, timer, card):
+    """The 2D bench problem through the port's main path."""
+    u, info, rep, launches = timed_solves(torch, solver, f, exact, card,
+                                          "bench solve", gs, gs.launches,
+                                          inner_tol=1e-4)
+    print(f"bench solve kernel launches in the 4 solves: 2D {launches}",
+          flush=True)
     assert tuple(u.shape) == (solver.fine_level.P, 64, 64)
     assert bool(torch.isfinite(u).all())
     assert rep["residual"] <= 1e-10, rep
@@ -185,21 +273,15 @@ def solve_bench(torch, solver, f, exact, gs, timer, card):
     assert abs(rep["error"] - BENCH_ERROR) <= 0.01 * BENCH_ERROR, rep
     for name, cnt in launches.items():
         assert cnt > 0, f"the solve launched no {name} ghost_stencil kernel"
+    assert not any(gs.launches_3d.values()), "the 2D solves launched a 3D kernel"
 
-    # whole composite applies (gf gathers + kernel) at the bench size:
-    # device time and host-paced time
-    low = solver._fine_low
-    u32 = u.to(torch.float32)
-    for name, lvl, x in (("f32", low, u32), ("f64", solver.fine_level, u)):
-        dev_ms = timer.cuda_median_ms(lambda: lvl.apply(x), reps=50, hold=True)
-        host_ms = timer.cuda_median_ms(lambda: lvl.apply(x), reps=50)
-        print(f"apply {name} [{card}]: device {dev_ms:.5f} ms, host-paced "
-              f"{host_ms:.5f} ms", flush=True)
+    time_applies(torch, solver, u, timer, card, "apply")
 
     # cost of the per-iteration host read of BiCGStab's stop test: the
     # same 7 inner iterations with and without a scalar read after each
     from pressurepoissonsolver_torch import krylov
 
+    low = solver._fine_low
     r32 = f.to(torch.float32)
     walls = {}
     for mode in ("read", "noread") * 4:
@@ -218,43 +300,83 @@ def solve_bench(torch, solver, f, exact, gs, timer, card):
           f"without {nr:.6f} s {[round(w, 6) for w in walls['noread']]}",
           flush=True)
 
-    profile_solve(torch, solver, f, card)
+    profile_solve(torch, card, "profile",
+                  lambda: solver.solve_refined(f, tol=1e-10, inner_tol=1e-4))
     return launches
 
 
-def profile_solve(torch, solver, f, card) -> None:
-    """Device busy share and kernel-time breakdown of one bench solve
-    (torch.profiler; diagnostic only — reported as not measured if the
-    profiler gives no device time)."""
+def solve_bench_3d(torch, solver, f, exact, gs, timer, card):
+    """The 3D bench problem (``scripts/bench3d.py``) through the port."""
+    u, info, rep, launches = timed_solves(torch, solver, f, exact, card,
+                                          "3D bench solve", gs, gs.launches_3d)
+    print(f"3D bench solve kernel launches in the 4 solves: 3D {launches}",
+          flush=True)
+    n = solver.fine_level.n
+    assert tuple(u.shape) == (solver.fine_level.P, n, n, n)
+    assert bool(torch.isfinite(u).all())
+    assert rep["residual"] <= 1e-10, rep
+    assert info["outer_iterations"] == 2, info
+    assert 6 <= info["inner_iterations"] <= 8, info
+    assert abs(rep["error"] - BENCH3D_ERROR) <= 0.01 * BENCH3D_ERROR, rep
+    for name, cnt in launches.items():
+        assert cnt > 0, f"the 3D solve launched no {name} 3D ghost_stencil kernel"
+    assert not any(gs.launches.values()), "the 3D solves launched a 2D kernel"
+
+    time_applies(torch, solver, u, timer, card, "3D apply")
+    # the refinement-boundary case-template matmul inside each finest apply
+    for lvl in (solver._fine_low, solver.fine_level):
+        pipe = lvl._gf_ref_pipe
+        gm = torch.randn(pipe.idx_m.shape[0], lvl.m, dtype=lvl.dtype, device="cuda")
+        ms = timer.cuda_median_ms(lambda: torch.matmul(gm, pipe.mm_W), reps=50, hold=True)
+        print(f"3D case-template matmul {str(lvl.dtype)[6:]} "
+              f"[{gm.shape[0]}, {lvl.m}] @ {list(pipe.mm_W.shape)} [{card}]: "
+              f"device {ms:.5f} ms", flush=True)
+
+    profile_solve(torch, card, "3D profile", lambda: solver.solve_refined(f, tol=1e-10))
+    return launches
+
+
+def profile_solve(torch, card, label, solve) -> None:
+    """Device busy share and kernel-time breakdown of one solve
+    (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            solver.solve_refined(f, tol=1e-10, inner_tol=1e-4)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kern = []
-        for e in prof.key_averages():
-            if str(getattr(e, "device_type", "")).endswith("CUDA"):
-                us = getattr(e, "self_device_time_total", None)
-                if us is None:
-                    us = getattr(e, "self_cuda_time_total", 0.0)
-                kern.append((float(us), int(e.count), e.key))
-    except Exception as exc:  # diagnostic phase: the solve itself is checked above
-        print(f"profile [{card}]: not measured ({type(exc).__name__}: {exc})", flush=True)
-        return
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            kern.append((float(us), int(e.count), e.key))
     busy = sum(k[0] for k in kern)
-    if busy <= 0:
-        print(f"profile [{card}]: not measured (no device time reported)", flush=True)
-        return
-    print(f"profile [{card}]: one solve (profiled) wall {wall_us / 1e3:.3f} ms, "
+    assert busy > 0, f"{label}: the profiler reported no device time"
+    print(f"{label} [{card}]: one solve (profiled) wall {wall_us / 1e3:.3f} ms, "
           f"device busy {busy / 1e3:.3f} ms = {100 * busy / wall_us:.1f}% "
           f"({100 - 100 * busy / wall_us:.1f}% idle), "
           f"{sum(k[1] for k in kern)} kernel launches", flush=True)
     for us, cnt, key in sorted(kern, reverse=True)[:12]:
         print(f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:100]}", flush=True)
+
+
+def build_kernels(gs, cuda_build) -> None:
+    """Phase 2: one nvcc per kernel source, all started together."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        for fut in [pool.submit(gs.build, D) for D in (2, 3)]:
+            fut.result()
+    print(f"built both kernels in {time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in ("ghost_stencil", "ghost_stencil_3d"):
+        info = cuda_build.build_info[lib]
+        print(f"  {lib}: nvcc {info['seconds']:.2f} s", flush=True)
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip(), flush=True)
 
 
 def main() -> None:
@@ -287,31 +409,36 @@ def main() -> None:
     print(f"card: {card}", flush=True)
 
     # phase 2
-    t0 = time.perf_counter()
-    gs.build()
-    info = cuda_build.build_info["ghost_stencil"]
-    print(f"built ghost_stencil in {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{info['seconds']:.2f} s)", flush=True)
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    build_kernels(gs, cuda_build)
 
-    # phases 3 and 4 (the kernels are checked at the bench solver's shapes)
-    solver, f, exact = setup_bench(torch, port, card)
-    table = check_kernels(torch, gs, timer, card, stencil_shapes(solver))
+    # phase 3: 2D (the kernel is checked at the bench solver's shapes)
+    solver, f, exact, _ = setup_bench(
+        torch, port, card, 2, 5, 2, 64,
+        CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                  coarse_direct_max_dof=4096))
+    tables = {2: check_kernels(torch, gs, timer, card, 2, stencil_shapes(solver))}
     solve_small(torch, port)
-    launches = solve_bench(torch, solver, f, exact, gs, timer, card)
+    launches = {2: solve_bench(torch, solver, f, exact, gs, timer, card)}
+    del solver, f, exact
+
+    # phase 4: 3D, the defaults of scripts/bench3d.py
+    solver, f, exact, setup_s = setup_bench(torch, port, card, 3, 3, 2, 32, CycleOpts())
+    assert setup_s < 60, f"3D setup took {setup_s:.1f} s"
+    tables[3] = check_kernels(torch, gs, timer, card, 3, stencil_shapes(solver))
+    solve_small_3d(torch, port)
+    launches[3] = solve_bench_3d(torch, solver, f, exact, gs, timer, card)
 
     # phase 5
     kernels = [
         {
-            "name": f"ghost_stencil_2d_{name}",
+            "name": f"ghost_stencil_{D}d_{name}",
             "route": "cuda",
-            "source": "pressurepoissonsolver_torch/csrc/ghost_stencil.cu",
-            "replaces": "pressurepoissonsolver_tpu/ops/pallas_stencil.py:87",
-            "launches": launches[name],
-            **table[name],
+            "source": SOURCES[D],
+            "replaces": REPLACES[D],
+            "launches": launches[D][name],
+            **tables[D][name],
         }
+        for D in (2, 3)
         for name in ("float32", "float64")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,15 +2,16 @@
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of :mod:`pressurepoissonsolver_tpu` (the JAX reference): fixed-size
-cell-centered patches on quadtrees with 2:1 balance, DST/DCT patch solvers
-as batched matmuls, FAC geometric multigrid with active-set smoothing, and
-mixed-precision iteratively refined BiCGStab.  Fields keep the reference
-layout ``[P, ny, nx]`` (x fastest) and face vectors ``[P, 2D, m]``.
+cell-centered patches on quadtrees/octrees with 2:1 balance, DST/DCT patch
+solvers as batched matmuls, FAC geometric multigrid with active-set
+smoothing, and mixed-precision iteratively refined BiCGStab.  Fields keep
+the reference layout ``[P, ny, nx]`` / ``[P, nz, ny, nx]`` (x fastest) and
+face vectors ``[P, 2D, m]``.
 
-This slice covers the 2D solve (``PoissonSolver.solve`` and
-``solve_refined``).  The ghost-closure stencil runs as the CUDA kernel in
-``csrc/ghost_stencil.cu`` on CUDA tensors and as its plain PyTorch
-version on CPU tensors.
+The port covers the 2D and 3D solves (``PoissonSolver.solve`` and
+``solve_refined``).  The ghost-closure stencils run as the CUDA kernels in
+``csrc/ghost_stencil.cu`` (2D) and ``csrc/ghost_stencil_3d.cu`` (3D) on
+CUDA tensors and as their plain PyTorch versions on CPU tensors.
 
 Importing the package has no side effects: no global dtype or backend
 setting is changed and no kernel is built.  Every object that holds

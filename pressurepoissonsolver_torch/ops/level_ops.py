@@ -1,4 +1,4 @@
-"""Batched per-level operations (2D) in PyTorch.
+"""Batched per-level operations (2D and 3D) in PyTorch.
 
 One :class:`Level` holds the index tables and spectral data of one
 refinement level, built in numpy and uploaded once, and exposes the
@@ -7,7 +7,7 @@ main-path linear maps batched over the leading patch axis:
 * ``apply(u) -> A u`` — the composite-grid operator
   (``SchurHelper.h:360-376``): boundary faces, the neighbour-face halo and
   the refinement-boundary interpolation feed the ghost-closure stencil
-  kernel (:mod:`.ghost_stencil`).
+  kernel of the level's dimension (:mod:`.ghost_stencil`).
 * ``smooth(f, u)`` / ``smooth_zero(f)`` — one block-Jacobi sweep of exact
   spectral patch solves (``SchurHelper::solveWithSolution``).
 
@@ -15,10 +15,11 @@ main-path linear maps batched over the leading patch axis:
 static subset of patches.
 
 Port of ``pressurepoissonsolver_tpu.ops.level_ops``.  Layout: fields
-``[P, ny, nx]`` (x fastest), face vectors ``[P, 2D, m]``; index tables are
-int64.  TPU-only forms of the reference are not carried: the Kronecker
-spectral form, the one-hot placement fold and the refined-f32 f64 patch
-solve (the H100 has native f64).
+``[P, ny, nx]`` or ``[P, nz, ny, nx]`` (x fastest), face vectors
+``[P, 2D, m]`` with ``m = n**(D-1)``; index tables are int64.  TPU-only
+forms of the reference are not carried: the Kronecker spectral form, the
+one-hot placement fold and the refined-f32 f64 patch solve (the H100 has
+native f64).
 """
 
 from __future__ import annotations
@@ -32,9 +33,11 @@ import torch
 from .. import iface as iface_mod
 from ..domain import PatchLevel
 from . import transforms as tr
-from .ghost_stencil import ghost_stencil
+from .ghost_stencil import ghost_stencil, ghost_stencil_3d
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+# the ghost-closure stencil kernel of each dimension
+_STENCIL = {2: ghost_stencil, 3: ghost_stencil_3d}
 
 
 def np_dtype(dtype: torch.dtype):
@@ -91,11 +94,17 @@ class _SolverTables:
 
 def _denom_of(lam_tab: np.ndarray, lam_idx: np.ndarray, D: int, n: int,
               dtype: torch.dtype) -> np.ndarray:
-    """The 2D ``[Ps, n, n]`` eigen-denominator from the factored per-axis
-    rows: summed in f64, cast after (the reference's bit pattern)."""
+    """The ``[Ps, *ns]`` eigen-denominator from the factored per-axis
+    rows: summed in f64 in the reference's order, cast after (its bit
+    pattern)."""
     Ps = lam_idx.shape[0]
     rows = lam_tab[lam_idx.reshape(-1)].reshape(Ps, D, n)
-    dn = rows[:, 1][:, :, None] + rows[:, 0][:, None, :]  # [Ps, y, x]
+    if D == 2:
+        dn = rows[:, 1][:, :, None] + rows[:, 0][:, None, :]  # [Ps, y, x]
+    else:
+        dn = (rows[:, 2][:, :, None, None]  # [Ps, z, y, x]
+              + rows[:, 1][:, None, :, None]
+              + rows[:, 0][:, None, None, :])
     return dn.astype(np_dtype(dtype))
 
 
@@ -173,23 +182,33 @@ def _fold_faces_flat(fc: torch.Tensor, gf: torch.Tensor, h2inv: torch.Tensor,
     """``f_slice -= 2/h^2 * gf`` on every face
     (``StarPatchOp::addInterfaceToRHS``, ``StarPatchOp.h:185-203``).
 
-    The reference's pad-spread sum, written as four face-slice updates of
-    one copy: each side's term lands on its boundary cells only."""
-    if D != 2:
-        raise NotImplementedError("the face fold is ported for 2D only")
+    The reference's pad-spread sum, written as 2·D face-slice updates of
+    one copy: each side's term lands on its boundary cells only (where
+    faces meet, the terms are subtracted one by one rather than summed
+    first, so edge and corner cells round differently)."""
+    P = fc.shape[0]
     h2 = h2inv.to(fc.dtype)
+    face = (P,) + (n,) * (D - 1)
     out = fc.clone()
-    out[:, :, 0] -= 2.0 * (h2[:, 0, None] * gf[:, 0])
-    out[:, :, n - 1] -= 2.0 * (h2[:, 0, None] * gf[:, 1])
-    out[:, 0, :] -= 2.0 * (h2[:, 1, None] * gf[:, 2])
-    out[:, n - 1, :] -= 2.0 * (h2[:, 1, None] * gf[:, 3])
+    for a in range(D):
+        ax = _arr_axis(D, a)
+        h2a = h2[:, a].reshape((P,) + (1,) * (D - 1))
+        for side, pos in ((2 * a, 0), (2 * a + 1, n - 1)):
+            out.select(ax, pos).sub_(2.0 * (h2a * gf[:, side].reshape(face)))
     return out
 
 
 def axis_matmul(M: torch.Tensor, x: torch.Tensor, ax: int) -> torch.Tensor:
-    """Apply the n×n matrix ``M`` along array axis ``ax`` (1 = y, 2 = x) of
-    a ``[P, n, n]`` field as one (batched) matmul, in full precision."""
-    return torch.matmul(x, M.t()) if ax == 2 else torch.matmul(M, x)
+    """Apply the n×n matrix ``M`` along array axis ``ax`` of a
+    ``[P, n, n]`` or ``[P, n, n, n]`` field as one (batched) matmul, in
+    full precision: the last axis as ``x @ M.T``, the one before it as
+    ``M @ x``, and axis 1 of a 3D field (z) as ``M @`` the ``[P, n, n*n]``
+    view."""
+    if ax == x.dim() - 1:
+        return torch.matmul(x, M.t())
+    if ax == x.dim() - 2:
+        return torch.matmul(M, x)
+    return torch.matmul(M, x.reshape(x.shape[0], x.shape[1], -1)).reshape(x.shape)
 
 
 def _spectral_apply(st: _SolverTables, fc: torch.Tensor, D: int, n: int) -> torch.Tensor:
@@ -334,12 +353,12 @@ def _build_contrib_pipeline(
 
 
 class Level:
-    """Device tables + core ops for one 2D refinement level."""
+    """Device tables + core ops for one 2D or 3D refinement level."""
 
     def __init__(self, patch_level: PatchLevel, dtype: torch.dtype = torch.float64,
                  *, device, iface_scheme: str = "bilinear"):
-        if patch_level.D != 2:
-            raise NotImplementedError("the port covers 2D levels only")
+        if patch_level.D not in _STENCIL:
+            raise NotImplementedError(f"no {patch_level.D}D levels in the port")
         self.pl = patch_level
         self.D = patch_level.D
         self.n = patch_level.n
@@ -516,7 +535,7 @@ class Level:
         halo), through the ghost-stencil kernel."""
         u = u.contiguous()
         mix_scaled, _ = self._gf_parts(u)
-        return ghost_stencil(
+        return _STENCIL[self.D](
             u, mix_scaled, self.ghost_coef_eff.to(u.dtype), self.h2inv.to(u.dtype)
         )
 
@@ -656,7 +675,7 @@ class ActiveSmoother:
             gf = self._gamma_faces(u)
         else:
             gf = u.new_zeros(self.Pa, 2 * self.D, self.m)
-        out = ghost_stencil(
+        out = _STENCIL[self.D](
             u.index_select(0, self._act),
             gf,
             self._ghost_act.to(u.dtype),

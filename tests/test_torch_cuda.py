@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the ghost-stencil kernel against its plain
-version, the composite apply and the active-set residual apply through the
-kernel against the CPU, and a small solve.
+"""The port on a CUDA card: the 2D and 3D ghost-stencil kernels against
+their plain versions, the composite apply and the active-set residual apply
+through the kernels against the CPU, and a small 2D and 3D solve.
 
 Every test here needs a card and skips without one (the CUDA kernel has no
 CPU mode).  This file imports no JAX, so it runs on a machine without it;
@@ -17,7 +17,7 @@ from pressurepoissonsolver_torch.domain import DomainHierarchy
 from pressurepoissonsolver_torch.geometry import refined_tree
 from pressurepoissonsolver_torch.gmg import CycleOpts, build_gmg
 from pressurepoissonsolver_torch.ops import ghost_stencil as gs
-from pressurepoissonsolver_torch.ops.level_ops import ActiveSmoother, Level
+from pressurepoissonsolver_torch.ops.level_ops import ActiveSmoother, Level, extract_faces
 from pressurepoissonsolver_torch.problems import get_problem, init_problem
 from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
 
@@ -112,6 +112,105 @@ def test_small_solve_on_card_matches_cpu(cuda):
     (uc, ic, rc), (ug, ig, rg) = out["cpu"], out["cuda"]
     assert ig["outer_iterations"] == ic["outer_iterations"] == 3
     assert abs(ig["inner_iterations"] - ic["inner_iterations"]) <= 3
+    assert rg["residual"] <= 1e-10
+    assert float((ug - uc).norm() / uc.norm()) <= 1e-9
+    assert abs(rg["error"] - rc["error"]) <= 1e-6 * rc["error"]
+
+
+# --- 3D -------------------------------------------------------------------
+
+
+def _hierarchy_3d(n=4):
+    return DomainHierarchy(refined_tree(3, 3, 2), n=n)
+
+
+@pytest.mark.parametrize("shape", [(624, 32), (37, 6), (3, 1)])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_kernel_3d_matches_plain(cuda, dt, shape):
+    P, n = shape
+    rng = np.random.default_rng(3)
+    arrs = (rng.standard_normal((P, n, n, n)), rng.standard_normal((P, 6, n * n)),
+            rng.choice([-1.0, 0.0, 1.0], size=(P, 6)),
+            rng.uniform(1e2, 1e6, size=(P, 3)))
+    args = [torch.as_tensor(a, dtype=DTYPES[dt], device=cuda) for a in arrs]
+    name = str(DTYPES[dt]).replace("torch.", "")
+    before = (gs.launches_3d[name], dict(gs.launches))
+    out = gs.ghost_stencil_3d(*args)
+    torch.cuda.synchronize()
+    assert (gs.launches_3d[name], gs.launches) == (before[0] + 1, before[1])
+    assert _rel(gs.ghost_stencil_3d_plain(*args), out) <= RTOL[dt]
+
+
+@pytest.mark.parametrize("side", range(6))
+def test_kernel_3d_face_order(cuda, side):
+    """A face entry lands on the boundary cell ``extract_faces`` reads."""
+    P, n = 2, 5
+    zeros = torch.zeros((P, n, n, n), dtype=torch.float64, device=cuda)
+    for k in (0, 3, 7, n * n - 1):
+        gf = torch.zeros((P, 6, n * n), dtype=torch.float64, device=cuda)
+        gf[1, side, k] = 1.0
+        out = gs.ghost_stencil_3d(zeros, gf,
+                                  torch.zeros(P, 6, dtype=torch.float64, device=cuda),
+                                  torch.ones(P, 3, dtype=torch.float64, device=cuda))
+        hit = torch.nonzero(out).cpu()
+        assert hit.shape[0] == 1
+        cell = tuple(int(i) for i in hit[0])
+        assert float(out[cell]) == 2.0
+        onehot = torch.zeros((P, n, n, n), dtype=torch.float64)
+        onehot[cell] = 1.0
+        assert float(extract_faces(onehot, 3, n)[1, side, k]) == 1.0
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_level_apply_3d_on_card_matches_cpu(cuda, dt):
+    rng = np.random.default_rng(4)
+    for pl in _hierarchy_3d().levels:
+        u = torch.as_tensor(rng.standard_normal((pl.num_patches, 4, 4, 4)),
+                            dtype=DTYPES[dt])
+        ref = Level(pl, DTYPES[dt], device="cpu").apply(u)
+        name = str(DTYPES[dt]).replace("torch.", "")
+        before = gs.launches_3d[name]
+        got = Level(pl, DTYPES[dt], device=cuda).apply(u.to(cuda))
+        assert gs.launches_3d[name] == before + 1
+        assert _rel(ref, got) <= RTOL[dt]
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_active_apply_scattered_3d_on_card_matches_cpu(cuda, dt):
+    h = _hierarchy_3d()
+    opts = CycleOpts(fac_smoothing="active", coarse_direct_max_dof=64)
+    cpu = build_gmg(h, opts, DTYPES[dt], device="cpu")
+    gpu = build_gmg(h, opts, DTYPES[dt], device=cuda)
+    rng = np.random.default_rng(5)
+    seen = 0
+    for a, b in zip(cpu._aapply, gpu._aapply):
+        if a is None:
+            continue
+        seen += 1
+        u = torch.as_tensor(rng.standard_normal((a.level.P, 4, 4, 4)), dtype=DTYPES[dt])
+        before = dict(gs.launches_3d)
+        got = b.apply_scattered(u.to(cuda))
+        assert gs.launches_3d != before
+        assert _rel(a.apply_scattered(u), got) <= RTOL[dt]
+    assert seen >= 1
+
+
+def test_small_3d_solve_on_card_matches_cpu(cuda):
+    """The 3D bench's options on its small mesh (n=8, 78 patches)."""
+    h = _hierarchy_3d(8)
+    opts = SolveOptions(tol=1e-10, precond_dtype=torch.float32)
+    f, exact = init_problem(h.finest, get_problem("trig", 3))
+    out = {}
+    gs.reset_launches()
+    for dev in ("cpu", cuda):
+        s = PoissonSolver(h, opts, device=dev)
+        u, info = s.solve_refined(f, tol=1e-10)
+        out[str(dev)] = (u.cpu(), info, s.report(u, f, exact))
+    assert gs.launches_3d["float32"] > 0 and gs.launches_3d["float64"] > 0
+    assert not any(gs.launches.values())
+    (uc, ic, rc), (ug, ig, rg) = out["cpu"], out["cuda"]
+    assert ig["outer_iterations"] == ic["outer_iterations"] == 2
+    assert abs(ig["inner_iterations"] - ic["inner_iterations"]) <= 2
     assert rg["residual"] <= 1e-10
     assert float((ug - uc).norm() / uc.norm()) <= 1e-9
     assert abs(rg["error"] - rc["error"]) <= 1e-6 * rc["error"]

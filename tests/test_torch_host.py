@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import pressurepoissonsolver_tpu.checkpoint as jckpt
+import pressurepoissonsolver_tpu.domain as jdomain
 import pressurepoissonsolver_tpu.iface as jiface
 import pressurepoissonsolver_tpu.matrix as jmatrix
 import pressurepoissonsolver_tpu.ops.transforms as jtr
@@ -142,7 +143,7 @@ def test_port_checkpoint_loads_into_jax(tmp_path):
 
 def test_port_never_imports_jax():
     """Import every module of the port and chip_smoke, run a tiny CPU
-    solve, and check that JAX was never loaded."""
+    solve and a 3D apply, and check that JAX was never loaded."""
     code = """
 import sys
 import numpy as np
@@ -159,6 +160,10 @@ ps = solver.PoissonSolver(h, s, device="cpu")
 f, _ = problems.init_problem(h.finest, problems.get_problem("trig", 2))
 u, info = ps.solve_refined(f, tol=1e-8)
 assert info["residual"] <= 1e-8, info
+h3 = domain.DomainHierarchy(geometry.refined_tree(3, 2, 1), n=4)
+lvl3 = level_ops.Level(h3.finest, torch.float32, device="cpu")
+au = lvl3.apply(torch.ones((h3.finest.num_patches, 4, 4, 4)))
+assert au.shape == (h3.finest.num_patches, 4, 4, 4) and bool(torch.isfinite(au).all())
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "pressurepoissonsolver_tpu")))
 assert not bad, bad
 print("ok")
@@ -168,3 +173,81 @@ print("ok")
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+# --- 3D: refined_tree(3, 3, 2) at n=4 ------------------------------------
+
+NEUMANN_3D = [False, True, ("x_lo", "y_hi", "z_lo")]
+
+
+@pytest.mark.parametrize("neumann", NEUMANN_3D, ids=str)
+def test_patch_levels_equal_3d(neumann):
+    jh, th = hierarchies(neumann, D=3)
+    assert len(jh) == len(th) == 5
+    assert [l.num_patches for l in th.levels] == [78, 71, 64, 8, 1]
+    for jl, tl in zip(jh.levels, th.levels):
+        assert tl.D == 3
+        for name in PL_FIELDS:
+            assert _same(getattr(jl, name), getattr(tl, name)), name
+    for k in range(len(th) - 1):
+        assert _same(jdomain.parent_slots(jh[k], jh[k + 1]),
+                     tdomain.parent_slots(th[k], th[k + 1]))
+
+
+@pytest.mark.parametrize("neumann", NEUMANN_3D, ids=str)
+def test_iface_tables_equal_3d(neumann):
+    jh, th = hierarchies(neumann, D=3)
+    for jl, tl in zip(jh.levels, th.levels):
+        jt = jiface.build_iface_tables(jl)
+        tt = tiface.build_iface_tables(tl)
+        for name in IFACE_FIELDS:
+            assert _same(getattr(jt, name), getattr(tt, name)), name
+
+
+@pytest.mark.parametrize("n", [4, 6, 32])
+def test_case_templates_equal_3d(n):
+    """The 3D f2f 11/12 and f2c 1/6 templates among them."""
+    a, b = jiface.case_templates(3, n), tiface.case_templates(3, n)
+    assert a[0] == b[0] and len(a[0]) == 11
+    assert _same(a[1], b[1]) and _same(a[2], b[2])
+    assert a[1].shape == (11, n * n, 4)
+    f2f = b[1][b[0]["f2f"]]
+    assert np.allclose(f2f[:, 0], 11.0 / 12.0) and np.allclose(f2f[:, 1:], -1.0 / 12.0)
+    f2c = b[1][b[0]["f2c0"]]  # a quarter of the coarse face, 4 sources each
+    assert np.allclose(f2c[f2c != 0.0], 1.0 / 6.0)
+    assert (f2c != 0.0).sum() == n * n
+
+
+@pytest.mark.parametrize("neumann", NEUMANN_3D, ids=str)
+def test_assemble_composite_equal_3d(neumann):
+    jh, th = hierarchies(neumann, D=3)
+    for jl, tl in zip(jh.levels, th.levels):
+        A = jmatrix.assemble_composite(jl)
+        B = tmatrix.assemble_composite(tl)
+        assert A.shape == B.shape == (tl.num_cells, tl.num_cells)
+        assert (A != B).nnz == 0
+
+
+@pytest.mark.parametrize("name", ["trig", "gauss", "zero"])
+def test_problem_data_equal_3d(name):
+    jh, th = hierarchies(("y_lo", "z_hi"), D=3)
+    fj, ej = jprob.init_problem(jh.finest, jprob.get_problem(name, 3))
+    ft, et = tprob.init_problem(th.finest, tprob.get_problem(name, 3))
+    assert ft.shape == (78, 4, 4, 4)
+    assert _same(fj, ft) and _same(ej, et)
+
+
+def test_jax_checkpoint_3d_loads_into_port(tmp_path):
+    jh, _ = hierarchies(D=3)
+    f, exact = jprob.init_problem(jh.finest, jprob.get_problem("trig", 3))
+    path = str(tmp_path / "state3d.npz")
+    jckpt.save_checkpoint(path, jh.tree, jh.n, {"f": f, "exact": exact})
+    tree, n, arrays, _ = tckpt.load_checkpoint(path)
+    _trees_equal(jh.tree, tree)
+    th = tdomain.DomainHierarchy(tree, n=n)
+    for jl, tl in zip(jh.levels, th.levels):
+        assert _same(jl.ids, tl.ids) and _same(jl.nbr_slot, tl.nbr_slot)
+    for dt in (torch.float32, torch.float64):
+        state = tckpt.state_to_torch(arrays, device="cpu", dtype=dt)
+        assert state["f"].dtype == dt and tuple(state["f"].shape) == f.shape
+        assert np.array_equal(state["exact"].numpy(), exact.astype(state["exact"].numpy().dtype))

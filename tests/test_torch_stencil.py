@@ -86,3 +86,100 @@ def test_wrapper_rejects_bad_inputs():
         gs.ghost_stencil(u, gf.float(), coef, h2)
     with pytest.raises(TypeError):
         gs.ghost_stencil(u.int(), gf.int(), coef.int(), h2.int())
+
+
+# --- 3D -------------------------------------------------------------------
+
+
+def _inputs_3d(P, n, npdt, seed=0):
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((P, n, n, n)).astype(npdt)
+    gf = rng.standard_normal((P, 6, n * n)).astype(npdt)
+    coef = rng.choice([-1.0, 0.0, 1.0], size=(P, 6)).astype(npdt)
+    h = 1.0 / (n * 2.0 ** rng.integers(1, 5, size=(P, 1)))
+    h2 = np.repeat(1.0 / h**2, 3, axis=1).astype(npdt)
+    return u, gf, coef, h2
+
+
+# the same algebra in the same order (tolerances relative to max|ref|)
+@pytest.mark.parametrize("n", [4, 6, 8])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_plain_3d_matches_star_stencil(dt, n):
+    npdt, tdt = DTYPES[dt]
+    u, gf, coef, h2 = _inputs_3d(5, n, npdt)
+    ref = jlo._star_stencil(jnp.asarray(u), jnp.asarray(gf), jnp.asarray(coef),
+                            jnp.asarray(h2), 3, n)
+    assert ref.dtype == npdt
+    got = gs.ghost_stencil_3d_plain(*(torch.from_numpy(a) for a in (u, gf, coef, h2)))
+    assert got.dtype == tdt
+    assert rel_err(ref, got) <= {"f32": 1e-6, "f64": 1e-13}[dt]
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_plain_3d_matches_pallas_kernel(n):
+    """The Pallas ``_kernel_3d`` itself (interpret mode, whole arrays as
+    one block, the one-hot x-face spread ``Sx``), f32.  It sums the ghost
+    terms in another order than ``_star_stencil``; allow 1e-6 of
+    max|out|."""
+    P = 6
+    u, gf, coef, h2 = _inputs_3d(P, n, np.float32, seed=1)
+    call = pl.pallas_call(
+        functools.partial(jps._kernel_3d, n, P),
+        out_shape=jax.ShapeDtypeStruct((P, n, n * n), jnp.float32),
+        interpret=True,
+    )
+    ref = np.asarray(call(
+        jnp.asarray(u.reshape(P, n, n * n)), jnp.asarray(gf[:, 4:6]),
+        jnp.asarray(gf[:, 2:4].reshape(P, 2, n, n)),
+        jnp.asarray(gf[:, 0:2].reshape(P, 2, n, n)), jnp.asarray(h2),
+        jnp.asarray(coef), jnp.asarray(jps._xspread_matrix(n))))
+    got = gs.ghost_stencil_3d_plain(*(torch.from_numpy(a) for a in (u, gf, coef, h2)))
+    assert rel_err(ref.reshape(P, n, n, n), got) <= 1e-6
+
+
+@pytest.mark.parametrize("side", range(6))
+def test_3d_face_order_is_extract_faces_order(side):
+    """A face entry lands on the boundary cell that ``extract_faces`` of
+    the reference reads it from: x faces flat (z, y), y faces (z, x), z
+    faces (y, x)."""
+    P, n = 2, 5
+    zeros = np.zeros((P, n, n, n))
+    for k in (0, 3, 7, n * n - 1):
+        gf = np.zeros((P, 6, n * n))
+        gf[1, side, k] = 1.0
+        out = gs.ghost_stencil_3d_plain(
+            torch.from_numpy(zeros), torch.from_numpy(gf),
+            torch.zeros(P, 6, dtype=torch.float64),
+            torch.ones(P, 3, dtype=torch.float64)).numpy()
+        hit = np.argwhere(out != 0.0)
+        assert len(hit) == 1 and out[tuple(hit[0])] == 2.0
+        onehot = zeros.copy()
+        onehot[tuple(hit[0])] = 1.0
+        faces = np.asarray(jlo.extract_faces(jnp.asarray(onehot), 3, n))
+        assert faces[1, side, k] == 1.0
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_cpu_3d_wrapper_takes_plain_version(dt):
+    npdt, _ = DTYPES[dt]
+    args = [torch.from_numpy(a) for a in _inputs_3d(4, 6, npdt)]
+    before = (dict(gs.launches), dict(gs.launches_3d))
+    out = gs.ghost_stencil_3d(*args)
+    assert (gs.launches, gs.launches_3d) == before  # no kernel launch on the CPU
+    assert torch.equal(out, gs.ghost_stencil_3d_plain(*args))
+
+
+def test_3d_wrapper_rejects_bad_inputs():
+    u, gf, coef, h2 = (torch.from_numpy(a) for a in _inputs_3d(3, 4, np.float64))
+    with pytest.raises(ValueError):
+        gs.ghost_stencil_3d(u, gf[:, :4], coef, h2)
+    with pytest.raises(ValueError):
+        gs.ghost_stencil_3d(u, gf.reshape(3, 6, 4, 4), coef, h2)
+    with pytest.raises(ValueError):
+        gs.ghost_stencil_3d(u[:, :, :, :3], gf, coef, h2)
+    with pytest.raises(ValueError):
+        gs.ghost_stencil_3d(u, gf, coef, h2[:, :2])
+    with pytest.raises(ValueError):  # a 2D field to the 3D kernel
+        gs.ghost_stencil_3d(u[:, 0], gf, coef, h2)
+    with pytest.raises(TypeError):
+        gs.ghost_stencil_3d(u, gf, coef.float(), h2)
