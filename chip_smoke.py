@@ -13,7 +13,10 @@ Phases, any failure of which raises and exits non-zero:
 2. build the CUDA kernels from ``pressurepoissonsolver_torch/csrc``, one
    ``nvcc`` per source, all started together;
 3. 2D: hold the 2D kernel against its plain PyTorch version on the card,
-   at the main path's shapes, and time both with CUDA events; drive the 2D
+   at the main path's shapes, at odd shapes and with ``u`` at an element
+   offset (the one-element-per-thread path), and time both with CUDA
+   events, cold (inputs rotated so that each call reads them from device
+   memory) and warm (the same inputs every call); drive the 2D
    main path: the adaptive composite-grid solve of ``bench.py``
    (``refined_tree(2, 5, 2)`` refined once, n=64, 4,292,608 DOF, ``trig``
    problem) with ``PoissonSolver.solve_refined`` — f64 iterative
@@ -65,8 +68,9 @@ REPLACES = {2: "pressurepoissonsolver_tpu/ops/pallas_stencil.py:87",
             3: "pressurepoissonsolver_tpu/ops/pallas_stencil.py:231"}
 SOURCES = {2: "pressurepoissonsolver_torch/csrc/ghost_stencil.cu",
            3: "pressurepoissonsolver_torch/csrc/ghost_stencil_3d.cu"}
-# patch shape (P, n) off the main path, with a ragged last tile
-ODD_SHAPE = {2: (37, 12), 3: (37, 6)}
+# patch shapes (P, n) off the main path: the first is timed; n=6 in f32
+# and n=1 take the kernels' one-element-per-thread path
+ODD_SHAPES = {2: [(37, 12), (37, 6), (3, 1)], 3: [(37, 6), (3, 1)]}
 
 
 def card_line() -> str:
@@ -105,7 +109,10 @@ def kernel_bound(D, args, out):
 def check_kernels(torch, gs, timer, card, D, shapes):
     """The ``D``-dimensional ghost stencil against its plain version at
     every shape of the main path and at an odd one, in f32 and f64; device
-    and host-paced times at the finest shape and the odd one."""
+    and host-paced times at the finest shape and the odd one.  At the finest
+    shape the device times are also taken cold: the calls rotate over copies
+    of the inputs that together exceed the L2 four times, so each call reads
+    from device memory, as the bound assumes."""
     kernel = gs.ghost_stencil if D == 2 else gs.ghost_stencil_3d
     plain = gs.ghost_stencil_plain if D == 2 else gs.ghost_stencil_3d_plain
     rng = np.random.default_rng(SEED)
@@ -113,8 +120,8 @@ def check_kernels(torch, gs, timer, card, D, shapes):
     for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         name = str(dtype).replace("torch.", "")
         main = shapes[name]
-        for P, n in main + [ODD_SHAPE[D]]:
-            timed = (P, n) in (main[0], ODD_SHAPE[D])
+        for P, n in main + ODD_SHAPES[D]:
+            timed = (P, n) in (main[0], ODD_SHAPES[D][0])
             u = rng.standard_normal((P,) + (n,) * D)
             gf = rng.standard_normal((P, 2 * D, n ** (D - 1)))
             coef = rng.choice([-1.0, 0.0, 1.0], size=(P, 2 * D))
@@ -123,12 +130,13 @@ def check_kernels(torch, gs, timer, card, D, shapes):
             args = [torch.as_tensor(a, dtype=dtype, device="cuda")
                     for a in (u, gf, coef, h2)]
             out_k = kernel(*args)
+            width = gs.last_width[D]
             out_p = plain(*args)
             torch.cuda.synchronize()
             err = float((out_k - out_p).abs().max())
             scale = float(out_p.abs().max())
-            line = (f"kernel ghost_stencil_{D}d {name} P={P} n={n} [{card}]: "
-                    f"max_abs_err={err:.3e} max|out|={scale:.3e} (limit "
+            line = (f"kernel ghost_stencil_{D}d {name} P={P} n={n} width={width} "
+                    f"[{card}]: max_abs_err={err:.3e} max|out|={scale:.3e} (limit "
                     f"{rtol:g}*max|out|)")
             if not err <= rtol * scale:
                 raise AssertionError(line)
@@ -136,27 +144,60 @@ def check_kernels(torch, gs, timer, card, D, shapes):
                 print(line, flush=True)
                 continue
             # device time (stream held until all calls are queued) and the
-            # host-paced time of back-to-back calls, kernel and plain
+            # host-paced time of back-to-back calls, kernel and plain, on the
+            # same tensors (warm where they fit in the L2)
             t = {}
             for label, fn in (("kernel", lambda: kernel(*args)),
                               ("plain", lambda: plain(*args))):
                 for hold in (True, False):
                     t[label, hold] = timer.cuda_median_ms(fn, reps=50, hold=hold)
-            ms, plain_ms = t["kernel", True], t["plain", True]
+            warm_ms, plain_warm_ms = t["kernel", True], t["plain", True]
             bound_ms, bound_by = kernel_bound(D, args, out_k)
-            gbs = ((2 * P * n**D + 2 * D * P * n ** (D - 1)) * out_k.element_size()
-                   / (ms * 1e-3) / 1e9)
-            print(f"{line}; device ms: kernel {ms:.5f} ({gbs:.0f} GB/s of "
-                  f"u, gf and out; bound {bound_ms:.5f} ms by {bound_by} = "
-                  f"{100 * bound_ms / ms:.1f}% of it) plain {plain_ms:.5f}; "
-                  f"host-paced ms: kernel {t['kernel', False]:.5f} plain "
-                  f"{t['plain', False]:.5f}", flush=True)
-            if (P, n) == main[0]:
-                # no single PyTorch call computes the ghost-closure stencil
-                table[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                               "bound_ms": bound_ms, "bound_by": bound_by,
-                               "library_ms": None}
+            nbytes = (2 * P * n**D + 2 * D * P * n ** (D - 1)) * out_k.element_size()
+            msg = (f"{line}; device ms warm: kernel {warm_ms:.5f} "
+                   f"({nbytes / (warm_ms * 1e-3) / 1e9:.0f} GB/s of u, gf and "
+                   f"out) plain {plain_warm_ms:.5f}; bound {bound_ms:.5f} ms by "
+                   f"{bound_by}; host-paced ms: kernel {t['kernel', False]:.5f} "
+                   f"plain {t['plain', False]:.5f}")
+            if (P, n) != main[0]:
+                print(msg, flush=True)
+                continue
+            set_bytes = sum(a.numel() * a.element_size() for a in (*args, out_k))
+            k = timer.cold_sets(set_bytes)
+            sets = [args] + [[a.clone() for a in args] for _ in range(k - 1)]
+            ms = timer.cold_median_ms(kernel, sets)
+            plain_ms = timer.cold_median_ms(plain, sets)
+            del sets
+            shifted_ms = check_shifted(torch, gs, timer, kernel, args, out_p, rtol, scale)
+            print(f"{msg}; device ms cold ({k} sets of {set_bytes / 1e6:.1f} MB): "
+                  f"kernel {ms:.5f} ({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s, "
+                  f"{100 * bound_ms / ms:.1f}% of the bound) plain {plain_ms:.5f}; "
+                  f"u at a one-element offset (width 1): max_abs_err within the "
+                  f"limit, device ms warm {shifted_ms:.5f}", flush=True)
+            # no single PyTorch call computes the ghost-closure stencil
+            table[name] = {"max_abs_err": err, "ms": ms, "warm_ms": warm_ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "library_ms": None,
+                           "vector_width": width}
     return table
+
+
+def check_shifted(torch, gs, timer, kernel, args, ref, rtol, scale):
+    """The kernel on a contiguous copy of ``u`` one element past a 16-byte
+    boundary, which takes the one-element-per-thread path: checked against
+    the plain version's output ``ref``; its warm device ms."""
+    u = args[0]
+    buf = torch.empty(u.numel() + 1, dtype=u.dtype, device=u.device)
+    shifted = buf[1:].view(u.shape)
+    shifted.copy_(u)
+    sargs = [shifted, *args[1:]]
+    out = kernel(*sargs)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    if gs.last_width[u.dim() - 1] != 1 or not err <= rtol * scale:
+        raise AssertionError(f"shifted u: width {gs.last_width[u.dim() - 1]}, "
+                             f"max_abs_err {err:.3e}, max|out| {scale:.3e}")
+    return timer.cuda_median_ms(lambda: kernel(*sargs), reps=50, hold=True)
 
 
 def solve_small(torch, port):
@@ -360,7 +401,8 @@ def profile_solve(torch, card, label, solve) -> None:
           f"device busy {busy / 1e3:.3f} ms = {100 * busy / wall_us:.1f}% "
           f"({100 - 100 * busy / wall_us:.1f}% idle), "
           f"{sum(k[1] for k in kern)} kernel launches", flush=True)
-    for us, cnt, key in sorted(kern, reverse=True)[:12]:
+    ranked = sorted(kern, reverse=True)
+    for us, cnt, key in ranked[:12] + [k for k in ranked[12:] if "ghost_stencil" in k[2]]:
         print(f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:100]}", flush=True)
 
 
@@ -374,9 +416,9 @@ def build_kernels(gs, cuda_build) -> None:
     for lib in ("ghost_stencil", "ghost_stencil_3d"):
         info = cuda_build.build_info[lib]
         print(f"  {lib}: nvcc {info['seconds']:.2f} s", flush=True)
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip(), flush=True)
+        for name, regs, spill in cuda_build.ptxas_report(info["log"]):
+            print(f"  ptxas: {name}: {regs} registers, {spill} bytes spilled",
+                  flush=True)
 
 
 def main() -> None:

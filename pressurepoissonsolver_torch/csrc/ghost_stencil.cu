@@ -12,67 +12,208 @@
 //
 // Layout: u, out [P, n, n] (x fastest); gf [P, 4, n] with sides x_lo, x_hi,
 // y_lo, y_hi -- the x faces are indexed by row y, the y faces by column x;
-// coef [P, 4]; h2 [P, 2] = (1/hx^2, 1/hy^2).  Any n >= 1.
+// coef [P, 4]; h2 [P, 2] = (1/hx^2, 1/hy^2).  Any n from 1 to 46340.
 //
 // What bounds it on the H100: bytes.  It does 10-13 flops per cell against
 // 2 * sizeof(T) bytes of compulsory traffic (read u once, write out once),
-// far below the card's flop/byte balance, so the floor is
-// 2 * P * n^2 * sizeof(T) / 3.35 TB/s (34 MB, about 10 us, for the f32 field
-// of 1048 patches of 64 x 64).  Design: one block per (patch, tile of
-// consecutive cells); a thread per cell, neighbouring threads on
-// neighbouring addresses, so every load and the store coalesce.  The x
-// neighbours come from the same or adjacent cache lines and the y
-// neighbours (one row away) from L1/L2, so device memory sees each cell of u
-// about once.  Unlike the TPU kernel, no placement matmul is needed to put
-// the face terms on the boundary cells: each thread writes its own cell and
-// reads its own gf entry when it sits on a face.  The kernel allocates
-// nothing, launches on the caller's stream and does not synchronise.
+// far below the card's flop/byte balance, so the floor is the bytes of u,
+// gf, coef, h2 and out over 3.35 TB/s: 35.4 MB, 10.6 us, for the f32 field
+// of 1048 patches of 64 x 64.  That field fits in the 50 MB L2, so a caller
+// that has just written u finds it there; the floor is the cold case.
+//
+// Design: each thread owns a W-wide vector of a row (W = 16 bytes /
+// sizeof(T): float4, double2) and marches along y over a chunk of
+// PPS_ROWS_2D rows.  It issues every load of its chunk before any arithmetic
+// (the rows y0-1 .. y0+PPS_ROWS_2D, the x-face entries of its rows when it
+// is an end lane, the y-face vector when the chunk holds y=0 or y=n-1), so
+// each thread has several 16-byte loads in flight; then each row computes
+// from the registers.  Every load of u and every store of out is 16 bytes;
+// each element of u comes from device memory once, and the halo rows at each
+// chunk edge, which the neighbouring chunk also reads, from L2.
+// Consecutive threads own consecutive vectors of a row, then the next chunk,
+// then the next patch.  The +-x neighbours of a vector's end elements come
+// from the neighbouring lanes by shuffle (one scalar load where a row
+// crosses a warp boundary).  No shared memory and no barrier.  out is
+// written with streaming stores.  coef and h2 are read once per thread; the
+// only divisions are in the thread index set-up.
+//
+// n not a multiple of W, or u, gf or out not 16-byte aligned (a view at an
+// element offset): the same kernel at W=1, one element per thread; it is
+// chosen by pps_ghost_stencil_vector_width, which the Python wrapper mirrors.
+//
+// ptxas (sm_90a, CUDA 12.8): 58 registers at <float, 4>, 64 at
+// <double, 2>, 40 at <float, 1>, 54 at <double, 1>; no spills.  The chunk
+// height was chosen with pressurepoissonsolver_torch/stencil_sweep.py
+// (PERF.md).  The kernel allocates nothing, launches on the caller's stream
+// and does not synchronise.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
+
+#ifndef PPS_ROWS_2D
+#define PPS_ROWS_2D 2  // rows a thread marches
+#endif
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;
+constexpr int kRows = PPS_ROWS_2D;
+
+template <typename T, int W>
+struct alignas(sizeof(T) * W) Pack {
+  T a[W];
+};
+
+template <typename T, int W>
+__device__ __forceinline__ Pack<T, W> load(const T* p) {
+  return *reinterpret_cast<const Pack<T, W>*>(p);
+}
+
+// out is written once and not read again here: a streaming store, so that
+// it does not evict the inputs' lines from the L2
+template <typename T, int W>
+__device__ __forceinline__ void store(T* p, const Pack<T, W>& v) {
+  if constexpr (W * sizeof(T) == 16 && sizeof(T) == 4) {
+    __stcs(reinterpret_cast<float4*>(p),
+           make_float4(v.a[0], v.a[1], v.a[2], v.a[3]));
+  } else if constexpr (W * sizeof(T) == 16) {
+    __stcs(reinterpret_cast<double2*>(p), make_double2(v.a[0], v.a[1]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) __stcs(p + i, v.a[i]);
+  }
+}
+
+// the ghost vector coef * u_b + 2 * g
+template <typename T, int W>
+__device__ __forceinline__ Pack<T, W> ghost(T c, const Pack<T, W>& ub,
+                                            const Pack<T, W>& g) {
+  Pack<T, W> r;
+#pragma unroll
+  for (int i = 0; i < W; ++i) r.a[i] = c * ub.a[i] + T(2) * g.a[i];
+  return r;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 template <typename T>
-__global__ void ghost_stencil_2d_kernel(const T* __restrict__ u,
-                                        const T* __restrict__ gf,
-                                        const T* __restrict__ coef,
-                                        const T* __restrict__ h2,
-                                        T* __restrict__ out, int n) {
-  const int cells = n * n;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= cells) return;
-  const int64_t p = blockIdx.x;
-  const int y = c / n;
-  const int x = c - y * n;
-  const T* up = u + p * cells;
+int vector_width(const void* u, const void* gf, const void* out, int n) {
+  constexpr int w = 16 / sizeof(T);
+  return n % w == 0 && aligned16(u) && aligned16(gf) && aligned16(out) ? w : 1;
+}
+
+// one thread per (patch, chunk of kRows rows, vector of a row), vector
+// fastest
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+    ghost_stencil_2d_kernel(const T* __restrict__ u, const T* __restrict__ gf,
+                            const T* __restrict__ coef,
+                            const T* __restrict__ h2, T* __restrict__ out,
+                            int n, int chunks, long long walkers) {
+  using V = Pack<T, W>;
+  const int nx = n / W;  // vectors per row
+  const int lane = threadIdx.x & 31;
+  const long long w = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const bool in = w < walkers;
+  const long long t = in ? w / nx : 0;
+  const int xv = in ? static_cast<int>(w - t * nx) : 0;
+  const int y0 = static_cast<int>(t % chunks) * kRows;
+  const int64_t p = t / chunks;
+  const int y1 = min(y0 + kRows, n);
+  const int x0 = xv * W;
+
+  const T* up = u + p * n * n + x0;  // row y at up + y * n
+  T* op = out + p * n * n + x0;
   const T* g = gf + p * 4 * n;
   const T* cp = coef + p * 4;
+  const T c0 = cp[0], c1 = cp[1], c2 = cp[2], c3 = cp[3];
+  const T hx = h2[2 * p], hy = h2[2 * p + 1];
   const T two = T(2);
-  const T uc = up[c];
-  const T lo_x = x > 0 ? up[c - 1] : cp[0] * uc + two * g[y];
-  const T hi_x = x < n - 1 ? up[c + 1] : cp[1] * uc + two * g[n + y];
-  const T lo_y = y > 0 ? up[c - n] : cp[2] * uc + two * g[2 * n + x];
-  const T hi_y = y < n - 1 ? up[c + n] : cp[3] * uc + two * g[3 * n + x];
-  out[p * cells + c] = (lo_x - two * uc + hi_x) * h2[2 * p] +
-                       (lo_y - two * uc + hi_y) * h2[2 * p + 1];
+
+  // every load of the chunk before any arithmetic: rows y0-1 .. y1, the
+  // x-face entries of the end lanes, the y-face vectors of the first and
+  // last rows of the patch
+  V v[kRows + 2];
+#pragma unroll
+  for (int k = 0; k < kRows + 2; ++k) {
+    const int y = y0 - 1 + k;
+    v[k] = in && y >= 0 && y <= y1 && y < n ? load<T, W>(up + y * n) : V{};
+  }
+  T gx[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int y = y0 + k;
+    gx[k] = in && y < y1 && (xv == 0 || xv == nx - 1) ? g[(xv == 0 ? 0 : n) + y]
+                                                      : T(0);
+  }
+  const V gyl = in && y0 == 0 ? load<T, W>(g + 2 * n + x0) : V{};
+  const V gyh = in && y1 == n ? load<T, W>(g + 3 * n + x0) : V{};
+
+  // every lane of a warp takes the same steps, for the shuffles
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int y = y0 + k;
+    const V& c = v[k + 1];
+    const T from_lo = __shfl_up_sync(kFull, c.a[W - 1], 1);
+    const T from_hi = __shfl_down_sync(kFull, c.a[0], 1);
+    if (in && y < y1) {
+      T lox, hix;
+      if (xv == 0)
+        lox = c0 * c.a[0] + two * gx[k];
+      else
+        lox = lane ? from_lo : up[y * n - 1];
+      if (xv == nx - 1)
+        hix = c1 * c.a[W - 1] + two * (xv == 0 ? g[n + y] : gx[k]);
+      else
+        hix = lane != 31 ? from_hi : up[y * n + W];
+      const V loy = y == 0 ? ghost<T, W>(c2, c, gyl) : v[k];
+      const V hiy = y == n - 1 ? ghost<T, W>(c3, c, gyh) : v[k + 2];
+      V o;
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        const T uc = c.a[i];
+        const T lx = i > 0 ? c.a[i - 1] : lox;
+        const T rx = i < W - 1 ? c.a[i + 1] : hix;
+        o.a[i] = (lx - two * uc + rx) * hx + (loy.a[i] - two * uc + hiy.a[i]) * hy;
+      }
+      store<T, W>(op + y * n, o);
+    }
+  }
+}
+
+template <typename T, int W>
+int launch_width(const void* u, const void* gf, const void* coef,
+                 const void* h2, void* out, long long P, int n,
+                 cudaStream_t stream) {
+  const int chunks = (n + kRows - 1) / kRows;
+  const long long walkers = P * chunks * (n / W);
+  const long long blocks = (walkers + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  ghost_stencil_2d_kernel<T, W>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          static_cast<const T*>(u), static_cast<const T*>(gf),
+          static_cast<const T*>(coef), static_cast<const T*>(h2),
+          static_cast<T*>(out), n, chunks, walkers);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* u, const void* gf, const void* coef, const void* h2,
            void* out, long long P, int n, void* stream) {
   if (P <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
-  const int cells = n * n;
-  // a whole number of warps, at most 256 threads, tiling the patch's cells
-  const int threads = cells >= 256 ? 256 : ((cells + 31) / 32) * 32;
-  const dim3 grid(static_cast<unsigned>(P), (cells + threads - 1) / threads);
-  ghost_stencil_2d_kernel<T><<<grid, threads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<const T*>(gf),
-      static_cast<const T*>(coef), static_cast<const T*>(h2),
-      static_cast<T*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  if (n > 46340) return cudaErrorInvalidValue;  // n * n fits an int
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vector_width<T>(u, gf, out, n) > 1)
+    return launch_width<T, static_cast<int>(16 / sizeof(T))>(u, gf, coef, h2,
+                                                             out, P, n, s);
+  return launch_width<T, 1>(u, gf, coef, h2, out, P, n, s);
 }
 
 }  // namespace
@@ -89,6 +230,14 @@ extern "C" int pps_ghost_stencil_2d_f64(const void* u, const void* gf,
                                         void* out, long long P, int n,
                                         void* stream) {
   return launch<double>(u, gf, coef, h2, out, P, n, stream);
+}
+
+// elements per thread the launch above takes for these arguments
+extern "C" int pps_ghost_stencil_vector_width(const void* u, const void* gf,
+                                              const void* out, int n,
+                                              int elem_bytes) {
+  return elem_bytes == 4 ? vector_width<float>(u, gf, out, n)
+                         : vector_width<double>(u, gf, out, n);
 }
 
 extern "C" const char* pps_cuda_error_string(int code) {

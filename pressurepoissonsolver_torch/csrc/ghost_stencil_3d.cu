@@ -14,79 +14,313 @@
 // Layout: u, out [P, n, n, n] (z, y, x; x fastest); gf [P, 6, n*n] with
 // sides x_lo, x_hi, y_lo, y_hi, z_lo, z_hi, flattened as extract_faces
 // does: x faces at z*n + y, y faces at z*n + x, z faces at y*n + x;
-// coef [P, 6]; h2 [P, 3] = (1/hx^2, 1/hy^2, 1/hz^2).  Any n >= 1 with
-// n^3 <= 65535 * 256 (the grid's y limit).
+// coef [P, 6]; h2 [P, 3] = (1/hx^2, 1/hy^2, 1/hz^2).  Any n from 1 to 512.
 //
 // What bounds it on the H100: bytes.  It does about 14 flops per cell
 // against a compulsory (2 n^3 + 6 n^2) * sizeof(T) bytes per patch (read u
-// and gf once, write out once), far below the card's flop/byte balance.
-// At the 3D bench shape (P=624, n=32) that is 178.9 MB in f32 and
-// 357.8 MB in f64, so the floor at 3.35 TB/s is about 53 us (f32) and
-// 107 us (f64); the fields exceed the 50 MB L2, so the kernel streams from
-// device memory.  Design: one block per (patch, tile of 256 consecutive
-// cells), a thread per cell, neighbouring threads on neighbouring
-// addresses, so the loads of u and the store coalesce.  The +-x neighbours
-// come from the same cache lines, the +-y (n cells away) and +-z (n^2
-// cells away) neighbours from L1/L2, so device memory sees each cell of u
-// about once.  Unlike the TPU kernel, which broadcasts the z faces, pads
-// the y faces and spreads the x faces onto their lanes with a one-hot
-// matmul, each boundary thread here reads its own gf entry.  The kernel
-// allocates nothing, launches on the caller's stream and does not
-// synchronise.
+// and gf once, write out once), far below the card's flop/byte balance: at
+// the 3D bench shape (P=624, n=32) 178.9 MB in f32 and 357.8 MB in f64, a
+// floor of 53 us and 107 us at 3.35 TB/s.  The fields exceed the 50 MB L2,
+// so the kernel streams from device memory, and what it has to get right is
+// few, wide memory instructions and enough bytes in flight.
+//
+// Design: a block owns a tile of the xy plane (whole rows; the whole plane
+// when it has at most PPS_TILE_3D vectors) and a slab of PPS_SLAB_3D z planes
+// of one patch, and marches along z.  Each thread owns a W-wide vector of a
+// row (W = 16 bytes / sizeof(T): float4, double2).  The planes stream
+// through a ring of PPS_DEPTH_3D + 2 slots in shared memory: while plane z
+// computes, each thread copies its vector of plane z + PPS_DEPTH_3D + 1 into
+// the ring with cp.async, so the bytes in flight are set by the ring, not by
+// the registers.  Each element of u comes from device memory once, plus one
+// halo plane at each slab edge (and a halo row at each edge of a y tile
+// narrower than the patch) that the neighbouring block also reads, mostly
+// from L2.  A step reads its vector at z and z+1 and the +-y vectors from the
+// ring (one barrier per plane), keeps z-1 in registers, and takes the +-x
+// neighbours of the vector's end elements from the neighbouring lanes by
+// shuffle (from the ring where a row crosses a warp boundary).  A plane's
+// slot also holds its x-face entries (copied by the end lanes of the rows)
+// and its y-face vectors (copied by rows y=0 and y=n-1); the z faces are
+// read in the two steps that need them.  out is written with streaming
+// 16-byte stores.  coef and h2 are read once per thread; the only divisions
+// are in the block and thread index set-up.  Consecutive blocks walk
+// consecutive slabs of one patch, so the blocks in flight stream
+// neighbouring memory.
+//
+// n not a multiple of W, or u, gf or out not 16-byte aligned (a view at an
+// element offset): the same kernel at W=1, one element per thread; it is
+// chosen by pps_ghost_stencil_vector_width, which the Python wrapper mirrors.
+//
+// ptxas (sm_90a, CUDA 12.8): 64 registers in every instantiation, the
+// ceiling that __launch_bounds__(512, 2) sets; 16 bytes spilled in
+// <double, 2>, none in the others.  At n=32 a block has 256 threads and five
+// slots of 4.8 KB (f32) or 5.3 KB (f64), and an SM holds four blocks.  The
+// tiling knobs were chosen with pressurepoissonsolver_torch/stencil_sweep.py
+// (PERF.md).  The kernel allocates nothing, launches on the caller's stream
+// and does not synchronise.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
+
+#ifndef PPS_TILE_3D
+#define PPS_TILE_3D 256  // most vectors (threads) in a block's plane tile
+#endif
+#ifndef PPS_SLAB_3D
+#define PPS_SLAB_3D 8  // z planes a block marches
+#endif
+#ifndef PPS_DEPTH_3D
+#define PPS_DEPTH_3D 3  // planes in flight ahead of the two a step reads
+#endif
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxThreads = 512;
+constexpr int kDepth = PPS_DEPTH_3D;
+constexpr int kSlots = kDepth + 2;  // planes z and z+1, and those in flight
+
+template <typename T, int W>
+struct alignas(sizeof(T) * W) Pack {
+  T a[W];
+};
+
+template <typename T, int W>
+__device__ __forceinline__ Pack<T, W> load(const T* p) {
+  return *reinterpret_cast<const Pack<T, W>*>(p);
+}
+
+// out is written once and not read again here: a streaming store, so that
+// it does not evict the inputs' lines from the L2
+template <typename T, int W>
+__device__ __forceinline__ void store(T* p, const Pack<T, W>& v) {
+  if constexpr (W * sizeof(T) == 16 && sizeof(T) == 4) {
+    __stcs(reinterpret_cast<float4*>(p),
+           make_float4(v.a[0], v.a[1], v.a[2], v.a[3]));
+  } else if constexpr (W * sizeof(T) == 16) {
+    __stcs(reinterpret_cast<double2*>(p), make_double2(v.a[0], v.a[1]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i) __stcs(p + i, v.a[i]);
+  }
+}
+
+// the ghost vector coef * u_b + 2 * g
+template <typename T, int W>
+__device__ __forceinline__ Pack<T, W> ghost(T c, const Pack<T, W>& ub,
+                                            const Pack<T, W>& g) {
+  Pack<T, W> r;
+#pragma unroll
+  for (int i = 0; i < W; ++i) r.a[i] = c * ub.a[i] + T(2) * g.a[i];
+  return r;
+}
+
+// asynchronous copy of B bytes from device to shared memory (cp.async)
+template <int B>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(B)
+                 : "memory");
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 template <typename T>
-__global__ void ghost_stencil_3d_kernel(const T* __restrict__ u,
-                                        const T* __restrict__ gf,
-                                        const T* __restrict__ coef,
-                                        const T* __restrict__ h2,
-                                        T* __restrict__ out, int n) {
+int vector_width(const void* u, const void* gf, const void* out, int n) {
+  constexpr int w = 16 / sizeof(T);
+  return n % w == 0 && aligned16(u) && aligned16(gf) && aligned16(out) ? w : 1;
+}
+
+// bytes of one slot of the shared ring: the plane tile with a halo row
+// above and below ((rows + 2) * nx vectors), the y-face entries of the
+// plane (2 * nx vectors) and its x-face entries (2 * rows scalars)
+template <typename T, int W>
+__host__ __device__ int slot_bytes(int rows, int nx) {
+  const int xf = 2 * rows * static_cast<int>(sizeof(T));
+  return (rows + 4) * nx * static_cast<int>(sizeof(Pack<T, W>)) +
+         (xf + 15) / 16 * 16;
+}
+
+// blockDim.x = the tile's rows * nx vectors, rounded up to whole warps;
+// grid = P * ytiles * slabs blocks, slab fastest
+template <typename T, int W>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+    ghost_stencil_3d_kernel(const T* __restrict__ u, const T* __restrict__ gf,
+                            const T* __restrict__ coef,
+                            const T* __restrict__ h2, T* __restrict__ out,
+                            int n, int rows, int slab, int ytiles, int slabs) {
+  using V = Pack<T, W>;
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int nx = n / W;  // vectors per row
   const int m = n * n;
-  const int cells = m * n;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= cells) return;
-  const int64_t p = blockIdx.x;
-  const int z = c / m;
-  const int r = c - z * m;  // y * n + x
-  const int y = r / n;
-  const int x = r - y * n;
-  const T* up = u + p * cells;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int ty = tid / nx;
+  const int xv = tid - ty * nx;
+  const int x0 = xv * W;
+  int b = blockIdx.x;
+  const int s = b % slabs;
+  b /= slabs;
+  const int y = (b % ytiles) * rows + ty;
+  const int64_t p = b / ytiles;
+  const bool live = ty < rows && y < n;
+  const int r = live ? y * n + x0 : 0;  // offset in the plane
+  const int z0 = s * slab;
+  const int z1 = min(z0 + slab, n);
+  const int zlast = min(z1, n - 1);  // the last plane the slab reads
+  const int tile = (rows + 2) * nx;  // vectors of a slot's plane tile
+  const int sb = slot_bytes<T, W>(rows, nx);
+  const int me = (ty + 1) * nx + xv;  // this thread's vector in a slot
+
+  const T* up = u + p * m * n;
+  T* op = out + p * m * n;
   const T* g = gf + p * 6 * m;
-  const T* cp = coef + p * 6;
-  const T* hp = h2 + p * 3;
   const T two = T(2);
-  const T uc = up[c];
-  const T lo_x = x > 0 ? up[c - 1] : cp[0] * uc + two * g[z * n + y];
-  const T hi_x = x < n - 1 ? up[c + 1] : cp[1] * uc + two * g[m + z * n + y];
-  const T lo_y = y > 0 ? up[c - n] : cp[2] * uc + two * g[2 * m + z * n + x];
-  const T hi_y =
-      y < n - 1 ? up[c + n] : cp[3] * uc + two * g[3 * m + z * n + x];
-  const T lo_z = z > 0 ? up[c - m] : cp[4] * uc + two * g[4 * m + r];
-  const T hi_z = z < n - 1 ? up[c + m] : cp[5] * uc + two * g[5 * m + r];
-  out[p * cells + c] = (lo_x - two * uc + hi_x) * hp[0] +
-                       (lo_y - two * uc + hi_y) * hp[1] +
-                       (lo_z - two * uc + hi_z) * hp[2];
+  // coef[0..5] and h2[0..2] of the patch
+  T cf[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) cf[i] = i < 6 ? coef[p * 6 + i] : h2[p * 3 + i - 6];
+
+  // plane q (q = z0-1 .. zlast) lives in slot (q - z0 + 1) % kSlots; each
+  // thread copies its own vector, the threads on the tile's edge rows the
+  // halo rows, the boundary rows the y-face entries and the end lanes of a
+  // row the x-face entries of the plane.  One commit group per plane.
+  auto issue = [&](int q) {
+    if (live && q >= 0 && q <= zlast) {
+      unsigned char* slot = smem + (q - z0 + 1) % kSlots * sb;
+      V* t = reinterpret_cast<V*>(slot);
+      const T* uq = up + q * m + r;
+      copy_async<sizeof(V)>(t + me, uq);
+      if (ty == 0 && y > 0) copy_async<sizeof(V)>(t + xv, uq - n);
+      if (ty == rows - 1 && y < n - 1)
+        copy_async<sizeof(V)>(t + (rows + 1) * nx + xv, uq + n);
+      if (y == 0) copy_async<sizeof(V)>(t + tile + xv, g + 2 * m + q * n + x0);
+      if (y == n - 1)
+        copy_async<sizeof(V)>(t + tile + nx + xv, g + 3 * m + q * n + x0);
+      T* xf = reinterpret_cast<T*>(t + tile + 2 * nx);
+      if (xv == 0) copy_async<sizeof(T)>(xf + ty, g + q * n + y);
+      if (xv == nx - 1) copy_async<sizeof(T)>(xf + rows + ty, g + m + q * n + y);
+    }
+    commit_copies();
+  };
+
+  for (int q = z0 - 1; q <= z0 + kDepth; ++q) issue(q);
+
+  V zm{};
+  for (int z = z0; z < z1; ++z) {
+    // the z faces, read in the step that needs them (z = 0, z = n-1), so
+    // that they hold no register across the loop
+    V gzl{}, gzh{};
+    if (live && z == 0) gzl = load<T, W>(g + 4 * m + r);
+    if (live && z == n - 1) gzh = load<T, W>(g + 5 * m + r);
+    // planes up to z+1 have landed; kDepth - 1 more may be in flight
+    wait_copies<kDepth - 1>();
+    __syncthreads();
+    const V* t = reinterpret_cast<const V*>(smem + (z - z0 + 1) % kSlots * sb);
+    V c{}, zp{};
+    if (live) {
+      c = t[me];
+      if (z == z0 && z > 0)
+        zm = reinterpret_cast<const V*>(smem + (z - z0) % kSlots * sb)[me];
+      if (z + 1 < n)
+        zp = reinterpret_cast<const V*>(smem + (z - z0 + 2) % kSlots * sb)[me];
+    }
+    // into the slot of plane z-1, which every thread has finished with
+    issue(z + kDepth + 1);
+    const T from_lo = __shfl_up_sync(kFull, c.a[W - 1], 1);
+    const T from_hi = __shfl_down_sync(kFull, c.a[0], 1);
+    if (live) {
+      const T* xf = reinterpret_cast<const T*>(t + tile + 2 * nx);
+      T lox, hix;
+      if (xv == 0)
+        lox = cf[0] * c.a[0] + two * xf[ty];
+      else
+        lox = lane ? from_lo : t[me - 1].a[W - 1];
+      if (xv == nx - 1)
+        hix = cf[1] * c.a[W - 1] + two * xf[rows + ty];
+      else
+        hix = lane != 31 ? from_hi : t[me + 1].a[0];
+      const V loy = y == 0 ? ghost<T, W>(cf[2], c, t[tile + xv]) : t[me - nx];
+      const V hiy =
+          y == n - 1 ? ghost<T, W>(cf[3], c, t[tile + nx + xv]) : t[me + nx];
+      const V loz = z == 0 ? ghost<T, W>(cf[4], c, gzl) : zm;
+      const V hiz = z == n - 1 ? ghost<T, W>(cf[5], c, gzh) : zp;
+      const T hx = cf[6], hy = cf[7], hz = cf[8];
+      V o;
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        const T uc = c.a[i];
+        const T lx = i > 0 ? c.a[i - 1] : lox;
+        const T rx = i < W - 1 ? c.a[i + 1] : hix;
+        o.a[i] = (lx - two * uc + rx) * hx +
+                 (loy.a[i] - two * uc + hiy.a[i]) * hy +
+                 (loz.a[i] - two * uc + hiz.a[i]) * hz;
+      }
+      store<T, W>(op + z * m + r, o);
+    }
+    zm = c;
+  }
+  wait_copies<0>();  // no copy outlives the block
+}
+
+template <typename T, int W>
+int launch_width(const void* u, const void* gf, const void* coef,
+                 const void* h2, void* out, long long P, int n,
+                 cudaStream_t stream) {
+  const int nx = n / W;
+  const int rows = std::min(n, std::max(1, PPS_TILE_3D / nx));
+  const int threads = (nx * rows + 31) / 32 * 32;
+  const int ytiles = (n + rows - 1) / rows;
+  const int slab = std::min(n, PPS_SLAB_3D);
+  const int slabs = (n + slab - 1) / slab;
+  const long long blocks = P * ytiles * slabs;
+  const int smem = kSlots * slot_bytes<T, W>(rows, nx);
+  if (threads > kMaxThreads || blocks > INT_MAX || smem > 227 * 1024)
+    return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ghost_stencil_3d_kernel<T, W>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  ghost_stencil_3d_kernel<T, W>
+      <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(gf),
+      static_cast<const T*>(coef), static_cast<const T*>(h2),
+      static_cast<T*>(out), n, rows, slab, ytiles, slabs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* u, const void* gf, const void* coef, const void* h2,
            void* out, long long P, int n, void* stream) {
   if (P <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
-  const int cells = n * n * n;
-  // a whole number of warps, at most 256 threads, tiling the patch's cells
-  const int threads = cells >= 256 ? 256 : ((cells + 31) / 32) * 32;
-  const dim3 grid(static_cast<unsigned>(P), (cells + threads - 1) / threads);
-  ghost_stencil_3d_kernel<T><<<grid, threads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(u), static_cast<const T*>(gf),
-      static_cast<const T*>(coef), static_cast<const T*>(h2),
-      static_cast<T*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  if (n > kMaxThreads) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vector_width<T>(u, gf, out, n) > 1)
+    return launch_width<T, static_cast<int>(16 / sizeof(T))>(u, gf, coef, h2,
+                                                             out, P, n, s);
+  return launch_width<T, 1>(u, gf, coef, h2, out, P, n, s);
 }
 
 }  // namespace
@@ -103,6 +337,14 @@ extern "C" int pps_ghost_stencil_3d_f64(const void* u, const void* gf,
                                         void* out, long long P, int n,
                                         void* stream) {
   return launch<double>(u, gf, coef, h2, out, P, n, stream);
+}
+
+// elements per thread the launch above takes for these arguments
+extern "C" int pps_ghost_stencil_vector_width(const void* u, const void* gf,
+                                              const void* out, int n,
+                                              int elem_bytes) {
+  return elem_bytes == 4 ? vector_width<float>(u, gf, out, n)
+                         : vector_width<double>(u, gf, out, n);
 }
 
 extern "C" const char* pps_cuda_error_string(int code) {

@@ -23,7 +23,9 @@ the port of the reference's Pallas ``pallas_stencil._kernel_2d``;
 ``csrc/ghost_stencil_3d.cu``, the port of ``_kernel_3d``) and counts the
 launch in ``launches`` (2D) or ``launches_3d`` (3D); on a CPU tensor it
 runs the plain version.  There is no size gate and no fallback: a CUDA
-launch that fails raises.
+launch that fails raises.  Each kernel has two paths: 16-byte vectors
+(``float4`` / ``double2``) when ``vector_width`` allows them, one element
+per thread otherwise; ``last_width`` records the path of the last launch.
 """
 
 from __future__ import annotations
@@ -38,6 +40,11 @@ from .. import cuda_build
 launches = {"float32": 0, "float64": 0}
 #: 3D kernel launches per dtype name
 launches_3d = {"float32": 0, "float64": 0}
+#: per D: elements per thread of the last launch (0 before any)
+last_width = {2: 0, 3: 0}
+# the kernels' largest n (3D: a row of the plane tile is at most 512
+# threads; 2D: n * n fits a 32-bit int)
+_MAX_N = {2: 46340, 3: 512}
 
 _COUNTS = {2: launches, 3: launches_3d}
 # per D: library name, source under csrc/, C entry point prefix
@@ -57,19 +64,42 @@ def reset_launches() -> None:
 def build(D: int = 2) -> ctypes.CDLL:
     """Compile (at first use) and load the ``D``-dimensional kernel's
     library."""
-    name, source, entry = _LIBS[D]
+    name, source, _ = _LIBS[D]
     lib = cuda_build.load_library(name, [source])
     if (D, torch.float32) not in _fns:
-        for dt, suffix in _SUFFIX.items():
-            fn = getattr(lib, f"{entry}_{suffix}")
-            fn.argtypes = [ctypes.c_void_p] * 5 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-            ]
-            fn.restype = ctypes.c_int
+        for dt, fn in bind(lib, D).items():
             _fns[D, dt] = fn
-        lib.pps_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.pps_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bind(lib: ctypes.CDLL, D: int) -> dict:
+    """Declare the C interface of a ``D``-dimensional kernel library; its
+    launch function per dtype."""
+    fns = {}
+    for dt, suffix in _SUFFIX.items():
+        fn = getattr(lib, f"{_LIBS[D][2]}_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+        ]
+        fn.restype = ctypes.c_int
+        fns[dt] = fn
+    lib.pps_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pps_cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "pps_ghost_stencil_vector_width"):
+        lib.pps_ghost_stencil_vector_width.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_int
+        ]
+        lib.pps_ghost_stencil_vector_width.restype = ctypes.c_int
+    return fns
+
+
+def vector_width(n: int, dtype: torch.dtype, *data_ptrs: int) -> int:
+    """Elements per thread the kernels take: a 16-byte vector (4 in f32, 2
+    in f64) when n is a multiple of it and every pointer (``u``, ``gf``,
+    ``out``) is 16-byte aligned, else 1.  The launchers in ``csrc/`` apply
+    the same rule (``pps_ghost_stencil_vector_width``)."""
+    w = 16 // dtype.itemsize
+    return w if n % w == 0 and all(p % 16 == 0 for p in data_ptrs) else 1
 
 
 def _plain(u, gf, coef, h2) -> torch.Tensor:
@@ -137,12 +167,13 @@ def _run(D, u, gf, coef, h2) -> torch.Tensor:
     for name, t in (("u", u), ("gf", gf), ("coef", coef), ("h2", h2)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    P, n = u.shape[0], u.shape[1]
-    if n**D > 65535 * 256 or P > 2**31 - 1:
-        raise ValueError(f"P={P}, n={n} exceeds the {D}D kernel's grid")
+    n = u.shape[1]
+    if n > _MAX_N[D]:
+        raise ValueError(f"n={n} exceeds the {D}D kernel's largest n, {_MAX_N[D]}")
     if (D, u.dtype) not in _fns:
         build(D)
     out = torch.empty_like(u)
+    width = vector_width(n, u.dtype, u.data_ptr(), gf.data_ptr(), out.data_ptr())
     if u.device.index == torch.cuda.current_device():
         err = _launch(D, u, gf, coef, h2, out)
     else:
@@ -152,6 +183,7 @@ def _run(D, u, gf, coef, h2) -> torch.Tensor:
         msg = build(D).pps_cuda_error_string(err).decode()
         raise RuntimeError(f"{D}D ghost_stencil launch failed: {msg} ({err})")
     _COUNTS[D][_NAMES[u.dtype]] += 1
+    last_width[D] = width
     return out
 
 

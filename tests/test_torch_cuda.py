@@ -45,21 +45,91 @@ def _hierarchy():
     return DomainHierarchy(refined_tree(2, 4, 2), n=8)
 
 
-@pytest.mark.parametrize("shape", [(1048, 64), (37, 12), (3, 1)])
+def _width(n, dt):
+    """The path a launch on fresh (16-byte aligned) tensors takes: a 16-byte
+    vector per thread when n is a multiple of it, else one element."""
+    w = 16 // DTYPES[dt].itemsize
+    return w if n % w == 0 else 1
+
+
+def _stencil_args(D, P, n, dt, device, seed):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((P,) + (n,) * D),
+            rng.standard_normal((P, 2 * D, n ** (D - 1))),
+            rng.choice([-1.0, 0.0, 1.0], size=(P, 2 * D)),
+            rng.uniform(1e2, 1e6, size=(P, D)))
+    return [torch.as_tensor(a, dtype=DTYPES[dt], device=device) for a in arrs]
+
+
+# the bench shape and a row of a whole warp or more take the vector path;
+# (37, 6) in f32 and (3, 1) take one element per thread; (37, 12) vectors
+# that do not fill a warp's lanes
+@pytest.mark.parametrize("shape", [(1048, 64), (37, 12), (3, 1), (37, 6), (8, 128)])
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_kernel_matches_plain(cuda, dt, shape):
     P, n = shape
-    rng = np.random.default_rng(0)
-    arrs = (rng.standard_normal((P, n, n)), rng.standard_normal((P, 4, n)),
-            rng.choice([-1.0, 0.0, 1.0], size=(P, 4)),
-            rng.uniform(1e2, 1e6, size=(P, 2)))
-    args = [torch.as_tensor(a, dtype=DTYPES[dt], device=cuda) for a in arrs]
+    args = _stencil_args(2, P, n, dt, cuda, 0)
     name = str(DTYPES[dt]).replace("torch.", "")
     before = gs.launches[name]
     out = gs.ghost_stencil(*args)
     torch.cuda.synchronize()
     assert gs.launches[name] == before + 1
+    assert gs.last_width[2] == _width(n, dt)
+    if shape in ((1048, 64), (8, 128)):
+        assert gs.last_width[2] > 1
     assert _rel(gs.ghost_stencil_plain(*args), out) <= RTOL[dt]
+
+
+@pytest.mark.parametrize("D, shape", [(2, (1048, 64)), (3, (624, 32))])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_kernel_on_shifted_u_takes_width_1(cuda, dt, D, shape):
+    """A contiguous ``u`` one element past a 16-byte boundary."""
+    P, n = shape
+    args = _stencil_args(D, P, n, dt, cuda, 6)
+    buf = torch.empty(args[0].numel() + 1, dtype=DTYPES[dt], device=cuda)
+    shifted = buf[1:].view(args[0].shape)
+    shifted.copy_(args[0])
+    kernel = gs.ghost_stencil if D == 2 else gs.ghost_stencil_3d
+    plain = gs.ghost_stencil_plain if D == 2 else gs.ghost_stencil_3d_plain
+    out = kernel(shifted, *args[1:])
+    torch.cuda.synchronize()
+    assert gs.last_width[D] == 1
+    assert _rel(plain(*args), out) <= RTOL[dt]
+
+
+@pytest.mark.parametrize("D", [2, 3])
+def test_vector_width_matches_launcher(cuda, D):
+    """The wrapper's rule is the one the C launcher applies."""
+    lib = gs.build(D)
+    buf = torch.empty(1 << 12, dtype=torch.float64, device=cuda)
+    base = buf.data_ptr()
+    for dtype in (torch.float32, torch.float64):
+        for n in (1, 2, 4, 6, 12, 32, 37, 64):
+            for shift in range(4):
+                ptrs = (base + shift * dtype.itemsize, base, base)
+                assert (lib.pps_ghost_stencil_vector_width(*ptrs, n, dtype.itemsize)
+                        == gs.vector_width(n, dtype, *ptrs))
+
+
+@pytest.mark.parametrize("side", range(4))
+def test_kernel_2d_face_order(cuda, side):
+    """A face entry lands on the boundary cell ``extract_faces`` reads."""
+    P, n = 2, 8
+    zeros = torch.zeros((P, n, n), dtype=torch.float64, device=cuda)
+    for k in (0, 3, n - 1):
+        gf = torch.zeros((P, 4, n), dtype=torch.float64, device=cuda)
+        gf[1, side, k] = 1.0
+        out = gs.ghost_stencil(zeros, gf,
+                               torch.zeros(P, 4, dtype=torch.float64, device=cuda),
+                               torch.ones(P, 2, dtype=torch.float64, device=cuda))
+        assert gs.last_width[2] == 2
+        hit = torch.nonzero(out).cpu()
+        assert hit.shape[0] == 1
+        cell = tuple(int(i) for i in hit[0])
+        assert float(out[cell]) == 2.0
+        onehot = torch.zeros((P, n, n), dtype=torch.float64)
+        onehot[cell] = 1.0
+        assert float(extract_faces(onehot, 2, n)[1, side, k]) == 1.0
 
 
 @pytest.mark.parametrize("dt", ["f32", "f64"])
@@ -124,20 +194,23 @@ def _hierarchy_3d(n=4):
     return DomainHierarchy(refined_tree(3, 3, 2), n=n)
 
 
-@pytest.mark.parametrize("shape", [(624, 32), (37, 6), (3, 1)])
+# the bench shape and (4, 64) (a row of 16 / 32 vectors, a plane tile of
+# several warps, two y tiles in f64) take the vector path; (37, 6) in f32,
+# (3, 1) and (1, 255) one element per thread; (1, 255) has rows that cross
+# warps, one-row tiles and, in f64, a ring above 48 KB of shared memory
+@pytest.mark.parametrize("shape", [(624, 32), (37, 6), (3, 1), (37, 12), (4, 64), (1, 255)])
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_kernel_3d_matches_plain(cuda, dt, shape):
     P, n = shape
-    rng = np.random.default_rng(3)
-    arrs = (rng.standard_normal((P, n, n, n)), rng.standard_normal((P, 6, n * n)),
-            rng.choice([-1.0, 0.0, 1.0], size=(P, 6)),
-            rng.uniform(1e2, 1e6, size=(P, 3)))
-    args = [torch.as_tensor(a, dtype=DTYPES[dt], device=cuda) for a in arrs]
+    args = _stencil_args(3, P, n, dt, cuda, 3)
     name = str(DTYPES[dt]).replace("torch.", "")
     before = (gs.launches_3d[name], dict(gs.launches))
     out = gs.ghost_stencil_3d(*args)
     torch.cuda.synchronize()
     assert (gs.launches_3d[name], gs.launches) == (before[0] + 1, before[1])
+    assert gs.last_width[3] == _width(n, dt)
+    if shape in ((624, 32), (4, 64)):
+        assert gs.last_width[3] > 1
     assert _rel(gs.ghost_stencil_3d_plain(*args), out) <= RTOL[dt]
 
 

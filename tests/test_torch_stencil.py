@@ -76,6 +76,60 @@ def test_cpu_wrapper_takes_plain_version(dt):
     assert torch.equal(out, gs.ghost_stencil_plain(*args))
 
 
+@pytest.mark.parametrize("side", range(4))
+def test_2d_face_order_is_extract_faces_order(side):
+    """A face entry lands on the boundary cell that ``extract_faces`` of
+    the reference reads it from: x faces indexed by row y, y faces by
+    column x."""
+    P, n = 2, 5
+    zeros = np.zeros((P, n, n))
+    for k in (0, 2, n - 1):
+        gf = np.zeros((P, 4, n))
+        gf[1, side, k] = 1.0
+        out = gs.ghost_stencil_plain(
+            torch.from_numpy(zeros), torch.from_numpy(gf),
+            torch.zeros(P, 4, dtype=torch.float64),
+            torch.ones(P, 2, dtype=torch.float64)).numpy()
+        hit = np.argwhere(out != 0.0)
+        assert len(hit) == 1 and out[tuple(hit[0])] == 2.0
+        onehot = zeros.copy()
+        onehot[tuple(hit[0])] = 1.0
+        faces = np.asarray(jlo.extract_faces(jnp.asarray(onehot), 2, n))
+        assert faces[1, side, k] == 1.0
+
+
+# the kernels take 16-byte vectors (4 f32, 2 f64 elements) when n is a
+# multiple of the vector and u, gf and out are 16-byte aligned, else one
+# element per thread; ``shift`` moves one pointer by that many elements
+@pytest.mark.parametrize("n, dt, shift, want", [
+    (64, "f32", 0, 4), (32, "f32", 0, 4), (12, "f32", 0, 4), (4, "f32", 0, 4),
+    (6, "f32", 0, 1), (2, "f32", 0, 1), (1, "f32", 0, 1),
+    (32, "f32", 1, 1), (32, "f32", 2, 1), (32, "f32", 4, 4),
+    (64, "f64", 0, 2), (32, "f64", 0, 2), (6, "f64", 0, 2), (2, "f64", 0, 2),
+    (37, "f64", 0, 1), (1, "f64", 0, 1), (32, "f64", 1, 1), (32, "f64", 2, 2),
+])
+@pytest.mark.parametrize("which", ["u", "gf", "out"])
+def test_vector_width_choice(n, dt, shift, want, which):
+    dtype = DTYPES[dt][1]
+    base = 1 << 20
+    ptrs = {k: base + (shift * dtype.itemsize if k == which else 0)
+            for k in ("u", "gf", "out")}
+    assert gs.vector_width(n, dtype, ptrs["u"], ptrs["gf"], ptrs["out"]) == want
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_vector_width_of_a_shifted_view(dt):
+    """A contiguous tensor one element into its storage is not 16-byte
+    aligned, so it takes the one-element path."""
+    dtype = DTYPES[dt][1]
+    buf = torch.zeros(33 * 32 * 32, dtype=dtype)
+    whole, shifted = buf[:32 * 32 * 32], buf[1:1 + 32 * 32 * 32]
+    assert shifted.is_contiguous()
+    ptr = whole.data_ptr()
+    assert gs.vector_width(32, dtype, whole.data_ptr(), ptr, ptr) == 16 // dtype.itemsize
+    assert gs.vector_width(32, dtype, shifted.data_ptr(), ptr, ptr) == 1
+
+
 def test_wrapper_rejects_bad_inputs():
     u, gf, coef, h2 = (torch.from_numpy(a) for a in _inputs(3, 8, np.float64))
     with pytest.raises(ValueError):
