@@ -28,7 +28,10 @@ Phases, any failure of which raises and exits non-zero:
    ``scripts/bench3d.py`` with its defaults, on a generated mesh
    (``refined_tree(3, 3, 2)`` refined once, n=32, 624 patches, 20,447,232
    DOF, V(1,1) with full FAC smoothing, ``trig`` problem); then a profile
-   of one 3D solve;
+   of one 3D solve; every launch of the bench solves must take the
+   kernels' vector path, by the launcher's own rule; then time both
+   kernels at realistic patch sizes off the vector path
+   (``WIDTH1_SHAPES``);
 5. print the kernel table, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -68,9 +71,14 @@ REPLACES = {2: "pressurepoissonsolver_tpu/ops/pallas_stencil.py:87",
             3: "pressurepoissonsolver_tpu/ops/pallas_stencil.py:231"}
 SOURCES = {2: "pressurepoissonsolver_torch/csrc/ghost_stencil.cu",
            3: "pressurepoissonsolver_torch/csrc/ghost_stencil_3d.cu"}
-# patch shapes (P, n) off the main path: the first is timed; n=6 in f32
-# and n=1 take the kernels' one-element-per-thread path
+# patch shapes (P, n) off the main path, checked against the plain version;
+# n=6 in f32 and n=1 take the kernels' one-element-per-thread path
 ODD_SHAPES = {2: [(37, 12), (37, 6), (3, 1)], 3: [(37, 6), (3, 1)]}
+# patch shapes off the vector path, checked and timed: n a multiple of 2 but
+# not 4 (one element per thread in f32, a vector in f64) and odd n (one
+# element per thread in both types), at the bench's patch counts and at a
+# small one
+WIDTH1_SHAPES = {2: [(1048, 62), (1048, 63), (37, 7)], 3: [(624, 30), (624, 31), (37, 7)]}
 
 
 def card_line() -> str:
@@ -120,15 +128,9 @@ def check_kernels(torch, gs, timer, card, D, shapes):
     for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         name = str(dtype).replace("torch.", "")
         main = shapes[name]
-        for P, n in main + ODD_SHAPES[D]:
+        for P, n in main + ODD_SHAPES[D] + WIDTH1_SHAPES[D]:
             timed = (P, n) in (main[0], ODD_SHAPES[D][0])
-            u = rng.standard_normal((P,) + (n,) * D)
-            gf = rng.standard_normal((P, 2 * D, n ** (D - 1)))
-            coef = rng.choice([-1.0, 0.0, 1.0], size=(P, 2 * D))
-            h = 1.0 / (n * 2.0 ** rng.integers(2, 7, size=(P, 1)))
-            h2 = np.repeat(1.0 / h**2, D, axis=1)
-            args = [torch.as_tensor(a, dtype=dtype, device="cuda")
-                    for a in (u, gf, coef, h2)]
+            args = stencil_args(torch, rng, D, P, n, dtype)
             out_k = kernel(*args)
             width = gs.last_width[D]
             out_p = plain(*args)
@@ -180,6 +182,46 @@ def check_kernels(torch, gs, timer, card, D, shapes):
                            "bound_by": bound_by, "library_ms": None,
                            "vector_width": width}
     return table
+
+
+def stencil_args(torch, rng, D, P, n, dtype):
+    """Random ``u, gf, coef, h2`` on the card for ``P`` patches of ``n``
+    cells a side: coef in {-1, 0, 1}, h2 of cells 1/(4n) .. 1/(64n)."""
+    u = rng.standard_normal((P,) + (n,) * D)
+    gf = rng.standard_normal((P, 2 * D, n ** (D - 1)))
+    coef = rng.choice([-1.0, 0.0, 1.0], size=(P, 2 * D))
+    h = 1.0 / (n * 2.0 ** rng.integers(2, 7, size=(P, 1)))
+    h2 = np.repeat(1.0 / h**2, D, axis=1)
+    return [torch.as_tensor(a, dtype=dtype, device="cuda") for a in (u, gf, coef, h2)]
+
+
+def width1_ms(torch, gs, timer, card):
+    """Warm device ms (held stream, median of 50) of each kernel at
+    ``WIDTH1_SHAPES`` in f32 and f64, printed and returned as
+    ``{"<D>d <dtype> P=<P> n=<n>": ms}``.  It calls only the wrappers
+    ``gs.ghost_stencil`` / ``gs.ghost_stencil_3d`` and
+    ``timer.cuda_median_ms``, so it times an older version of the package
+    the same way when that package comes first on ``sys.path``::
+
+        python3 -c "import sys; sys.path[:0] = ['OLD', '.']; import torch,
+        chip_smoke as c; from pressurepoissonsolver_torch.ops import
+        ghost_stencil as gs; from pressurepoissonsolver_torch.utils import
+        timer; c.width1_ms(torch, gs, timer, c.card_line())"
+    """
+    rng = np.random.default_rng(SEED + 1)
+    times = {}
+    for D in (2, 3):
+        kernel = gs.ghost_stencil if D == 2 else gs.ghost_stencil_3d
+        for dtype in (torch.float32, torch.float64):
+            for P, n in WIDTH1_SHAPES[D]:
+                args = stencil_args(torch, rng, D, P, n, dtype)
+                key = f"{D}d {str(dtype)[6:]} P={P} n={n}"
+                times[key] = timer.cuda_median_ms(lambda: kernel(*args), reps=50,
+                                                  hold=True)
+                print(f"kernel ghost_stencil_{key} [{card}]: device ms warm "
+                      f"{times[key]:.5f}", flush=True)
+                del args
+    return times
 
 
 def check_shifted(torch, gs, timer, kernel, args, ref, rtol, scale):
@@ -264,10 +306,11 @@ def setup_bench(torch, port, card, D, base, corner, n, gmg):
     return solver, f, exact, setup_s
 
 
-def timed_solves(torch, solver, f, exact, card, label, gs, counts, **kw):
+def timed_solves(torch, solver, f, exact, card, label, gs, D, **kw):
     """One warm-up and three timed ``solve_refined`` calls, with every
     launch count set to 0 just before them; the last solution, its info
-    and report, and ``counts`` as read just after the solves."""
+    and report, and the ``D``-dimensional kernel's launches per dtype and
+    per width as read just after the solves."""
     gs.reset_launches()
     times = []
     for rep_i in range(4):
@@ -277,7 +320,8 @@ def timed_solves(torch, solver, f, exact, card, label, gs, counts, **kw):
         torch.cuda.synchronize()
         if rep_i:
             times.append(time.perf_counter() - t0)
-    launches = dict(counts)
+    launches = dict(gs.launches if D == 2 else gs.launches_3d)
+    widths = dict(gs.widths[D])
     rep = solver.report(u, f, exact)
     dof = solver.fine_level.pl.num_cells
     best = min(times)
@@ -285,6 +329,10 @@ def timed_solves(torch, solver, f, exact, card, label, gs, counts, **kw):
           f"{info['inner_iterations']} residual {rep['residual']:.3e} error "
           f"{rep['error']:.6e} best {best:.6f} s of {[round(t, 6) for t in times]}"
           f" -> {dof / best:.1f} DOF/s", flush=True)
+    print(f"{label} kernel launches in the 4 solves: {launches}; per elements "
+          f"per thread {widths}", flush=True)
+    # every launch of the solves takes the vector path
+    assert widths[1] == 0 and sum(widths.values()) == sum(launches.values()), widths
     return u, info, rep, launches
 
 
@@ -302,10 +350,7 @@ def time_applies(torch, solver, u, timer, card, label):
 def solve_bench(torch, solver, f, exact, gs, timer, card):
     """The 2D bench problem through the port's main path."""
     u, info, rep, launches = timed_solves(torch, solver, f, exact, card,
-                                          "bench solve", gs, gs.launches,
-                                          inner_tol=1e-4)
-    print(f"bench solve kernel launches in the 4 solves: 2D {launches}",
-          flush=True)
+                                          "bench solve", gs, 2, inner_tol=1e-4)
     assert tuple(u.shape) == (solver.fine_level.P, 64, 64)
     assert bool(torch.isfinite(u).all())
     assert rep["residual"] <= 1e-10, rep
@@ -349,9 +394,7 @@ def solve_bench(torch, solver, f, exact, gs, timer, card):
 def solve_bench_3d(torch, solver, f, exact, gs, timer, card):
     """The 3D bench problem (``scripts/bench3d.py``) through the port."""
     u, info, rep, launches = timed_solves(torch, solver, f, exact, card,
-                                          "3D bench solve", gs, gs.launches_3d)
-    print(f"3D bench solve kernel launches in the 4 solves: 3D {launches}",
-          flush=True)
+                                          "3D bench solve", gs, 3)
     n = solver.fine_level.n
     assert tuple(u.shape) == (solver.fine_level.P, n, n, n)
     assert bool(torch.isfinite(u).all())
@@ -416,9 +459,9 @@ def build_kernels(gs, cuda_build) -> None:
     for lib in ("ghost_stencil", "ghost_stencil_3d"):
         info = cuda_build.build_info[lib]
         print(f"  {lib}: nvcc {info['seconds']:.2f} s", flush=True)
-        for name, regs, spill in cuda_build.ptxas_report(info["log"]):
-            print(f"  ptxas: {name}: {regs} registers, {spill} bytes spilled",
-                  flush=True)
+        for line in info["log"].splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip(), flush=True)
 
 
 def main() -> None:
@@ -469,6 +512,8 @@ def main() -> None:
     tables[3] = check_kernels(torch, gs, timer, card, 3, stencil_shapes(solver))
     solve_small_3d(torch, port)
     launches[3] = solve_bench_3d(torch, solver, f, exact, gs, timer, card)
+    del solver, f, exact
+    width1_ms(torch, gs, timer, card)
 
     # phase 5
     kernels = [

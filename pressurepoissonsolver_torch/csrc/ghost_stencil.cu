@@ -22,9 +22,9 @@
 // that has just written u finds it there; the floor is the cold case.
 //
 // Design: each thread owns a W-wide vector of a row (W = 16 bytes /
-// sizeof(T): float4, double2) and marches along y over a chunk of
-// PPS_ROWS_2D rows.  It issues every load of its chunk before any arithmetic
-// (the rows y0-1 .. y0+PPS_ROWS_2D, the x-face entries of its rows when it
+// sizeof(T): float4, double2) and marches along y over a chunk of kRows
+// rows (2; at W=1, whose loads are narrower, 4 in float and 3 in double).  It issues every load of its chunk before any arithmetic (the rows
+// y0-1 .. y0+kRows, the x-face entries of its rows when it
 // is an end lane, the y-face vector when the chunk holds y=0 or y=n-1), so
 // each thread has several 16-byte loads in flight; then each row computes
 // from the registers.  Every load of u and every store of out is 16 bytes;
@@ -38,14 +38,15 @@
 // only divisions are in the thread index set-up.
 //
 // n not a multiple of W, or u, gf or out not 16-byte aligned (a view at an
-// element offset): the same kernel at W=1, one element per thread; it is
-// chosen by pps_ghost_stencil_vector_width, which the Python wrapper mirrors.
+// element offset): the same kernel at W=1, one element per thread, chosen
+// by pps_ghost_stencil_vector_width, which the wrapper calls to record the
+// path of each launch.
 //
-// ptxas (sm_90a, CUDA 12.8): 58 registers at <float, 4>, 64 at
-// <double, 2>, 40 at <float, 1>, 54 at <double, 1>; no spills.  The chunk
-// height was chosen with pressurepoissonsolver_torch/stencil_sweep.py
-// (PERF.md).  The kernel allocates nothing, launches on the caller's stream
-// and does not synchronise.
+// ptxas (sm_90a, CUDA 12.8): 58 registers at <float, 4> and <float, 1>, 64
+// at <double, 2> and <double, 1>; no spills.  The chunk heights were chosen
+// by timing 1 to 8 rows at the bench shape and at n=63 (PERF.md).
+// The kernel allocates nothing, launches on the caller's stream and does
+// not synchronise.
 
 #include <cuda_runtime.h>
 
@@ -53,15 +54,14 @@
 #include <climits>
 #include <cstdint>
 
-#ifndef PPS_ROWS_2D
-#define PPS_ROWS_2D 2  // rows a thread marches
-#endif
-
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
-constexpr int kRows = PPS_ROWS_2D;
+// rows a thread marches: 2 on the vector path; at one element per thread,
+// whose loads are narrower, 4 in float and 3 in double
+template <typename T, int W>
+constexpr int kRows = W > 1 ? 2 : sizeof(T) == 4 ? 4 : 3;
 
 template <typename T, int W>
 struct alignas(sizeof(T) * W) Pack {
@@ -108,7 +108,7 @@ int vector_width(const void* u, const void* gf, const void* out, int n) {
   return n % w == 0 && aligned16(u) && aligned16(gf) && aligned16(out) ? w : 1;
 }
 
-// one thread per (patch, chunk of kRows rows, vector of a row), vector
+// one thread per (patch, chunk of kRows<T, W> rows, vector of a row), vector
 // fastest
 template <typename T, int W>
 __global__ void __launch_bounds__(kThreads)
@@ -124,9 +124,9 @@ __global__ void __launch_bounds__(kThreads)
   const bool in = w < walkers;
   const long long t = in ? w / nx : 0;
   const int xv = in ? static_cast<int>(w - t * nx) : 0;
-  const int y0 = static_cast<int>(t % chunks) * kRows;
+  const int y0 = static_cast<int>(t % chunks) * kRows<T, W>;
   const int64_t p = t / chunks;
-  const int y1 = min(y0 + kRows, n);
+  const int y1 = min(y0 + kRows<T, W>, n);
   const int x0 = xv * W;
 
   const T* up = u + p * n * n + x0;  // row y at up + y * n
@@ -140,15 +140,15 @@ __global__ void __launch_bounds__(kThreads)
   // every load of the chunk before any arithmetic: rows y0-1 .. y1, the
   // x-face entries of the end lanes, the y-face vectors of the first and
   // last rows of the patch
-  V v[kRows + 2];
+  V v[kRows<T, W> + 2];
 #pragma unroll
-  for (int k = 0; k < kRows + 2; ++k) {
+  for (int k = 0; k < kRows<T, W> + 2; ++k) {
     const int y = y0 - 1 + k;
     v[k] = in && y >= 0 && y <= y1 && y < n ? load<T, W>(up + y * n) : V{};
   }
-  T gx[kRows];
+  T gx[kRows<T, W>];
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
+  for (int k = 0; k < kRows<T, W>; ++k) {
     const int y = y0 + k;
     gx[k] = in && y < y1 && (xv == 0 || xv == nx - 1) ? g[(xv == 0 ? 0 : n) + y]
                                                       : T(0);
@@ -158,7 +158,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // every lane of a warp takes the same steps, for the shuffles
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
+  for (int k = 0; k < kRows<T, W>; ++k) {
     const int y = y0 + k;
     const V& c = v[k + 1];
     const T from_lo = __shfl_up_sync(kFull, c.a[W - 1], 1);
@@ -192,7 +192,7 @@ template <typename T, int W>
 int launch_width(const void* u, const void* gf, const void* coef,
                  const void* h2, void* out, long long P, int n,
                  cudaStream_t stream) {
-  const int chunks = (n + kRows - 1) / kRows;
+  const int chunks = (n + kRows<T, W> - 1) / kRows<T, W>;
   const long long walkers = P * chunks * (n / W);
   const long long blocks = (walkers + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;

@@ -13,7 +13,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import time
@@ -45,17 +44,13 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def load_library(name: str, sources: Sequence[str],
-                 defines: Sequence[str] = (), src_dir: Path = CSRC) -> ctypes.CDLL:
-    """Compile ``sources`` (file names under ``src_dir``, by default
-    ``csrc/``) into ``lib<name>-<hash>.so`` unless it exists, and load it.
-    ``defines`` (``"MACRO=value"``) are passed to ``nvcc`` as ``-D``
-    flags."""
+def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+    """Compile ``sources`` (file names under ``csrc/``) into
+    ``lib<name>-<hash>.so`` unless it exists, and load it."""
     if name in _libs:
         return _libs[name]
-    paths = [Path(src_dir) / s for s in sources]
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    h = hashlib.sha256(" ".join(flags).encode())
+    paths = [CSRC / s for s in sources]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in paths:
         h.update(p.read_bytes())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -63,7 +58,7 @@ def load_library(name: str, sources: Sequence[str],
     info = {"seconds": 0.0, "log": ""}
     if not out.exists():
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *flags, "-o", str(tmp), *map(str, paths)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         info["seconds"] = time.perf_counter() - t0
@@ -77,35 +72,3 @@ def load_library(name: str, sources: Sequence[str],
     build_info[name] = info
     _libs[name] = lib
     return lib
-
-
-def ptxas_report(log: str) -> list:
-    """``(kernel, registers, spill bytes)`` per entry function in an
-    ``nvcc -Xptxas=-v`` log, with a ``kernel<T, W>`` template shown as
-    ``name<float|double, W>``."""
-    rows, name, spill = [], None, 0
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name, spill = _kernel_name(m.group(1)), 0
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            spill = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            rows.append((name, int(m.group(1)), spill))
-    return rows
-
-
-def _kernel_name(mangled: str) -> str:
-    """``name<float, W>`` for a mangled ``name_kernel<T, W>``: the name is
-    the identifier ending in ``_kernel`` that its length prefix spans."""
-    m = re.search(r"_kernelI([fd])Li(\d+)E", mangled)
-    if not m:
-        return mangled
-    end = m.start() + len("_kernel")
-    for n in range(len("_kernel"), end):
-        if mangled[:end - n].endswith(str(n)):
-            t = "float" if m.group(1) == "f" else "double"
-            return f"{mangled[end - n:end]}<{t}, {m.group(2)}>"
-    return mangled

@@ -24,8 +24,12 @@ the port of the reference's Pallas ``pallas_stencil._kernel_2d``;
 launch in ``launches`` (2D) or ``launches_3d`` (3D); on a CPU tensor it
 runs the plain version.  There is no size gate and no fallback: a CUDA
 launch that fails raises.  Each kernel has two paths: 16-byte vectors
-(``float4`` / ``double2``) when ``vector_width`` allows them, one element
-per thread otherwise; ``last_width`` records the path of the last launch.
+(``float4`` / ``double2``) when n is a multiple of the vector and ``u``,
+``gf`` and ``out`` are 16-byte aligned, one element per thread otherwise.
+The launcher's own rule (``pps_ghost_stencil_vector_width``, on the
+launch's pointers) names the path of each launch: ``widths`` counts the
+launches per path and ``last_width`` holds the last one's.
+``vector_width`` is the same rule in Python.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ from .. import cuda_build
 launches = {"float32": 0, "float64": 0}
 #: 3D kernel launches per dtype name
 launches_3d = {"float32": 0, "float64": 0}
+#: per D: kernel launches per elements per thread (1, 2 or 4)
+widths = {2: {1: 0, 2: 0, 4: 0}, 3: {1: 0, 2: 0, 4: 0}}
 #: per D: elements per thread of the last launch (0 before any)
 last_width = {2: 0, 3: 0}
 # the kernels' largest n (3D: a row of the plane tile is at most 512
@@ -56,7 +62,7 @@ _fns = {}  # (D, dtype) -> ctypes function
 
 
 def reset_launches() -> None:
-    for counts in _COUNTS.values():
+    for counts in (*_COUNTS.values(), *widths.values()):
         for k in counts:
             counts[k] = 0
 
@@ -85,19 +91,19 @@ def bind(lib: ctypes.CDLL, D: int) -> dict:
         fns[dt] = fn
     lib.pps_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pps_cuda_error_string.restype = ctypes.c_char_p
-    if hasattr(lib, "pps_ghost_stencil_vector_width"):
-        lib.pps_ghost_stencil_vector_width.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int, ctypes.c_int
-        ]
-        lib.pps_ghost_stencil_vector_width.restype = ctypes.c_int
+    lib.pps_ghost_stencil_vector_width.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_int
+    ]
+    lib.pps_ghost_stencil_vector_width.restype = ctypes.c_int
     return fns
 
 
 def vector_width(n: int, dtype: torch.dtype, *data_ptrs: int) -> int:
     """Elements per thread the kernels take: a 16-byte vector (4 in f32, 2
     in f64) when n is a multiple of it and every pointer (``u``, ``gf``,
-    ``out``) is 16-byte aligned, else 1.  The launchers in ``csrc/`` apply
-    the same rule (``pps_ghost_stencil_vector_width``)."""
+    ``out``) is 16-byte aligned, else 1: the rule of the launchers in
+    ``csrc/`` (``pps_ghost_stencil_vector_width``), which the card tests
+    hold this function to."""
     w = 16 // dtype.itemsize
     return w if n % w == 0 and all(p % 16 == 0 for p in data_ptrs) else 1
 
@@ -173,7 +179,8 @@ def _run(D, u, gf, coef, h2) -> torch.Tensor:
     if (D, u.dtype) not in _fns:
         build(D)
     out = torch.empty_like(u)
-    width = vector_width(n, u.dtype, u.data_ptr(), gf.data_ptr(), out.data_ptr())
+    width = build(D).pps_ghost_stencil_vector_width(
+        u.data_ptr(), gf.data_ptr(), out.data_ptr(), n, u.element_size())
     if u.device.index == torch.cuda.current_device():
         err = _launch(D, u, gf, coef, h2, out)
     else:
@@ -183,6 +190,7 @@ def _run(D, u, gf, coef, h2) -> torch.Tensor:
         msg = build(D).pps_cuda_error_string(err).decode()
         raise RuntimeError(f"{D}D ghost_stencil launch failed: {msg} ({err})")
     _COUNTS[D][_NAMES[u.dtype]] += 1
+    widths[D][width] += 1
     last_width[D] = width
     return out
 

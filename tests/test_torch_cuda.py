@@ -52,6 +52,18 @@ def _width(n, dt):
     return w if n % w == 0 else 1
 
 
+def _launch_takes(D, want, launch):
+    """Run ``launch()`` and check that it was one launch of the ``D``-dim
+    kernel on the path with ``want`` elements per thread, as the launcher's
+    rule names it."""
+    before = dict(gs.widths[D])
+    out = launch()
+    torch.cuda.synchronize()
+    assert gs.last_width[D] == want
+    assert gs.widths[D] == {w: c + (w == want) for w, c in before.items()}
+    return out
+
+
 def _stencil_args(D, P, n, dt, device, seed):
     rng = np.random.default_rng(seed)
     arrs = (rng.standard_normal((P,) + (n,) * D),
@@ -62,28 +74,28 @@ def _stencil_args(D, P, n, dt, device, seed):
 
 
 # the bench shape and a row of a whole warp or more take the vector path;
-# (37, 6) in f32 and (3, 1) take one element per thread; (37, 12) vectors
-# that do not fill a warp's lanes
-@pytest.mark.parametrize("shape", [(1048, 64), (37, 12), (3, 1), (37, 6), (8, 128)])
+# (37, 6) in f32, (3, 1) and (1048, 63) take one element per thread; (37, 12)
+# vectors that do not fill a warp's lanes
+@pytest.mark.parametrize("shape", [(1048, 64), (37, 12), (3, 1), (37, 6), (8, 128),
+                                   (1048, 63)])
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_kernel_matches_plain(cuda, dt, shape):
     P, n = shape
     args = _stencil_args(2, P, n, dt, cuda, 0)
     name = str(DTYPES[dt]).replace("torch.", "")
     before = gs.launches[name]
-    out = gs.ghost_stencil(*args)
-    torch.cuda.synchronize()
+    out = _launch_takes(2, _width(n, dt), lambda: gs.ghost_stencil(*args))
     assert gs.launches[name] == before + 1
-    assert gs.last_width[2] == _width(n, dt)
     if shape in ((1048, 64), (8, 128)):
         assert gs.last_width[2] > 1
     assert _rel(gs.ghost_stencil_plain(*args), out) <= RTOL[dt]
 
 
-@pytest.mark.parametrize("D, shape", [(2, (1048, 64)), (3, (624, 32))])
+@pytest.mark.parametrize("D, shape", [(2, (1048, 64)), (3, (624, 32)), (3, (37, 7))])
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_kernel_on_shifted_u_takes_width_1(cuda, dt, D, shape):
-    """A contiguous ``u`` one element past a 16-byte boundary."""
+    """A contiguous ``u`` one element past a 16-byte boundary (at odd n its
+    planes start at a different offset from a 16-byte boundary each)."""
     P, n = shape
     args = _stencil_args(D, P, n, dt, cuda, 6)
     buf = torch.empty(args[0].numel() + 1, dtype=DTYPES[dt], device=cuda)
@@ -91,9 +103,7 @@ def test_kernel_on_shifted_u_takes_width_1(cuda, dt, D, shape):
     shifted.copy_(args[0])
     kernel = gs.ghost_stencil if D == 2 else gs.ghost_stencil_3d
     plain = gs.ghost_stencil_plain if D == 2 else gs.ghost_stencil_3d_plain
-    out = kernel(shifted, *args[1:])
-    torch.cuda.synchronize()
-    assert gs.last_width[D] == 1
+    out = _launch_takes(D, 1, lambda: kernel(shifted, *args[1:]))
     assert _rel(plain(*args), out) <= RTOL[dt]
 
 
@@ -119,10 +129,9 @@ def test_kernel_2d_face_order(cuda, side):
     for k in (0, 3, n - 1):
         gf = torch.zeros((P, 4, n), dtype=torch.float64, device=cuda)
         gf[1, side, k] = 1.0
-        out = gs.ghost_stencil(zeros, gf,
-                               torch.zeros(P, 4, dtype=torch.float64, device=cuda),
-                               torch.ones(P, 2, dtype=torch.float64, device=cuda))
-        assert gs.last_width[2] == 2
+        out = _launch_takes(2, 2, lambda: gs.ghost_stencil(
+            zeros, gf, torch.zeros(P, 4, dtype=torch.float64, device=cuda),
+            torch.ones(P, 2, dtype=torch.float64, device=cuda)))
         hit = torch.nonzero(out).cpu()
         assert hit.shape[0] == 1
         cell = tuple(int(i) for i in hit[0])
@@ -195,20 +204,22 @@ def _hierarchy_3d(n=4):
 
 
 # the bench shape and (4, 64) (a row of 16 / 32 vectors, a plane tile of
-# several warps, two y tiles in f64) take the vector path; (37, 6) in f32,
-# (3, 1) and (1, 255) one element per thread; (1, 255) has rows that cross
-# warps, one-row tiles and, in f64, a ring above 48 KB of shared memory
-@pytest.mark.parametrize("shape", [(624, 32), (37, 6), (3, 1), (37, 12), (4, 64), (1, 255)])
+# several warps, two y tiles in f64) take the vector path; (37, 6) and
+# (624, 30) in f32, (3, 1), (624, 31) and (1, 255) one element per thread;
+# (1, 255) has rows that cross warps, one-row tiles, planes at a different
+# offset from a 16-byte boundary each and, in f64, a ring above 48 KB of
+# shared memory; (624, 31) a last thread row with rows past the patch (f32)
+# and two y tiles (f64); the small P ones thinner slabs
+@pytest.mark.parametrize("shape", [(624, 32), (37, 6), (3, 1), (37, 12), (4, 64),
+                                   (1, 255), (624, 30), (624, 31)])
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_kernel_3d_matches_plain(cuda, dt, shape):
     P, n = shape
     args = _stencil_args(3, P, n, dt, cuda, 3)
     name = str(DTYPES[dt]).replace("torch.", "")
     before = (gs.launches_3d[name], dict(gs.launches))
-    out = gs.ghost_stencil_3d(*args)
-    torch.cuda.synchronize()
+    out = _launch_takes(3, _width(n, dt), lambda: gs.ghost_stencil_3d(*args))
     assert (gs.launches_3d[name], gs.launches) == (before[0] + 1, before[1])
-    assert gs.last_width[3] == _width(n, dt)
     if shape in ((624, 32), (4, 64)):
         assert gs.last_width[3] > 1
     assert _rel(gs.ghost_stencil_3d_plain(*args), out) <= RTOL[dt]

@@ -149,7 +149,7 @@ import sys
 import numpy as np
 import torch
 import pressurepoissonsolver_torch
-from pressurepoissonsolver_torch import checkpoint, cuda_build, domain, geometry, gmg, iface, krylov, matrix, problems, solver, stencil_sweep
+from pressurepoissonsolver_torch import checkpoint, cuda_build, domain, geometry, gmg, iface, krylov, matrix, problems, solver
 from pressurepoissonsolver_torch.ops import ghost_stencil, level_ops, transforms
 from pressurepoissonsolver_torch.utils import timer
 import chip_smoke
