@@ -23,15 +23,22 @@ Phases, any failure of which raises and exits non-zero:
    refinement around f32 BiCGStab preconditioned by a V(2,1) FAC cycle
    with active-set smoothing — to a relative residual of 1e-10; check the
    result against the JAX reference's numbers and check that the solve
-   went through the 2D kernel;
+   went through the 2D kernel; then the Schur-complement path of
+   ``bench.py``: the identity ``apply_with_interface(patch_solve(f, g), g)
+   = f`` through the kernel at the bench level, every Schur preconditioner,
+   GMRES, the Schwarz preconditioner and the per-patch BiCGStab on a small
+   mesh against the reference's iteration counts, the probed Schur matrix
+   at the bench size (timed), and the bench Schur solve
+   (``solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")``) held
+   to the reference and to the composite solve's solution, then profiled;
 4. 3D: the same for the 3D kernel and the 3D FAC solve of
    ``scripts/bench3d.py`` with its defaults, on a generated mesh
    (``refined_tree(3, 3, 2)`` refined once, n=32, 624 patches, 20,447,232
    DOF, V(1,1) with full FAC smoothing, ``trig`` problem); then a profile
    of one 3D solve; every launch of the bench solves must take the
-   kernels' vector path, by the launcher's own rule; then time both
-   kernels at realistic patch sizes off the vector path
-   (``WIDTH1_SHAPES``);
+   kernels' vector path, by the launcher's own rule; a small 3D Schur
+   solve; then time both kernels at realistic patch sizes off the vector
+   path (``WIDTH1_SHAPES``);
 5. print the kernel table, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
@@ -61,6 +68,34 @@ SMALL_ERROR = 9.151817836e-4
 # without the refinement, n=8, 78 patches): 2 / 7, error 5.739378412e-4
 BENCH3D_ERROR = 8.968628605e-6
 SMALL3D_ERROR = 5.739378412e-4
+# the JAX reference (CPU, jax_enable_x64) on the Schur path of the 2D bench
+# configuration, solve_schur(f, tol=1e-10, max_iter=60,
+# preconditioner="gmg") with the phase-3 options: 5 iterations, residual
+# 2.826e-13, relative error 8.931338e-07, and a largest difference from
+# the solve_refined solution of 8.27e-11 of max|u|
+SCHUR_BENCH_ITERS = 5
+SCHUR_BENCH_ERROR = 8.931338e-7
+# the small Schur mesh: refined_tree(2, 3, 1), n=8 (19 patches), trig,
+# tol 1e-10, f64 solves with the f32 V(2,1) FAC cycle of SCHUR_SMALL_GMG;
+# the JAX reference's iterations per run (solve_schur per preconditioner
+# and Krylov method; solve with Schwarz, and with "bcgs" patch solves and
+# an f64 cycle) and the error every run reaches.
+# tests/test_torch_krylov.py holds these to the reference.
+SCHUR_SMALL_GMG = dict(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                       coarse_direct_max_dof=64)
+SCHUR_SMALL_ITERS = {"none": 35, "cheb": 4, "blockjacobi": 28, "gmg": 5,
+                     "gmres-none": 57, "gmres-gmg": 12, "schwarz": 35, "bcgs": 6}
+SCHUR_SMALL_ERROR = 3.5642034506e-3
+# how far a run's count may move from the reference's: one with an f32
+# V-cycle; three for BiCGStab with no or a one-sweep preconditioner, whose
+# count moves with rounding (perturbing f by 1e-14 of itself moves the
+# port's count of those two runs over 32-35 on the CPU)
+SCHUR_SMALL_BAND = {"gmg": 1, "gmres-gmg": 1, "none": 3, "schwarz": 3}
+# the small 3D Schur solve: refined_tree(3, 3, 2), n=8, "gmg", the small
+# 3D solve's options: the JAX reference takes 6 iterations to the error
+# of the composite solve (5.739378371e-4)
+SCHUR3D_SMALL_ITERS = 6
+SCHUR3D_SMALL_ERROR = 5.739378371e-4
 
 # H100 SXM: device-memory rate, and peak rates outside the tensor cores
 # (NVIDIA's data sheet: 67 TFLOP/s float32, 34 TFLOP/s float64)
@@ -388,7 +423,156 @@ def solve_bench(torch, solver, f, exact, gs, timer, card):
 
     profile_solve(torch, card, "profile",
                   lambda: solver.solve_refined(f, tol=1e-10, inner_tol=1e-4))
-    return launches
+    return u, launches
+
+
+def check_identity(torch, solver, gs, card):
+    """``apply_with_interface(patch_solve(f, g), g) = f`` at the bench level
+    in f64 (the solver's level) and f32 (the V-cycle's finest level), for
+    seeded f and g, through the 2D kernel on its vector path.  The limit is
+    relative to the folded right-hand side ``f - G g`` the solve sees (its
+    ghost terms ``2 g / h^2`` dwarf f)."""
+    rng = np.random.default_rng(SEED + 2)
+    gs.reset_launches()
+    for lvl, rtol in ((solver.fine_level, 1e-12), (solver._fine_low, 1e-5)):
+        f = torch.as_tensor(rng.standard_normal((lvl.P,) + lvl.pl.ns_shape),
+                            dtype=lvl.dtype, device="cuda")
+        g = torch.as_tensor(rng.standard_normal((lvl.num_ifaces, lvl.m)),
+                            dtype=lvl.dtype, device="cuda")
+        back = lvl.apply_with_interface(lvl.patch_solve(f, g), g)
+        err = float((back - f).abs().max())
+        scale = float(lvl.fold_gamma(f, g).abs().max())
+        line = (f"identity apply_with_interface(patch_solve(f, g), g) = f "
+                f"{str(lvl.dtype)[6:]} P={lvl.P} interfaces={lvl.num_ifaces} [{card}]: "
+                f"max_abs_err={err:.3e} max|f - G g|={scale:.3e} (limit {rtol:g}*)")
+        print(line, flush=True)
+        assert err <= rtol * scale, line
+    widths = dict(gs.widths[2])
+    assert gs.launches == {"float32": 1, "float64": 1}, gs.launches
+    assert widths[1] == 0 and not any(gs.launches_3d.values()), widths
+
+
+# the small-mesh Schur runs: (key, solver options, preconditioner of
+# solve_schur, or None for solve)
+SCHUR_SMALL_RUNS = (
+    ("none", {}, None), ("cheb", {}, "cheb"), ("blockjacobi", {}, "blockjacobi"),
+    ("gmg", {}, "gmg"), ("gmres-none", {"krylov": "gmres"}, None),
+    ("gmres-gmg", {"krylov": "gmres"}, "gmg"),
+    ("schwarz", {"preconditioner": "schwarz"}, "solve"),
+    ("bcgs", {"patch_solver": "bcgs", "precond_dtype": "float64"}, "solve"),
+)
+
+
+def schur_small(torch, port, gs, card):
+    """Every Schur preconditioner and Krylov method, and ``solve`` with the
+    Schwarz preconditioner and with per-patch BiCGStab solves, on the small
+    Schur mesh, held to the reference's iteration counts and error."""
+    hier = port.DomainHierarchy(port.refined_tree(2, 3, 1), n=8)
+    f, exact = port.init_problem(hier.finest, port.get_problem("trig", 2))
+    for key, kw, prec in SCHUR_SMALL_RUNS:
+        kw = dict(kw)
+        pdtype = getattr(torch, kw.pop("precond_dtype", "float32"))
+        solver = port.PoissonSolver(hier, port.SolveOptions(
+            tol=1e-10, dtype=torch.float64, precond_dtype=pdtype,
+            gmg=port.CycleOpts(**SCHUR_SMALL_GMG), **kw), device="cuda")
+        gs.reset_launches()
+        if prec == "solve":
+            res = solver.solve(f, max_iter=300)
+            u = res.x
+        else:
+            u, res = solver.solve_schur(f, tol=1e-10, max_iter=60, preconditioner=prec)
+        torch.cuda.synchronize()
+        launches, widths = dict(gs.launches), dict(gs.widths[2])
+        rep = solver.report(u, f, exact)
+        ref = SCHUR_SMALL_ITERS[key]
+        band = SCHUR_SMALL_BAND.get(key, 0)
+        line = (f"small Schur mesh (19 patches, n=8) {key} [{card}]: iterations "
+                f"{res.iterations} (reference {ref}, within {band}) residual "
+                f"{rep['residual']:.3e} error {rep['error']:.10e}; launches {launches}")
+        print(line, flush=True)
+        assert abs(res.iterations - ref) <= band, line
+        assert abs(rep["error"] - SCHUR_SMALL_ERROR) <= 1e-6 * SCHUR_SMALL_ERROR, line
+        assert widths[1] == 0, widths
+        # the V-cycle, the composite apply and the per-patch BiCGStab go
+        # through the kernel; the other Schur runs never apply the stencil
+        if "gmg" in key:
+            assert launches["float32"] > 0, line
+        if key in ("schwarz", "bcgs"):
+            assert launches["float64"] > 0, line
+
+
+def solve_bench_schur(torch, solver, f, exact, u_ir, gs, card):
+    """The Schur path of ``bench.py`` (``bench.py:171-191``) on the bench
+    solver: one warm-up and two timed ``solve_schur(f, tol=1e-10,
+    max_iter=60, preconditioner="gmg")``, held to the reference and to the
+    composite solve's solution ``u_ir``; then the probed Schur matrix
+    (timed) and a profile of one Schur solve."""
+    from pressurepoissonsolver_torch import matrix
+
+    gs.reset_launches()
+    times = []
+    for rep_i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, res = solver.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
+        torch.cuda.synchronize()
+        if rep_i:
+            times.append(time.perf_counter() - t0)
+    launches, widths = dict(gs.launches), dict(gs.widths[2])
+    rep = solver.report(u, f, exact)
+    dof = solver.fine_level.pl.num_cells
+    best = min(times)
+    diff = float((u - u_ir).abs().max() / u_ir.abs().max())
+    print(f"bench Schur solve [{card}]: {dof} DOF, {solver.fine_level.num_ifaces} "
+          f"interfaces of m={solver.fine_level.m}: iterations {res.iterations} "
+          f"residual {rep['residual']:.3e} error {rep['error']:.6e} "
+          f"conservation {rep['conservation']:.3e} best {best:.6f} s of "
+          f"{[round(t, 6) for t in times]} -> {dof / best:.1f} DOF/s; "
+          f"max|u_schur - u_refined| / max|u_refined| = {diff:.3e}", flush=True)
+    print(f"bench Schur solve kernel launches in the 3 solves: {launches}; per "
+          f"elements per thread {widths}", flush=True)
+    assert tuple(u.shape) == tuple(u_ir.shape) and bool(torch.isfinite(u).all())
+    assert abs(res.iterations - SCHUR_BENCH_ITERS) <= 1, res.iterations
+    assert rep["residual"] <= 1e-10, rep
+    assert abs(rep["error"] - SCHUR_BENCH_ERROR) <= 0.01 * SCHUR_BENCH_ERROR, rep
+    assert diff <= 1e-9, diff
+    # the Woodbury preconditioner's f32 V-cycles go through the kernel
+    assert launches["float32"] > 0 and widths[1] == 0, (launches, widths)
+    assert not any(gs.launches_3d.values()), "the 2D Schur solve launched a 3D kernel"
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A_S = matrix.assemble_schur(solver.fine_level)
+    assemble_s = time.perf_counter() - t0
+    print(f"assemble_schur at the bench size [{card}]: {A_S.shape[0]} rows, "
+          f"{A_S.nnz} nonzeros, {assemble_s:.3f} s", flush=True)
+    del A_S
+
+    profile_solve(torch, card, "Schur profile",
+                  lambda: solver.solve_schur(f, tol=1e-10, max_iter=60,
+                                             preconditioner="gmg"))
+
+
+def schur_small_3d(torch, port, gs, card):
+    """A small 3D Schur solve with the 3D bench's options, held to the
+    reference's numbers; its V-cycles go through the 3D kernel."""
+    hier = port.DomainHierarchy(port.refined_tree(3, 3, 2), n=8)
+    solver = port.PoissonSolver(hier, port.SolveOptions(
+        tol=1e-10, dtype=torch.float64, precond_dtype=torch.float32), device="cuda")
+    f, exact = port.init_problem(hier.finest, port.get_problem("trig", 3))
+    gs.reset_launches()
+    u, res = solver.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
+    torch.cuda.synchronize()
+    launches, widths = dict(gs.launches_3d), dict(gs.widths[3])
+    rep = solver.report(u, f, exact)
+    line = (f"small 3D Schur solve (78 patches, n=8) [{card}]: iterations "
+            f"{res.iterations} (reference {SCHUR3D_SMALL_ITERS}) residual "
+            f"{rep['residual']:.3e} error {rep['error']:.10e}; launches {launches}")
+    print(line, flush=True)
+    assert tuple(u.shape) == (78, 8, 8, 8)
+    assert abs(res.iterations - SCHUR3D_SMALL_ITERS) <= 1, line
+    assert abs(rep["error"] - SCHUR3D_SMALL_ERROR) <= 1e-6 * SCHUR3D_SMALL_ERROR, line
+    assert launches["float32"] > 0 and widths[1] == 0, (launches, widths)
 
 
 def solve_bench_3d(torch, solver, f, exact, gs, timer, card):
@@ -503,8 +687,13 @@ def main() -> None:
                   coarse_direct_max_dof=4096))
     tables = {2: check_kernels(torch, gs, timer, card, 2, stencil_shapes(solver))}
     solve_small(torch, port)
-    launches = {2: solve_bench(torch, solver, f, exact, gs, timer, card)}
-    del solver, f, exact
+    u_ir, launches2 = solve_bench(torch, solver, f, exact, gs, timer, card)
+    launches = {2: launches2}
+    # the Schur path of bench.py on the same solver
+    check_identity(torch, solver, gs, card)
+    schur_small(torch, port, gs, card)
+    solve_bench_schur(torch, solver, f, exact, u_ir, gs, card)
+    del solver, f, exact, u_ir
 
     # phase 4: 3D, the defaults of scripts/bench3d.py
     solver, f, exact, setup_s = setup_bench(torch, port, card, 3, 3, 2, 32, CycleOpts())
@@ -513,6 +702,7 @@ def main() -> None:
     solve_small_3d(torch, port)
     launches[3] = solve_bench_3d(torch, solver, f, exact, gs, timer, card)
     del solver, f, exact
+    schur_small_3d(torch, port, gs, card)
     width1_ms(torch, gs, timer, card)
 
     # phase 5

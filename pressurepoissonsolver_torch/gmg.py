@@ -358,7 +358,7 @@ def build_gmg(
     opts: Optional[CycleOpts] = None,
     dtype: torch.dtype = torch.float64,
     *,
-    device,
+    device="cuda",
     fine: Optional[Level] = None,
 ) -> GMGCycle:
     """Build the level stack + transfers (reference

@@ -12,14 +12,18 @@ boundary coefficients), ``Gamma`` the trace-interpolation matrix
 (``+2 gamma / h^2`` into boundary rows).  By construction the assembled
 matrix is *exactly* the matrix-free operator.  Here it serves the dense
 coarse-level inverse of the multigrid cycle.
+
+The Schur interface matrix ``I - S`` is assembled by probing
+(:func:`assemble_schur`: batched patch solves on the card, placement on
+the host) and serves the block-Jacobi interface preconditioner
+(:func:`schur_block_jacobi`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from .domain import PatchLevel
 from .iface import IfaceTables, build_iface_tables
@@ -145,3 +149,152 @@ def assemble_composite(level: PatchLevel, scheme: str = "bilinear") -> sp.csr_ma
     G = assemble_ghost_injection(level, t)
     Gamma = assemble_interpolation(level, t)
     return (L + G @ Gamma).tocsr()
+
+
+def _dense_case_templates(tables: IfaceTables) -> np.ndarray:
+    """Each interpolation case's (weights, source) template as a dense
+    ``m×m`` matrix ``T`` with ``out = T @ face``, in float64."""
+    ncase, m, K = tables.case_w.shape
+    T = np.zeros((ncase, m, m))
+    for k in range(ncase):
+        for i in range(m):
+            for kk in range(K):
+                w = tables.case_w[k, i, kk]
+                if w != 0.0:
+                    T[k, i, tables.case_src[k, i, kk]] += w
+    return T
+
+
+# bytes of one field of the probes' batched patch solves
+_PROBE_CHUNK_BYTES = 1 << 30
+
+
+def assemble_schur(level) -> sp.csr_matrix:
+    """The explicit Schur interface matrix ``A_S = I - S`` by probing
+    (``SchurMatrixHelper.cpp:24-205``, ``SchurMatrixHelper2d.cpp:130-190``).
+
+    A patch's response to a unit interface trace depends only on its
+    (Neumann bits, spacings) class, so the ``2D·m`` unit-trace probes run
+    once per class: on a mini-level of one representative patch per class,
+    repeated once per probe of a chunk, as batched spectral patch solves on
+    ``level``'s device (chunks of about ``_PROBE_CHUNK_BYTES`` per field).
+    The m×m response blocks are placed under the interpolation-case
+    templates on the host.  ``level`` is an ``ops.level_ops.Level``.
+    """
+    from .ops.level_ops import Level, extract_faces
+
+    D, n = level.D, level.n
+    t = level.tables
+    m = t.m
+    S2 = 2 * D
+    NIf = t.num_ifaces
+    P = level.P
+    pl = level.pl
+
+    # -- canonical patch classes ------------------------------------------
+    uniq: dict = {}
+    class_of = np.zeros(P, dtype=np.int64)
+    reps: list = []
+    for p in range(P):
+        key = (
+            tuple(bool(x) for x in pl.neumann[p]),
+            tuple(float(x) for x in pl.spacings[p]),
+        )
+        if key not in uniq:
+            uniq[key] = len(reps)
+            reps.append(p)
+        class_of[p] = uniq[key]
+    U = len(reps)
+
+    # -- the probes, chunked: probe b of a chunk is patch block b ----------
+    B = S2 * m
+    fd = level.face_depth
+    itemsize = torch.empty(0, dtype=level.dtype).element_size()
+    chunk = max(1, min(B, _PROBE_CHUNK_BYTES // (U * n**D * itemsize)))
+    lvl_u = Level(_isolated_patches(pl, np.tile(reps, chunk)), dtype=level.dtype,
+                  device=level.device)
+    R = np.zeros((B, U, S2 * fd, m))
+    for b0 in range(0, B, chunk):
+        nb = min(chunk, B - b0)
+        gf = np.zeros((chunk, U, S2, m))
+        for i in range(nb):
+            s, j = divmod(b0 + i, m)
+            gf[i, :, s, j] = 1.0
+        gf_t = torch.as_tensor(gf.reshape(chunk * U, S2, m), dtype=level.dtype,
+                               device=level.device)
+        zeros = torch.zeros((chunk * U,) + (n,) * D, dtype=level.dtype,
+                            device=level.device)
+        u = lvl_u.patch_solve_faces(zeros, gf_t)
+        faces = extract_faces(u, D, n, fd).reshape(chunk, U, S2 * fd, m)
+        R[b0:b0 + nb] = faces[:nb].cpu().numpy()
+    # [src side, probe j, class, out face code (side*depth + d), m]
+    R = R.reshape(S2, m, U, S2 * fd, m)
+
+    # -- host placement under the case templates ---------------------------
+    T = _dense_case_templates(t)  # [ncase, m, m]
+    rows, cols, vals = [], [], []
+    blk_r = np.repeat(np.arange(m), m)
+    blk_c = np.tile(np.arange(m), m)
+    for s in range(S2):
+        src_iface = t.iface_side_idx[:, s]  # [P]
+        src_mask = t.iface_side_mask[:, s]
+        sel = np.where(src_mask[t.contrib_patch])[0]
+        for c in sel:
+            p = int(t.contrib_patch[c])
+            sc = int(t.contrib_side[c])
+            k = int(t.contrib_case[c])
+            resp = R[s, :, class_of[p], sc, :]  # [probe j, m]
+            block = T[k] @ resp.T  # [m out, m probe]
+            rows.append(int(t.contrib_iface[c]) * m + blk_r)
+            cols.append(int(src_iface[p]) * m + blk_c)
+            vals.append(block.ravel())
+    S_mat = sp.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(NIf * m, NIf * m),
+    )
+    return (sp.identity(NIf * m, format="csr") - S_mat).tocsr()
+
+
+def _isolated_patches(pl: PatchLevel, slots: np.ndarray) -> PatchLevel:
+    """The patches ``slots`` of ``pl`` (repeats allowed) as a level of
+    isolated patches: their Neumann bits and spacings, no neighbours."""
+    U, S2 = len(slots), 2 * pl.D
+    return PatchLevel(
+        D=pl.D,
+        n=pl.n,
+        tree_level=pl.tree_level,
+        ids=np.arange(U, dtype=np.int64),
+        starts=pl.starts[slots],
+        spacings=pl.spacings[slots],
+        refine_level=pl.refine_level[slots],
+        parent_id=np.arange(U, dtype=np.int64),
+        orth_on_parent=np.full(U, -1, dtype=np.int32),
+        neumann=pl.neumann[slots],
+        nbr_type=np.zeros((U, S2), dtype=np.int8),
+        nbr_slot=np.full((U, S2), -1, dtype=np.int64),
+        coarse_orth=np.full((U, S2), -1, dtype=np.int32),
+        fine_nbr_slots=np.full((U, S2, 1 << (pl.D - 1)), -1, dtype=np.int64),
+    )
+
+
+def schur_block_jacobi(level, A_S: sp.csr_matrix = None):
+    """Block-Jacobi preconditioner for the interface system: the inverses
+    of the m×m diagonal blocks of ``I - S`` (the reference's ``PBMatrix``
+    ``getDiagInv`` + ``BlockJacobiSmoother``, ``Experimental/PBMatrix.cpp``),
+    applied as one batched matmul on ``level``'s device."""
+    if A_S is None:
+        A_S = assemble_schur(level)
+    m = level.m
+    NIf = level.num_ifaces
+    blocks = np.zeros((NIf, m, m))
+    Acoo = A_S.tocoo()
+    ri, ci, v = Acoo.row, Acoo.col, Acoo.data
+    same = (ri // m) == (ci // m)
+    # accumulated in entry order, as a loop over the entries would
+    np.add.at(blocks, (ri[same] // m, ri[same] % m, ci[same] % m), v[same])
+    binv = torch.as_tensor(np.linalg.inv(blocks), dtype=level.dtype, device=level.device)
+
+    def M(gamma):
+        return torch.bmm(binv, gamma.unsqueeze(-1)).squeeze(-1)
+
+    return M

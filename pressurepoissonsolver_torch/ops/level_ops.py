@@ -10,6 +10,11 @@ main-path linear maps batched over the leading patch axis:
   kernel of the level's dimension (:mod:`.ghost_stencil`).
 * ``smooth(f, u)`` / ``smooth_zero(f)`` — one block-Jacobi sweep of exact
   spectral patch solves (``SchurHelper::solveWithSolution``).
+* The Schur path: ``interpolate(u) -> gamma`` (trace interpolation onto
+  the interface vector ``[NIf, m]``), ``gamma_faces``,
+  ``apply_with_interface(u, gamma)`` (the stencil with explicit interface
+  values, through the same kernel), ``fold_gamma``, ``patch_solve(f,
+  gamma)`` and the matrix-free Schur operator ``schur_S``.
 
 :class:`ActiveSmoother` is the FAC active-set form of the sweep on a
 static subset of patches.
@@ -32,8 +37,10 @@ import torch
 
 from .. import iface as iface_mod
 from ..domain import PatchLevel
+from ..matrix import _dense_case_templates
 from . import transforms as tr
 from .ghost_stencil import ghost_stencil, ghost_stencil_3d
+from .patch_bcgs import batched_patch_bicgstab
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 # the ghost-closure stencil kernel of each dimension
@@ -356,9 +363,16 @@ class Level:
     """Device tables + core ops for one 2D or 3D refinement level."""
 
     def __init__(self, patch_level: PatchLevel, dtype: torch.dtype = torch.float64,
-                 *, device, iface_scheme: str = "bilinear"):
+                 *, device="cuda", iface_scheme: str = "bilinear",
+                 patch_solver: str = "dft"):
         if patch_level.D not in _STENCIL:
             raise NotImplementedError(f"no {patch_level.D}D levels in the port")
+        if patch_solver not in ("dft", "bcgs"):
+            raise ValueError(f"patch_solver={patch_solver!r}: 'dft' or 'bcgs'")
+        # "dft": exact spectral patch solves; "bcgs": batched per-patch
+        # BiCGStab through the stencil kernel (the reference's
+        # BiCGStabSolver fallback) in patch_solve, smooth and smooth_zero
+        self.patch_solver_kind = patch_solver
         self.pl = patch_level
         self.D = patch_level.D
         self.n = patch_level.n
@@ -378,13 +392,7 @@ class Level:
         # = I/2, c2c = I/3 — the bulk) are applied as elementwise scalings
         ncase = t.case_w.shape[0]
         m = t.m
-        case_T = np.zeros((ncase, m, m))
-        for k in range(ncase):
-            for i in range(m):
-                for kk in range(t.case_w.shape[2]):
-                    w = t.case_w[k, i, kk]
-                    if w != 0.0:
-                        case_T[k, i, t.case_src[k, i, kk]] += w
+        case_T = _dense_case_templates(t)
         self._case_T = case_T  # host f64 [ncase, m, m]
         self._case_scalar = []
         for k in range(ncase):
@@ -393,6 +401,18 @@ class Level:
                 self._case_scalar.append(float(diag[0]) if m else 0.0)
             else:
                 self._case_scalar.append(None)
+
+        # the Schur path's tables: the contribution pipeline over every
+        # interface (interpolate) and the per-(patch, side) gamma routing,
+        # masked sides to the zero pad row (gamma_faces)
+        self._pipe = _build_contrib_pipeline(
+            t.contrib_patch, t.contrib_side, t.contrib_case, t.contrib_iface,
+            t.num_ifaces, case_T, self._case_scalar, dtype,
+            2 * self.D * self.face_depth, self.P, self.device,
+        )
+        if_flat = np.asarray(t.iface_side_idx, dtype=np.int64).copy()
+        if_flat[np.asarray(t.iface_side_mask) == 0] = t.num_ifaces
+        self._iface_flat = torch.as_tensor(if_flat.reshape(-1), device=self.device)
 
         # direct gf pipeline: for a same-level interface the ghost closure
         # collapses to the neighbour's boundary value (the classic halo),
@@ -540,14 +560,88 @@ class Level:
         )
 
     def smooth(self, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        """One FFT block-Jacobi sweep (``SchurHelper::solveWithSolution``)."""
+        """One FFT block-Jacobi sweep (``SchurHelper::solveWithSolution``);
+        with ``patch_solver="bcgs"``, batched BiCGStab patch solves with
+        the traces of ``u``."""
+        if self.patch_solver_kind == "bcgs":
+            return self.patch_solve(f, self.interpolate(u))
         fc = _fold_faces_flat(f, self._gf_faces(u), self.h2inv, self.D, self.n)
         return _spectral_apply(self._st, fc, self.D, self.n)
 
     def smooth_zero(self, f: torch.Tensor) -> torch.Tensor:
         """``smooth(f, 0)``: with a zero iterate the traces vanish, so the
-        sweep is just the batched spectral solve."""
+        sweep is just the batched patch solve."""
+        if self.patch_solver_kind == "bcgs":
+            return self.patch_solve(f, self.gamma_zeros(f.dtype))
         return _spectral_apply(self._st, f, self.D, self.n)
+
+    # -- the Schur path -------------------------------------------------------
+
+    def interpolate(self, u: torch.Tensor) -> torch.Tensor:
+        """Trace interpolation: ``gamma[NIf, m]`` from patch values, through
+        the contribution pipeline over every interface."""
+        if self.num_ifaces == 0:  # a single isolated patch (coarsest level)
+            return u.new_zeros(0, self.m)
+        faces = extract_faces(u, self.D, self.n, self.face_depth)
+        return self._pipe.interpolate(faces, self.m)
+
+    def gamma_faces(self, gamma: torch.Tensor) -> torch.Tensor:
+        """Per-patch-side interface traces ``[P, 2D, m]``, zero where a side
+        has no interface: one padded row gather (a fresh tensor, so the
+        stencil kernel's inputs stay 16-byte aligned)."""
+        if self.num_ifaces == 0:
+            return gamma.new_zeros(self.P, 2 * self.D, self.m)
+        gp = torch.cat([gamma, gamma.new_zeros(1, self.m)], dim=0)
+        return gp.index_select(0, self._iface_flat).reshape(self.P, 2 * self.D, self.m)
+
+    def gamma_zeros(self, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """A zero interface vector ``[NIf, m]``."""
+        return torch.zeros((self.num_ifaces, self.m), dtype=dtype or self.dtype,
+                           device=self.device)
+
+    def apply_with_interface(self, u: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+        """Stencil apply with explicit interface values
+        (``StarPatchOp::applyWithInterface``, ``StarPatchOp.h:28-184``):
+        ``ghost = c*u_b + 2*gamma`` through the ghost-stencil kernel."""
+        return self._stencil_with_faces(u.contiguous(), self.gamma_faces(gamma))
+
+    def _stencil_with_faces(self, u: torch.Tensor, gf: torch.Tensor) -> torch.Tensor:
+        return _STENCIL[self.D](u, gf, self.ghost_coef.to(u.dtype), self.h2inv.to(u.dtype))
+
+    def fold_gamma(self, fc: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+        """Ghost injection ``f - G gamma``: ``f_slice -= 2/h^2 * gamma`` on
+        every side with an interface (``StarPatchOp::addInterfaceToRHS``)."""
+        return self._fold_faces_into_rhs(fc, self.gamma_faces(gamma))
+
+    def _fold_faces_into_rhs(self, fc: torch.Tensor, gf: torch.Tensor) -> torch.Tensor:
+        return _fold_faces_flat(fc, gf, self.h2inv, self.D, self.n)
+
+    def patch_solve_faces(self, f: torch.Tensor, gf: torch.Tensor) -> torch.Tensor:
+        """Spectral patch solves with explicit per-patch-side traces
+        ``gf[P, 2D, m]`` (the Schur probing of ``matrix.assemble_schur``)."""
+        return _spectral_apply(self._st, self._fold_faces_into_rhs(f, gf), self.D, self.n)
+
+    def patch_solve(self, f: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+        """Exact per-patch solves with interface values ``gamma``: spectral
+        (``FftwPatchSolver.h:173-206``), or batched per-patch BiCGStab with
+        ``patch_solver="bcgs"`` (the reference's ``BiCGStabSolver``)."""
+        fc = self.fold_gamma(f, gamma)
+        if self.patch_solver_kind == "bcgs":
+            zero = self.gamma_zeros(f.dtype)
+            return batched_patch_bicgstab(lambda u: self.apply_with_interface(u, zero),
+                                          fc, tol=1e-12, max_iter=500)
+        return _spectral_apply(self._st, fc, self.D, self.n)
+
+    def solve_with_interface(self, f: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+        """Patch solves with explicit interface values (the Schur path)."""
+        return self.patch_solve(f, gamma)
+
+    def schur_S(self, gamma: torch.Tensor) -> torch.Tensor:
+        """Matrix-free Schur operator ``S gamma = interp(patch_solve(0,
+        gamma))`` (``SchurWrapOp.h:47-53``)."""
+        zf = torch.zeros((self.P,) + self.pl.ns_shape, dtype=gamma.dtype,
+                         device=gamma.device)
+        return self.interpolate(self.patch_solve(zf, gamma))
 
     def integrate(self, u: torch.Tensor) -> torch.Tensor:
         """Volume integral (``Domain.h:258-278``), in f64."""

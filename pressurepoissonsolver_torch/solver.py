@@ -1,17 +1,23 @@
-"""High-level solve driver: GMG-preconditioned BiCGStab on the composite
-operator, and mixed-precision iterative refinement.
+"""High-level solves: GMG-preconditioned Krylov solves on the
+composite operator, mixed-precision iterative refinement, and the
+Schur-complement interface path.
 
 Port of ``pressurepoissonsolver_tpu.solver`` for one device:
 
-* ``solve``: BiCGStab on ``A u = f`` preconditioned by a GMG V-cycle
-  (reference ``--prec GMG --solver thunderegg``).
+* ``solve``: BiCGStab or GMRES on ``A u = f`` preconditioned by a GMG
+  V-cycle (reference ``--prec GMG --solver thunderegg``) or by one sweep
+  of patch solves (Schwarz).
 * ``solve_refined``: f64 iterative refinement around f32 GMG-BiCGStab
   inner solves.  The reference runs the whole outer loop in one jitted
   ``lax.while_loop``; here it is host Python with the same best-iterate,
   stagnation and breakdown rules, reading one scalar per outer round.
+* ``solve_schur``: eliminate the patch interiors, solve the interface
+  system ``(I - S) gamma = interp(solve(f, 0))`` with BiCGStab or GMRES,
+  then recover ``u`` by one more round of patch solves (reference
+  ``--schur``).
 
-Not ported yet: multi-device meshes, the Schur path, CG/GMRES/Richardson,
-the Schwarz preconditioner and the monitored solves.
+Not ported yet: multi-device meshes, CG and Richardson, the monitored
+solves.
 """
 
 from __future__ import annotations
@@ -25,8 +31,10 @@ import torch
 
 from .domain import DomainHierarchy
 from .gmg import CycleOpts, build_gmg
-from .krylov import KrylovResult, _norm, bicgstab
+from .krylov import KrylovResult, _norm, bicgstab, gmres
+from .matrix import schur_block_jacobi
 from .ops.level_ops import Level
+from .precond import poly_cheb, schwarz
 
 
 @dataclass
@@ -38,15 +46,16 @@ class SolveOptions:
     # dtype of the preconditioner levels; float32 gives mixed precision
     precond_dtype: torch.dtype = torch.float64
     dtype: torch.dtype = torch.float64
-    krylov: str = "bicgstab"  # only "bicgstab" is ported
+    krylov: str = "bicgstab"  # "bicgstab" | "gmres"
     inner_krylov: str = "bicgstab"  # only "bicgstab" is ported
-    preconditioner: str = "gmg"  # "gmg" | "none"
-    patch_solver: str = "dft"  # spectral patch solves
+    preconditioner: str = "gmg"  # "gmg" | "schwarz" | "none"
+    patch_solver: str = "dft"  # "dft" (spectral) | "bcgs" (iterative)
     iface_scheme: str = "bilinear"
 
 
 class PoissonSolver:
-    """Composite-grid Poisson solver over a domain hierarchy, on ``device``."""
+    """Composite-grid Poisson solver over a domain hierarchy, on ``device``
+    (the CUDA card unless the caller asks for another)."""
 
     def __init__(
         self,
@@ -54,7 +63,7 @@ class PoissonSolver:
         options: Optional[SolveOptions] = None,
         mesh=None,
         *,
-        device,
+        device="cuda",
     ):
         if mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported yet")
@@ -63,17 +72,17 @@ class PoissonSolver:
         self.device = torch.device(device)
         o = self.opts
         for name, val, ok in (
-            ("krylov", o.krylov, ("bicgstab",)),
+            ("krylov", o.krylov, ("bicgstab", "gmres")),
             ("inner_krylov", o.inner_krylov, ("bicgstab",)),
-            ("preconditioner", o.preconditioner, ("gmg", "none")),
-            ("patch_solver", o.patch_solver, ("dft",)),
+            ("preconditioner", o.preconditioner, ("gmg", "schwarz", "none")),
+            ("patch_solver", o.patch_solver, ("dft", "bcgs")),
             ("iface_scheme", o.iface_scheme, ("bilinear",)),
         ):
             if val not in ok:
                 raise NotImplementedError(f"{name}={val!r} is not ported yet")
         self.fine_level = Level(
             hierarchy.finest, dtype=o.dtype, device=self.device,
-            iface_scheme=o.iface_scheme,
+            iface_scheme=o.iface_scheme, patch_solver=o.patch_solver,
         )
         if o.preconditioner != "gmg":
             o.precondition = False
@@ -85,6 +94,7 @@ class PoissonSolver:
                 fine=self.fine_level if same else None,
             )
         self._fine_low = None
+        self._schur_M: dict = {}  # solve_schur's preconditioner -> M
 
     # -- operators ----------------------------------------------------------
 
@@ -92,6 +102,8 @@ class PoissonSolver:
         return self.fine_level.apply(u)
 
     def _preconditioner(self) -> Optional[Callable]:
+        if self.opts.preconditioner == "schwarz":
+            return schwarz(self.fine_level)
         if self.gmg is None:
             return None
         pdtype, dtype = self.opts.precond_dtype, self.opts.dtype
@@ -112,11 +124,13 @@ class PoissonSolver:
         tol: Optional[float] = None,
         max_iter: Optional[int] = None,
     ) -> KrylovResult:
-        """GMG-preconditioned BiCGStab on ``A u = f``."""
+        """Preconditioned BiCGStab (or GMRES, ``opts.krylov``) on
+        ``A u = f``."""
         tol = self.opts.tol if tol is None else tol
         max_iter = self.opts.max_iter if max_iter is None else max_iter
-        return bicgstab(self.fine_level.apply, self._as_field(f),
-                        M=self._preconditioner(), tol=tol, max_iter=max_iter)
+        method = gmres if self.opts.krylov == "gmres" else bicgstab
+        return method(self.fine_level.apply, self._as_field(f),
+                      M=self._preconditioner(), tol=tol, max_iter=max_iter)
 
     def solve_refined(
         self,
@@ -178,6 +192,70 @@ class PoissonSolver:
             "residual": rel,
             "outer_history": np.asarray(hist),
         }
+
+    def schur_gmg_preconditioner(self) -> Callable:
+        """Interface preconditioner from the composite GMG (Woodbury).
+
+        With ``A = K + G Γ`` (block patch stencil ``K`` plus the ghost
+        injection ``G`` of the interpolated traces ``Γ``) the interface
+        matrix factors exactly as ``(I - S)⁻¹ = (I + Γ K⁻¹ G)⁻¹ = I - Γ
+        A⁻¹ G``; one V-cycle ``M_A`` in place of ``A⁻¹`` gives ``M = I - Γ
+        M_A G``.  One application: a ghost injection, a V-cycle in the
+        preconditioner dtype and a trace interpolation, the casts around
+        the V-cycle as in the reference."""
+        if self.gmg is None:
+            self.gmg = build_gmg(self.hierarchy, self.opts.gmg,
+                                 dtype=self.opts.precond_dtype, device=self.device)
+        lvl = self.fine_level
+        gmg = self.gmg
+        pdtype = self.opts.precond_dtype
+
+        def M(rho):
+            zf = lvl.zeros().to(rho.dtype)
+            g = lvl.fold_gamma(zf, rho)  # = -G rho
+            e = gmg.apply(g.to(pdtype)).to(rho.dtype)
+            return rho + lvl.interpolate(e)  # = rho - Γ M_A G rho
+
+        return M
+
+    def solve_schur(
+        self,
+        f,
+        tol: Optional[float] = None,
+        max_iter: Optional[int] = None,
+        preconditioner: Optional[str] = None,
+    ):
+        """Schur-complement path (reference ``--schur``).
+
+        The interface condition ``gamma = interp(solve(f, gamma))``
+        (``SchurHelper.h:281-299``) is the linear system ``(I - S) gamma =
+        interp(solve(f, 0))`` with ``S = interp(solve(0, .))``, solved by
+        ``opts.krylov`` preconditioned by ``preconditioner``: ``None``,
+        ``"cheb"`` (Chebyshev polynomial of ``S``), ``"blockjacobi"`` (the
+        inverse diagonal blocks of the probed ``I - S``) or ``"gmg"`` (the
+        Woodbury V-cycle).  A preconditioner is built once per solver and
+        kept.  Returns ``(u, KrylovResult)``."""
+        if preconditioner not in (None, "cheb", "blockjacobi", "gmg"):
+            raise ValueError(f"preconditioner={preconditioner!r}: None, 'cheb', "
+                             "'blockjacobi' or 'gmg'")
+        tol = self.opts.tol if tol is None else tol
+        max_iter = self.opts.max_iter if max_iter is None else max_iter
+        lvl = self.fine_level
+        if preconditioner not in self._schur_M:
+            M = None
+            if preconditioner == "cheb":
+                M = poly_cheb(lvl)
+            elif preconditioner == "blockjacobi":
+                M = schur_block_jacobi(lvl)
+            elif preconditioner == "gmg":
+                M = self.schur_gmg_preconditioner()
+            self._schur_M[preconditioner] = M
+        method = gmres if self.opts.krylov == "gmres" else bicgstab
+        f = self._as_field(f)
+        b = lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
+        res = method(lambda g: g - lvl.schur_S(g), b, M=self._schur_M[preconditioner],
+                     tol=tol, max_iter=max_iter)
+        return lvl.patch_solve(f, res.x), res
 
     # -- diagnostics --------------------------------------------------------
 

@@ -1,6 +1,8 @@
 """The port on a CUDA card: the 2D and 3D ghost-stencil kernels against
-their plain versions, the composite apply and the active-set residual apply
-through the kernels against the CPU, and a small 2D and 3D solve.
+their plain versions, the composite apply, the active-set residual apply and
+the Schur path's ``apply_with_interface`` and per-patch BiCGStab through the
+kernels against the CPU, and small 2D and 3D solves (``solve_refined`` and
+``solve_schur``).
 
 Every test here needs a card and skips without one (the CUDA kernel has no
 CPU mode).  This file imports no JAX, so it runs on a machine without it;
@@ -297,4 +299,82 @@ def test_small_3d_solve_on_card_matches_cpu(cuda):
     assert abs(ig["inner_iterations"] - ic["inner_iterations"]) <= 2
     assert rg["residual"] <= 1e-10
     assert float((ug - uc).norm() / uc.norm()) <= 1e-9
+    assert abs(rg["error"] - rc["error"]) <= 1e-6 * rc["error"]
+
+
+# --- the Schur path ---------------------------------------------------------
+
+
+def _schur_mesh(D):
+    """The small Schur meshes: 2D refined_tree(2, 3, 1) at n=8, 3D
+    refined_tree(3, 3, 2) at n=4."""
+    if D == 2:
+        return DomainHierarchy(refined_tree(2, 3, 1), n=8), 8
+    return _hierarchy_3d(), 4
+
+
+def _field_and_gamma(lvl, seed):
+    rng = np.random.default_rng(seed)
+    f = torch.as_tensor(rng.standard_normal((lvl.P,) + lvl.pl.ns_shape), dtype=lvl.dtype)
+    g = torch.as_tensor(rng.standard_normal((lvl.num_ifaces, lvl.m)), dtype=lvl.dtype)
+    return f, g
+
+
+@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_apply_with_interface_on_card_matches_cpu(cuda, dt, D):
+    """``apply_with_interface`` through the kernel (on the vector path:
+    ``gamma_faces`` is a fresh tensor) against the CPU, and the identity
+    ``apply_with_interface(patch_solve(f, g), g) = f`` on the card, to the
+    rounding of the folded right-hand side ``f - G g``."""
+    h, n = _schur_mesh(D)
+    cpu = Level(h.finest, DTYPES[dt], device="cpu")
+    gpu = Level(h.finest, DTYPES[dt], device=cuda)
+    f, g = _field_and_gamma(cpu, 8)
+    fg, gg = f.to(cuda), g.to(cuda)
+    got = _launch_takes(D, _width(n, dt), lambda: gpu.apply_with_interface(fg, gg))
+    assert _rel(cpu.apply_with_interface(f, g), got) <= RTOL[dt]
+    back = _launch_takes(D, _width(n, dt),
+                         lambda: gpu.apply_with_interface(gpu.patch_solve(fg, gg), gg))
+    scale = float(gpu.fold_gamma(fg, gg).abs().max())
+    assert float((back - fg).abs().max()) <= RTOL[dt] * scale
+
+
+@pytest.mark.parametrize("D", [2, 3])
+def test_bcgs_patch_solve_on_card_matches_cpu(cuda, D):
+    """The batched per-patch BiCGStab solve (two kernel launches per
+    iteration) on the card against the spectral solve on the CPU."""
+    h, n = _schur_mesh(D)
+    cpu = Level(h.finest, device="cpu")
+    gpu = Level(h.finest, device=cuda, patch_solver="bcgs")
+    f, g = _field_and_gamma(cpu, 9)
+    name = "launches" if D == 2 else "launches_3d"
+    before = getattr(gs, name)["float64"], gs.widths[D][1]
+    got = gpu.patch_solve(f.to(cuda), g.to(cuda))
+    assert getattr(gs, name)["float64"] > before[0] + 2
+    assert gs.widths[D][1] == before[1]
+    assert _rel(cpu.patch_solve(f, g), got) <= 1e-8
+
+
+@pytest.mark.parametrize("D", [2, 3])
+def test_solve_schur_gmg_on_card_matches_cpu(cuda, D):
+    """``solve_schur`` with the Woodbury GMG preconditioner (f32 V-cycle,
+    f64 interface BiCGStab) on the card against the CPU."""
+    h, _ = _schur_mesh(D)
+    gmg = (CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                     coarse_direct_max_dof=64) if D == 2 else CycleOpts())
+    opts = SolveOptions(tol=1e-10, precond_dtype=torch.float32, gmg=gmg)
+    f, exact = init_problem(h.finest, get_problem("trig", D))
+    name = "launches" if D == 2 else "launches_3d"
+    out = {}
+    for dev in ("cpu", cuda):
+        s = PoissonSolver(h, opts, device=dev)
+        gs.reset_launches()
+        u, res = s.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
+        out[str(dev)] = (u.cpu(), res.iterations, s.report(u, f, exact))
+    assert getattr(gs, name)["float32"] > 0 and gs.widths[D][1] == 0
+    (uc, ic, rc), (ug, ig, rg) = out["cpu"], out["cuda"]
+    assert abs(ig - ic) <= 1
+    assert rg["residual"] <= max(1e-10, 2 * rc["residual"])
+    assert float((ug - uc).abs().max() / uc.abs().max()) <= 1e-8
     assert abs(rg["error"] - rc["error"]) <= 1e-6 * rc["error"]

@@ -143,23 +143,31 @@ def test_port_checkpoint_loads_into_jax(tmp_path):
 
 def test_port_never_imports_jax():
     """Import every module of the port and chip_smoke, run a tiny CPU
-    solve and a 3D apply, and check that JAX was never loaded."""
+    solve, Schur solves with the GMG and block-Jacobi preconditioners and
+    with GMRES, and a 3D apply, and check that JAX was never loaded."""
     code = """
 import sys
 import numpy as np
 import torch
 import pressurepoissonsolver_torch
-from pressurepoissonsolver_torch import checkpoint, cuda_build, domain, geometry, gmg, iface, krylov, matrix, problems, solver
-from pressurepoissonsolver_torch.ops import ghost_stencil, level_ops, transforms
+from pressurepoissonsolver_torch import checkpoint, cuda_build, domain, geometry, gmg, iface, krylov, matrix, precond, problems, solver
+from pressurepoissonsolver_torch.ops import ghost_stencil, level_ops, patch_bcgs, transforms
 from pressurepoissonsolver_torch.utils import timer
 import chip_smoke
 h = domain.DomainHierarchy(geometry.refined_tree(2, 3, 1), n=4)
 s = solver.SolveOptions(tol=1e-8, precond_dtype=torch.float32,
                         gmg=gmg.CycleOpts(coarse_direct_max_dof=16, fac_smoothing="active"))
 ps = solver.PoissonSolver(h, s, device="cpu")
-f, _ = problems.init_problem(h.finest, problems.get_problem("trig", 2))
+f, exact = problems.init_problem(h.finest, problems.get_problem("trig", 2))
 u, info = ps.solve_refined(f, tol=1e-8)
 assert info["residual"] <= 1e-8, info
+for prec in ("gmg", "blockjacobi"):
+    us, res = ps.solve_schur(f, tol=1e-10, max_iter=60, preconditioner=prec)
+    assert ps.report(us, f, exact)["residual"] <= 1e-8, prec
+s.krylov = "gmres"
+pg = solver.PoissonSolver(h, s, device="cpu")
+us, res = pg.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
+assert pg.report(us, f, exact)["residual"] <= 1e-8
 h3 = domain.DomainHierarchy(geometry.refined_tree(3, 2, 1), n=4)
 lvl3 = level_ops.Level(h3.finest, torch.float32, device="cpu")
 au = lvl3.apply(torch.ones((h3.finest.num_patches, 4, 4, 4)))

@@ -132,7 +132,7 @@ def test_bicgstab_breakdown_guard():
 def test_unported_solver_options_raise():
     _, th = hierarchies()
     for kw in ({"krylov": "cg"}, {"inner_krylov": "richardson"},
-               {"preconditioner": "schwarz"}, {"iface_scheme": "quadratic"}):
+               {"inner_krylov": "cg"}, {"iface_scheme": "quadratic"}):
         with pytest.raises(NotImplementedError):
             tsolver.PoissonSolver(th, tsolver.SolveOptions(**kw), device="cpu")
     with pytest.raises(NotImplementedError):
