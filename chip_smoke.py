@@ -39,16 +39,29 @@ Phases, any failure of which raises and exits non-zero:
    kernels' vector path, by the launcher's own rule; a small 3D Schur
    solve; then time both kernels at realistic patch sizes off the vector
    path (``WIDTH1_SHAPES``);
-5. print the kernel table, the card line, and last the result line
+5. the command-line apps (``cli.main``, in-process): the 2D bench mesh and
+   the 3D bench mesh written with ``Tree.to_file``, every run of
+   ``CLI_BENCH_2D`` (the CLI default, the IR variants: inner CG,
+   Richardson, the W-cycle, linear prolongation, the quadratic closures;
+   weighted CG; the Schur path) and the 3D bench through ``steady3d``, each
+   held to the JAX reference's CLI, with its linear-solve wall and its
+   stencil launches (each on the vector path); profiles of three of them;
+   then small runs (``CLI_SMALL``: the monitored solves, the assembled and
+   pointer-block operators, every Schur preconditioner, Neumann walls,
+   per-patch BiCGStab, the output files and a config round trip);
+6. print the kernel table, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -96,6 +109,58 @@ SCHUR_SMALL_BAND = {"gmg": 1, "gmres-gmg": 1, "none": 3, "schwarz": 3}
 # of the composite solve (5.739378371e-4)
 SCHUR3D_SMALL_ITERS = 6
 SCHUR3D_SMALL_ERROR = 5.739378371e-4
+
+# the command-line apps at full width: the JAX reference's CLI
+# (pressurepoissonsolver_tpu.cli on the CPU, jax_enable_x64) on the 2D bench
+# mesh (refined_tree(2, 5, 2) refined once) written with Tree.to_file, argv
+# "--mesh <file> -n 64 -t 1e-10" plus each run's flags: its iterations
+# ((iterations,) or (outer, inner)) and relative error.  CLI_IR with
+# "--inner-solver bicgstab" is the bench configuration above (3 / 7, error
+# 8.931193e-07, to the digit); the other CLI_IR runs change one option.
+CLI_IR = ["--solver", "ir", "--inner-solver", "bicgstab", "--gmg-pre-sweeps", "2",
+          "--gmg-fac-smoothing", "active", "--inner-tol", "1e-4"]
+CLI_BENCH_2D = {
+    "default": ([], (5,), 8.931020e-07),
+    "ir": (["--solver", "ir"], (2, 10), 8.931244e-07),
+    "ir-bicgstab": (CLI_IR, (3, 7), 8.931193e-07),
+    "ir-cg": (CLI_IR + ["--inner-solver", "cg"], (3, 12), 8.931192e-07),
+    "ir-richardson": (CLI_IR + ["--inner-solver", "richardson"], (3, 16), 8.931193e-07),
+    "ir-w": (CLI_IR + ["--gmg-cycle-type", "W"], (3, 38), 8.931218e-07),
+    "ir-linear": (CLI_IR + ["--gmg-interpolator", "linear"], (2, 4), 8.931174e-07),
+    "ir-quadratic": (CLI_IR + ["--iface-interp", "quadratic"], (6, 12), 8.920172e-07),
+    "cg-mixed": (["--solver", "cg", "--dtype", "mixed"], (9,), 8.931166e-07),
+    "schur-gmg": (["--schur", "--prec", "GMG"], (5,), 8.931391e-07),
+}
+# the runs with all-f64 vectors, held to the reference's count exactly; the
+# others (an f32 cycle inside) to their outer rounds exactly and to their
+# inner (or CG) iterations within one
+CLI_F64_RUNS = ("default", "schur-gmg")
+# weighted CG stops on the volume-weighted norm, so the plain relative
+# residual the CLI reports may exceed -t (the reference's: 3.241e-10)
+CLI_RESIDUAL_LIMIT = {"cg-mixed": 1e-9}
+# the 3D bench (scripts/bench3d.py's configuration) through steady3d:
+# "--mesh <3D bench mesh> -n 32 -t 1e-10 --solver ir --inner-solver bicgstab"
+CLI_BENCH_3D = (["--solver", "ir", "--inner-solver", "bicgstab"], (2, 7), BENCH3D_ERROR)
+# profiled at full width (the W-cycle run is not: about 2e6 launches)
+CLI_PROFILED = ("default", "cg-mixed", "ir-quadratic")
+# small CLI runs on the small Schur mesh (refined_tree(2, 3, 1), n=8) with
+# "-t 1e-10 --gmg-coarse-direct-dof 64": the JAX reference's CLI on the CPU
+# (iterations and relative error); each run is held within one iteration
+# and to 1e-6 of the error
+CLI_SMALL = {
+    "monitor-bicgstab": (["--monitor"], (6,), 3.5642034555e-3),
+    "monitor-cg": (["--solver", "cg", "--monitor"], (11,), 3.5642034501e-3),
+    "monitor-gmres": (["--solver", "gmres", "--monitor"], (11,), 3.5642034524e-3),
+    "monitor-ir": (["--solver", "ir", "--monitor"], (2, 12), 3.5642034496e-3),
+    "crs": (["--matrix-type", "crs"], (6,), 3.5642034555e-3),
+    "schur-crs": (["--schur", "--matrix-type", "crs"], (5,), 3.5642034483e-3),
+    "schur-pbm": (["--schur", "--matrix-type", "pbm"], (5,), 3.5642034483e-3),
+    "schur-cheb": (["--schur", "--prec", "cheb"], (4,), 3.5642034506e-3),
+    "schur-blockjacobi": (["--schur", "--prec", "BlockJacobi"], (28,), 3.5642034218e-3),
+    "neumann": (["--neumann"], (7,), 2.9782726796e-3),
+    "neumann-sides": (["--neumann-sides", "x_lo,y_hi"], (6,), 3.3503959269e-3),
+    "bcgs": (["--patch_solver", "bcgs"], (6,), 3.5642034555e-3),
+}
 
 # H100 SXM: device-memory rate, and peak rates outside the tensor cores
 # (NVIDIA's data sheet: 67 TFLOP/s float32, 34 TFLOP/s float64)
@@ -604,6 +669,143 @@ def solve_bench_3d(torch, solver, f, exact, gs, timer, card):
     return launches
 
 
+def cli_run(torch, cli, gs, D, argv):
+    """``cli.main(D, argv)`` in-process with every launch count set to 0
+    just before it and read just after; its out-json (written into the
+    directory of ``argv``'s ``--out-json``), printed lines, and the
+    ``D``-dimensional kernel's launches per dtype and per width, and the
+    other dimension's launches."""
+    gs.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(D, argv, device="cuda")
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"cli.main({D}, {argv}) returned {rc}")
+    out = json.loads(open(argv[argv.index("--out-json") + 1]).read())
+    launches = dict(gs.launches if D == 2 else gs.launches_3d)
+    other = dict(gs.launches_3d if D == 2 else gs.launches)
+    return out, buf.getvalue().splitlines(), launches, dict(gs.widths[D]), other
+
+
+def _counts(out):
+    return tuple(out[k] for k in ("iterations", "outer_iterations", "inner_iterations")
+                 if k in out)
+
+
+def check_cli_run(label, out, lines, launches, widths, other, ref, f64, error,
+                  residual_limit, card):
+    """Print a CLI run's result lines and hold it to the reference: counts
+    (exactly when ``f64``, else the first exactly and the last within
+    one), the residual, the error within 1%; every launch of the run went
+    to the kernel of its dimension, on the vector path."""
+    got = _counts(out)
+    line = (f"CLI {label} [{card}]: iterations {got} (reference {ref}) residual "
+            f"{out['residual']:.3e} error {out['error']:.6e} (reference {error:.6e}) "
+            f"conservation {out['conservation']:.3e} dof {out['dof']}; linear solve {out['linear_solve_s']:.6f} s; stencil "
+            f"launches {launches} per elements per thread {widths}")
+    print(line, flush=True)
+    for text in lines:
+        if text.startswith(("Iterations", "Error", "Residual")):
+            print(f"  {text}", flush=True)
+    ok_counts = (got == ref if f64 else
+                 len(got) == len(ref) and got[:-1] == ref[:-1] and abs(got[-1] - ref[-1]) <= 1)
+    if not ok_counts:
+        raise AssertionError(line)
+    assert out["residual"] <= residual_limit, line
+    assert abs(out["error"] - error) <= 0.01 * error, line
+    assert sum(launches.values()) > 0 and widths[1] == 0, line
+    assert not any(other.values()), f"{line}: launched the other dimension's kernel"
+
+
+def cli_bench(torch, port, cli, gs, timer, card, tmp):
+    """The command-line apps at full width: every run of ``CLI_BENCH_2D`` on
+    the 2D bench mesh and the 3D bench through ``steady3d``, each written
+    with ``Tree.to_file`` and read through ``--mesh``; then profiles of the
+    ``CLI_PROFILED`` solves; every kernel must have been launched."""
+    meshes = {}
+    for D, base, corner in ((2, 5, 2), (3, 3, 2)):
+        tree = port.refined_tree(D, base, corner)
+        tree.refine_leaves()
+        meshes[D] = os.path.join(tmp, f"bench{D}d.bin")
+        tree.to_file(meshes[D])
+    head = {2: ["--mesh", meshes[2], "-n", "64", "-t", "1e-10"],
+            3: ["--mesh", meshes[3], "-n", "32", "-t", "1e-10"]}
+    js = os.path.join(tmp, "bench.json")
+    total = {(D, dt): 0 for D in (2, 3) for dt in ("float32", "float64")}
+    runs = [(2, label, *spec) for label, spec in CLI_BENCH_2D.items()]
+    runs.append((3, "3d-ir-bicgstab", *CLI_BENCH_3D))
+    for D, label, flags, ref, error in runs:
+        res = cli_run(torch, cli, gs, D, head[D] + flags + ["--out-json", js])
+        check_cli_run(label, *res, ref, label in CLI_F64_RUNS, error,
+                      CLI_RESIDUAL_LIMIT.get(label, 1e-10), card)
+        for dt, cnt in res[2].items():
+            total[D, dt] += cnt
+    for label in CLI_PROFILED:
+        # the run's set-up, then one warm-up and one profiled linear solve
+        # (cli.solve prints nothing without --monitor)
+        _, args = cli.parse_args(2, head[2] + CLI_BENCH_2D[label][0])
+        run = cli.setup(2, args, device="cuda", timer=timer.Timer())
+        cli.solve(run, args, timer.Timer("cuda"))
+        profile_solve(torch, card, f"CLI {label} profile",
+                      lambda: cli.solve(run, args, timer.Timer("cuda")))
+        del run
+    print(f"CLI full-width runs: stencil launches per (D, dtype) {total}", flush=True)
+    assert all(total.values()), total
+
+
+def cli_small(torch, port, cli, gs, card, tmp):
+    """Small CLI runs on the small Schur mesh, held to the reference's CLI
+    (``CLI_SMALL``): the monitored solves (their history lines too), the
+    assembled and pointer-block operators, the interface preconditioners,
+    Neumann walls, per-patch BiCGStab; then the output files and a config
+    round trip."""
+    import scipy.sparse as sp
+
+    mesh = os.path.join(tmp, "small2d.bin")
+    port.refined_tree(2, 3, 1).to_file(mesh)
+    js = os.path.join(tmp, "small.json")
+    base = ["--mesh", mesh, "-n", "8", "-t", "1e-10", "--gmg-coarse-direct-dof", "64"]
+    for label, (flags, ref, error) in CLI_SMALL.items():
+        out, lines, launches, widths, other = cli_run(
+            torch, cli, gs, 2, base + flags + ["--out-json", js])
+        got = _counts(out)
+        line = (f"CLI small {label} [{card}]: iterations {got} (reference {ref}) residual "
+                f"{out['residual']:.3e} error {out['error']:.10e}; launches {launches}")
+        print(line, flush=True)
+        assert len(got) == len(ref) and all(abs(a - b) <= 1 for a, b in zip(got, ref)), line
+        assert out["residual"] <= 1e-10, line
+        assert abs(out["error"] - error) <= 1e-6 * error, line
+        assert widths[1] == 0 and not any(other.values()), line
+        if "--monitor" in flags:
+            hist = [float(t.split()[-1]) for t in lines if "rel residual" in t]
+            assert len(hist) == got[0] + 1 and hist[0] == 1.0 and hist[-1] <= 1e-10, line
+    # the output files of the default run, and the config round trip
+    outd = os.path.join(tmp, "outputs")
+    files = ["--out-claw", os.path.join(outd, "claw"), "--out-vtk", os.path.join(outd, "vtk"),
+             "--out-rhs", os.path.join(outd, "rhs.npy"), "--out-gamma",
+             os.path.join(outd, "gamma.npy"), "--out-matrix", os.path.join(outd, "A.npz"),
+             "--output-config", os.path.join(outd, "run.ini")]
+    os.makedirs(outd)
+    first = cli_run(torch, cli, gs, 2, base + files + ["--out-json", js])[0]
+    again = cli_run(torch, cli, gs, 2, ["--config", os.path.join(outd, "run.ini"),
+                                         "--out-json", js])[0]
+    P = first["dof"] // 64
+    rhs, gamma = np.load(os.path.join(outd, "rhs.npy")), np.load(os.path.join(outd, "gamma.npy"))
+    vti = [f for f in os.listdir(os.path.join(outd, "vtk")) if f.endswith(".vti")]
+    A = sp.load_npz(os.path.join(outd, "A.npz"))
+    line = (f"CLI small outputs [{card}]: rhs {rhs.shape}, gamma {gamma.shape}, {len(vti)} "
+            f"vti files, matrix {A.shape} with {A.nnz} nonzeros; config round trip "
+            f"iterations {first['iterations']} / {again['iterations']}, error "
+            f"{first['error']:.10e} / {again['error']:.10e}")
+    print(line, flush=True)
+    assert rhs.shape == (P, 8, 8) and np.isfinite(gamma).all() and gamma.shape[1] == 8, line
+    assert len(vti) == P and A.shape == (P * 64, P * 64), line
+    assert os.path.getsize(os.path.join(outd, "claw", "fort.q0000")) > 0, line
+    assert again["iterations"] == first["iterations"], line
+    assert abs(again["error"] - first["error"]) <= 1e-12 * first["error"], line
+
+
 def profile_solve(torch, card, label, solve) -> None:
     """Device busy share and kernel-time breakdown of one solve
     (torch.profiler)."""
@@ -654,7 +856,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, ROOT)
-    from pressurepoissonsolver_torch import cuda_build
+    from pressurepoissonsolver_torch import cli, cuda_build
     from pressurepoissonsolver_torch.domain import DomainHierarchy
     from pressurepoissonsolver_torch.geometry import refined_tree
     from pressurepoissonsolver_torch.gmg import CycleOpts
@@ -705,7 +907,14 @@ def main() -> None:
     schur_small_3d(torch, port, gs, card)
     width1_ms(torch, gs, timer, card)
 
-    # phase 5
+    # phase 5: the command-line apps, in-process
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cli_bench(torch, port, cli, gs, timer, card, tmp)
+        cli_small(torch, port, cli, gs, card, tmp)
+        print(f"CLI phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 6
     kernels = [
         {
             "name": f"ghost_stencil_{D}d_{name}",

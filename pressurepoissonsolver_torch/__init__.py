@@ -8,8 +8,15 @@ smoothing, and mixed-precision iteratively refined BiCGStab.  Fields keep
 the reference layout ``[P, ny, nx]`` / ``[P, nz, ny, nx]`` (x fastest) and
 face vectors ``[P, 2D, m]``.
 
-The port covers the 2D and 3D solves (``PoissonSolver.solve`` and
-``solve_refined``).  The ghost-closure stencils run as the CUDA kernels in
+The port covers everything the reference does on one device: the 2D and
+3D solves (``PoissonSolver.solve`` with BiCGStab, CG or GMRES,
+``solve_refined`` with inner BiCGStab, CG or Richardson, ``solve_schur``
+with every interface preconditioner, ``solve_monitored``), the V- and
+W-cycles with constant or linear prolongation, the quadratic 2D closures,
+the assembled operators (``matrix.bcoo_matvec``, ``pbm_matvec``) and the
+command-line apps (``python -m pressurepoissonsolver_torch.apps.steady2d``
+/ ``steady3d``, :mod:`.cli`).  Multi-device runs are not ported.  The
+ghost-closure stencils run as the CUDA kernels in
 ``csrc/ghost_stencil.cu`` (2D) and ``csrc/ghost_stencil_3d.cu`` (3D) on
 CUDA tensors and as their plain PyTorch versions on CPU tensors.
 

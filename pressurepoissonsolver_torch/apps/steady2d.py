@@ -1,0 +1,11 @@
+"""2D steady Poisson CLI (reference ``apps/2d/steady.cpp``), on the CUDA card.
+
+Run as ``python -m pressurepoissonsolver_torch.apps.steady2d [options]``.
+"""
+
+import sys
+
+from ..cli import main
+
+if __name__ == "__main__":
+    sys.exit(main(2))

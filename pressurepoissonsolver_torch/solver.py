@@ -4,20 +4,22 @@ Schur-complement interface path.
 
 Port of ``pressurepoissonsolver_tpu.solver`` for one device:
 
-* ``solve``: BiCGStab or GMRES on ``A u = f`` preconditioned by a GMG
-  V-cycle (reference ``--prec GMG --solver thunderegg``) or by one sweep
-  of patch solves (Schwarz).
-* ``solve_refined``: f64 iterative refinement around f32 GMG-BiCGStab
-  inner solves.  The reference runs the whole outer loop in one jitted
-  ``lax.while_loop``; here it is host Python with the same best-iterate,
-  stagnation and breakdown rules, reading one scalar per outer round.
+* ``solve``: BiCGStab, CG (in the cell-volume inner product) or GMRES on
+  ``A u = f`` preconditioned by a GMG V- or W-cycle (reference ``--prec
+  GMG --solver thunderegg``) or by one sweep of patch solves (Schwarz).
+* ``solve_refined``: f64 iterative refinement around f32 inner solves
+  (GMG-preconditioned BiCGStab, CG or Richardson).  The reference runs the
+  whole outer loop in one jitted ``lax.while_loop``; here it is host Python
+  with the same best-iterate, stagnation and breakdown rules, reading one
+  scalar per outer round.
 * ``solve_schur``: eliminate the patch interiors, solve the interface
   system ``(I - S) gamma = interp(solve(f, 0))`` with BiCGStab or GMRES,
   then recover ``u`` by one more round of patch solves (reference
   ``--schur``).
+* ``solve_monitored``: the composite or the Schur solve with a
+  per-iteration relative-residual history (the CLI's ``--monitor``).
 
-Not ported yet: multi-device meshes, CG and Richardson, the monitored
-solves.
+Not ported yet: multi-device meshes.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 
 from .domain import DomainHierarchy
 from .gmg import CycleOpts, build_gmg
-from .krylov import KrylovResult, _norm, bicgstab, gmres
+from .krylov import (KrylovResult, _norm, bicgstab, cg, cg_history, gmres,
+                     residual_history, richardson)
 from .matrix import schur_block_jacobi
 from .ops.level_ops import Level
 from .precond import poly_cheb, schwarz
@@ -46,10 +49,16 @@ class SolveOptions:
     # dtype of the preconditioner levels; float32 gives mixed precision
     precond_dtype: torch.dtype = torch.float64
     dtype: torch.dtype = torch.float64
-    krylov: str = "bicgstab"  # "bicgstab" | "gmres"
-    inner_krylov: str = "bicgstab"  # only "bicgstab" is ported
+    krylov: str = "bicgstab"  # "bicgstab" | "cg" | "gmres"
+    # inner Krylov method of the mixed-precision IR solve; "cg" runs in
+    # the cell-volume inner product, in which the composite operator and
+    # the V-cycle are self-adjoint
+    inner_krylov: str = "bicgstab"  # "bicgstab" | "cg" | "richardson"
     preconditioner: str = "gmg"  # "gmg" | "schwarz" | "none"
     patch_solver: str = "dft"  # "dft" (spectral) | "bcgs" (iterative)
+    # interface interpolation at refinement boundaries: "bilinear"
+    # (reference BilinearInterpolator/TriLinInterp) or "quadratic" (2D
+    # only; the reference's higher-order StencilHelper2d closures)
     iface_scheme: str = "bilinear"
 
 
@@ -72,14 +81,21 @@ class PoissonSolver:
         self.device = torch.device(device)
         o = self.opts
         for name, val, ok in (
-            ("krylov", o.krylov, ("bicgstab", "gmres")),
-            ("inner_krylov", o.inner_krylov, ("bicgstab",)),
+            ("krylov", o.krylov, ("bicgstab", "cg", "gmres")),
+            ("inner_krylov", o.inner_krylov, ("bicgstab", "cg", "richardson")),
             ("preconditioner", o.preconditioner, ("gmg", "schwarz", "none")),
             ("patch_solver", o.patch_solver, ("dft", "bcgs")),
-            ("iface_scheme", o.iface_scheme, ("bilinear",)),
+            ("iface_scheme", o.iface_scheme, ("bilinear", "quadratic")),
         ):
             if val not in ok:
-                raise NotImplementedError(f"{name}={val!r} is not ported yet")
+                raise ValueError(f"{name}={val!r}: one of {ok}")
+        if o.iface_scheme != "bilinear":
+            # the higher-order closures are not self-adjoint in the volume
+            # inner product: fall back to BiCGStab
+            if o.krylov == "cg":
+                o.krylov = "bicgstab"
+            if o.inner_krylov == "cg":
+                o.inner_krylov = "bicgstab"
         self.fine_level = Level(
             hierarchy.finest, dtype=o.dtype, device=self.device,
             iface_scheme=o.iface_scheme, patch_solver=o.patch_solver,
@@ -116,6 +132,18 @@ class PoissonSolver:
     def _as_field(self, f) -> torch.Tensor:
         return torch.as_tensor(f, dtype=self.opts.dtype, device=self.device)
 
+    def _volume_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """Per-cell volume weights ``[P, 1, ..]``: the inner product in
+        which the composite operator and the V-cycle are exactly
+        self-adjoint.  Normalized to mean 1: CG is invariant to a scalar
+        rescaling of the inner product, and raw cell volumes (~h^D) make
+        f32 weighted dots underflow as the residual shrinks."""
+        pl = self.hierarchy.finest
+        w = np.prod(pl.spacings, axis=1)
+        w = w / w.mean()
+        return torch.as_tensor(w.reshape((pl.num_patches,) + (1,) * pl.D),
+                               dtype=dtype, device=self.device)
+
     # -- solves -------------------------------------------------------------
 
     def solve(
@@ -124,13 +152,63 @@ class PoissonSolver:
         tol: Optional[float] = None,
         max_iter: Optional[int] = None,
     ) -> KrylovResult:
-        """Preconditioned BiCGStab (or GMRES, ``opts.krylov``) on
-        ``A u = f``."""
+        """Preconditioned BiCGStab (or CG in the cell-volume inner product,
+        or GMRES: ``opts.krylov``) on ``A u = f``."""
         tol = self.opts.tol if tol is None else tol
         max_iter = self.opts.max_iter if max_iter is None else max_iter
+        A, b, M = self.fine_level.apply, self._as_field(f), self._preconditioner()
+        if self.opts.krylov == "cg":
+            return cg(A, b, M=M, tol=tol, max_iter=max_iter,
+                      weight=self._volume_weight(self.opts.dtype))
         method = gmres if self.opts.krylov == "gmres" else bicgstab
-        return method(self.fine_level.apply, self._as_field(f),
-                      M=self._preconditioner(), tol=tol, max_iter=max_iter)
+        return method(A, b, M=M, tol=tol, max_iter=max_iter)
+
+    def solve_monitored(
+        self,
+        f,
+        tol: Optional[float] = None,
+        max_iter: int = 200,
+        schur: bool = False,
+        schur_preconditioner: Optional[str] = None,
+    ):
+        """Solve with a per-iteration residual-norm history (the
+        observability hook behind the CLI ``--monitor`` flag).
+
+        Returns ``(u, KrylovResult, history)`` where ``history[k]`` is the
+        *relative* residual norm after iteration ``k``, ``k = 0 ..
+        iterations`` (host numpy).  Honors ``opts.krylov`` (bicgstab / cg /
+        gmres; for GMRES the in-cycle entries are the running Givens
+        estimates, corrected to the true residual at each restart
+        boundary), on the composite system or, with ``schur``, on the
+        interface system preconditioned by ``schur_preconditioner`` (as
+        ``solve_schur``'s).  The loops stop at convergence."""
+        method = self.opts.krylov
+        tol = self.opts.tol if tol is None else tol
+        lvl = self.fine_level
+        f = self._as_field(f)
+        weight = None
+        if schur:
+            M = self._schur_preconditioner(schur_preconditioner)
+            rhs = lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
+
+            def A(g):
+                return g - lvl.schur_S(g)
+
+        else:
+            A, rhs, M = lvl.apply, f, self._preconditioner()
+            if method == "cg":
+                weight = self._volume_weight(self.opts.dtype)
+        if method == "gmres":
+            res, hist = gmres(A, rhs, M=M, tol=tol, max_iter=max_iter, history=True)
+        elif method == "cg":
+            res, hist = cg_history(A, rhs, M=M, tol=tol, max_iter=max_iter,
+                                   weight=weight)
+        else:
+            res, hist = residual_history(A, rhs, M=M, tol=tol, max_iter=max_iter)
+        u = lvl.patch_solve(f, res.x) if schur else res.x
+        r0 = res.r0_norm.cpu().numpy()
+        rel = np.asarray(hist) / (r0 if r0 > 0 else 1.0)
+        return u, res, rel[: res.iterations + 1]
 
     def solve_refined(
         self,
@@ -140,11 +218,19 @@ class PoissonSolver:
         max_outer: int = 12,
         inner_max_iter: int = 60,
     ):
-        """Mixed-precision iterative refinement: inner GMG-BiCGStab solves
-        in the preconditioner dtype (f32), residual updates in f64.
+        """Mixed-precision iterative refinement: inner GMG-preconditioned
+        solves (``opts.inner_krylov``: BiCGStab, CG in the cell-volume
+        inner product, or Richardson) in the preconditioner dtype (f32),
+        residual updates in f64.
+
+        The inner operator is the cycle's finest level when it has the
+        preconditioner dtype, else a bilinear level of that dtype: with the
+        quadratic closures and an f32 cycle (whose levels are bilinear) the
+        inner solves invert the bilinear operator while the outer residual
+        is quadratic, as in the reference.
 
         Returns ``(u, info)`` with ``outer_iterations`` (refinement rounds),
-        ``inner_iterations`` (total BiCGStab iterations), ``residual`` (the
+        ``inner_iterations`` (total inner iterations), ``residual`` (the
         final relative residual) and ``outer_history``."""
         tol = self.opts.tol if tol is None else tol
         pdtype = self.opts.precond_dtype
@@ -157,6 +243,15 @@ class PoissonSolver:
         low = self._fine_low
         M = self.gmg.apply if self.gmg is not None else None
         apply64 = self.fine_level.apply
+        inner = self.opts.inner_krylov
+        w_in = self._volume_weight(pdtype) if inner == "cg" else None
+
+        def inner_solve(r_low):
+            if inner == "cg":
+                return cg(low.apply, r_low, M=M, tol=inner_tol,
+                          max_iter=inner_max_iter, weight=w_in)
+            method = richardson if inner == "richardson" else bicgstab
+            return method(low.apply, r_low, M=M, tol=inner_tol, max_iter=inner_max_iter)
 
         f = self._as_field(f)
         fnorm = _norm(f)
@@ -168,8 +263,7 @@ class PoissonSolver:
         k = inner_total = 0
         hist = [1.0]
         while True:
-            e_res = bicgstab(low.apply, r.to(pdtype), M=M, tol=inner_tol,
-                             max_iter=inner_max_iter)
+            e_res = inner_solve(r.to(pdtype))
             e = torch.where(torch.isfinite(e_res.x), e_res.x,
                             torch.zeros_like(e_res.x))
             u_new = u + e.to(f.dtype)
@@ -235,13 +329,24 @@ class PoissonSolver:
         inverse diagonal blocks of the probed ``I - S``) or ``"gmg"`` (the
         Woodbury V-cycle).  A preconditioner is built once per solver and
         kept.  Returns ``(u, KrylovResult)``."""
-        if preconditioner not in (None, "cheb", "blockjacobi", "gmg"):
-            raise ValueError(f"preconditioner={preconditioner!r}: None, 'cheb', "
-                             "'blockjacobi' or 'gmg'")
         tol = self.opts.tol if tol is None else tol
         max_iter = self.opts.max_iter if max_iter is None else max_iter
         lvl = self.fine_level
+        M = self._schur_preconditioner(preconditioner)
+        method = gmres if self.opts.krylov == "gmres" else bicgstab
+        f = self._as_field(f)
+        b = lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
+        res = method(lambda g: g - lvl.schur_S(g), b, M=M, tol=tol, max_iter=max_iter)
+        return lvl.patch_solve(f, res.x), res
+
+    def _schur_preconditioner(self, preconditioner: Optional[str]) -> Optional[Callable]:
+        """The interface preconditioner ``preconditioner`` (see
+        ``solve_schur``), built at first use and kept."""
+        if preconditioner not in (None, "cheb", "blockjacobi", "gmg"):
+            raise ValueError(f"preconditioner={preconditioner!r}: None, 'cheb', "
+                             "'blockjacobi' or 'gmg'")
         if preconditioner not in self._schur_M:
+            lvl = self.fine_level
             M = None
             if preconditioner == "cheb":
                 M = poly_cheb(lvl)
@@ -250,12 +355,7 @@ class PoissonSolver:
             elif preconditioner == "gmg":
                 M = self.schur_gmg_preconditioner()
             self._schur_M[preconditioner] = M
-        method = gmres if self.opts.krylov == "gmres" else bicgstab
-        f = self._as_field(f)
-        b = lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
-        res = method(lambda g: g - lvl.schur_S(g), b, M=self._schur_M[preconditioner],
-                     tol=tol, max_iter=max_iter)
-        return lvl.patch_solve(f, res.x), res
+        return self._schur_M[preconditioner]
 
     # -- diagnostics --------------------------------------------------------
 

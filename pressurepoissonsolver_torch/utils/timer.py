@@ -1,4 +1,10 @@
-"""Device timing with CUDA events.
+"""Device timing with CUDA events, and the CLI's named-section timer.
+
+:class:`Timer` is the reference's ``Tools::Timer`` (``Timer.h:32-89``):
+named wall-clock sections that accumulate over repeats and pretty-print.
+The reference synchronises ranks with ``MPI_Barrier`` at start and stop;
+here the timer synchronises its CUDA device instead, so that sections bound
+device work, not its enqueue.
 
 PyTorch returns before the device finishes, so a host clock without a
 synchronise measures the enqueue.  :func:`cuda_median_ms` brackets each
@@ -22,12 +28,72 @@ from __future__ import annotations
 import itertools
 import math
 import statistics
-from typing import Callable, Sequence
+import time
+from collections import OrderedDict
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
 # sleep-kernel length for ``hold`` (clock cycles; ~0.1 s on an H100)
 HOLD_CYCLES = 200_000_000
+
+
+class Timer:
+    """Named wall-clock sections; ``device``: a device synchronised at
+    every start and stop when it is a CUDA device (no barrier otherwise)."""
+
+    def __init__(self, device=None):
+        self._sections: "OrderedDict[str, List[float]]" = OrderedDict()
+        self._open: Dict[str, float] = {}
+        self._sync = device is not None and torch.device(device).type == "cuda"
+        self._device = device
+
+    def _barrier(self):
+        if self._sync:
+            torch.cuda.synchronize(self._device)
+
+    def start(self, name: str) -> None:
+        self._barrier()
+        self._open[name] = time.time()
+
+    def stop(self, name: str) -> None:
+        self._barrier()
+        t = time.time() - self._open.pop(name)
+        self._sections.setdefault(name, []).append(t)
+
+    def __getitem__(self, name: str) -> float:
+        return sum(self._sections.get(name, [0.0]))
+
+    class _Section:
+        def __init__(self, timer, name):
+            self.timer, self.name = timer, name
+
+        def __enter__(self):
+            self.timer.start(self.name)
+
+        def __exit__(self, *exc):
+            self.timer.stop(self.name)
+
+    def section(self, name: str) -> "Timer._Section":
+        return Timer._Section(self, name)
+
+    def report(self) -> str:
+        lines = ["", "TIMING RESULTS", "=" * 50, ""]
+        for name, times in self._sections.items():
+            if len(times) == 1:
+                lines.append(f"{name}")
+                lines.append("-" * len(name))
+                lines.append(f"   time (sec): {times[0]:.6f}")
+            else:
+                lines.append(f"{name} ({len(times)} repeats)")
+                lines.append("-" * len(name))
+                lines.append(f"  total (sec): {sum(times):.6f}")
+                lines.append(f"   avg  (sec): {sum(times)/len(times):.6f}")
+            lines.append("")
+        return "\n".join(lines)
+
+    def __str__(self) -> str:
+        return self.report()
 
 
 def cuda_median_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3,

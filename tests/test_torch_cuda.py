@@ -378,3 +378,96 @@ def test_solve_schur_gmg_on_card_matches_cpu(cuda, D):
     assert rg["residual"] <= max(1e-10, 2 * rc["residual"])
     assert float((ug - uc).abs().max() / uc.abs().max()) <= 1e-8
     assert abs(rg["error"] - rc["error"]) <= 1e-6 * rc["error"]
+
+
+# --- the CLI and its options --------------------------------------------------
+
+
+@pytest.mark.parametrize("D, argv", [
+    (2, ["--solver", "ir", "--inner-solver", "bicgstab", "--gmg-pre-sweeps", "2",
+         "--gmg-fac-smoothing", "active", "--inner-tol", "1e-4"]),
+    (2, ["--solver", "cg", "--dtype", "mixed", "--monitor"]),
+    (2, ["--schur", "--matrix-type", "pbm"]),
+    (3, ["--solver", "ir", "--inner-solver", "bicgstab"]),
+], ids=["2d-ir", "2d-cg-monitor", "2d-schur-pbm", "3d-ir"])
+def test_cli_on_card_matches_cpu(cuda, D, argv, tmp_path):
+    """``cli.main`` on the card and on the CPU: the same counts (inner
+    iterations within one: f32 cycles), the error to 1e-6 of itself, the
+    residual <= tol; the card run launched the kernel of its dimension on
+    the vector path."""
+    import json
+
+    from pressurepoissonsolver_torch import cli
+
+    mesh = str(tmp_path / "mesh.bin")
+    (refined_tree(2, 3, 1) if D == 2 else refined_tree(3, 3, 2)).to_file(mesh)
+    base = ["--mesh", mesh, "-n", "8", "-t", "1e-10", "--gmg-coarse-direct-dof", "64"]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        path = tmp_path / f"{dev}.json"
+        gs.reset_launches()
+        assert cli.main(D, base + argv + ["--out-json", str(path)], device=dev) == 0
+        out[dev] = json.loads(path.read_text())
+    launches = gs.launches if D == 2 else gs.launches_3d
+    assert sum(launches.values()) > 0 and gs.widths[D][1] == 0
+    c, g = out["cpu"], out["cuda"]
+    for key in ("iterations", "outer_iterations"):
+        if key in c:
+            assert g[key] == c[key], key
+    if "inner_iterations" in c:
+        assert abs(g["inner_iterations"] - c["inner_iterations"]) <= 1
+    assert g["residual"] <= 1e-9 and abs(g["error"] - c["error"]) <= 1e-6 * c["error"]
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_quadratic_level_apply_on_card_matches_cpu(cuda, dt):
+    """The quadratic closures at face depth 2 through the 2D kernel."""
+    h = _hierarchy()
+    rng = np.random.default_rng(12)
+    cpu = Level(h.finest, DTYPES[dt], device="cpu", iface_scheme="quadratic")
+    gpu = Level(h.finest, DTYPES[dt], device=cuda, iface_scheme="quadratic")
+    assert gpu.face_depth == 2
+    u = torch.as_tensor(rng.standard_normal((cpu.P, 8, 8)), dtype=DTYPES[dt])
+    got = _launch_takes(2, _width(8, dt), lambda: gpu.apply(u.to(cuda)))
+    assert _rel(cpu.apply(u), got) <= RTOL[dt]
+    assert _rel(cpu.interpolate(u), gpu.interpolate(u.to(cuda))) <= RTOL[dt]
+
+
+def test_w_cycle_apply_on_card(cuda):
+    """One W-cycle apply on the card against the CPU; its stencil launches
+    are the residual applies of every level visit: level k is visited 2^k
+    times, with two residuals per visit (the first skipped where nothing
+    was pre-smoothed)."""
+    h = _hierarchy()
+    opts = CycleOpts(cycle_type="W", pre_sweeps=2, fac_smoothing="active",
+                     coarse_direct_max_dof=64)
+    cpu = build_gmg(h, opts, torch.float32, device="cpu")
+    gpu = build_gmg(h, opts, torch.float32, device=cuda)
+    f = torch.as_tensor(np.random.default_rng(13).standard_normal((cpu.levels[0].P, 8, 8)),
+                        dtype=torch.float32)
+    gs.reset_launches()
+    got = gpu.apply(f.to(cuda))
+    torch.cuda.synchronize()
+    L = len(gpu.levels)
+    want = sum(2**k * (2 - (gpu._skip[k] or gpu._pre(k) <= 0)) for k in range(L - 1))
+    assert gs.launches["float32"] == want == 2 * (2 ** (L - 1) - 1)
+    assert gs.widths[2][1] == 0
+    assert _rel(cpu.apply(f), got) <= 1e-5
+
+
+@pytest.mark.parametrize("D", [2, 3])
+def test_sparse_operators_on_card_match_cpu(cuda, D):
+    """``pbm_matvec`` and ``bcoo_matvec`` (the probed Schur matrix, and the
+    composite operator) on the card against the CPU."""
+    from pressurepoissonsolver_torch import matrix
+
+    h, n = _schur_mesh(D)
+    cpu = Level(h.finest, device="cpu")
+    gpu = Level(h.finest, device=cuda)
+    f, g = _field_and_gamma(cpu, 14)
+    ref = matrix.pbm_matvec(cpu)(g)
+    assert _rel(ref, matrix.pbm_matvec(gpu)(g.to(cuda))) <= 1e-12
+    A_S = matrix.assemble_schur(cpu)
+    assert _rel(ref, matrix.bcoo_matvec(A_S, device=cuda)(g.to(cuda))) <= 1e-12
+    A = matrix.assemble_composite(h.finest)
+    assert _rel(cpu.apply(f), matrix.bcoo_matvec(A, device=cuda)(f.to(cuda))) <= 1e-12

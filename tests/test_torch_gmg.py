@@ -82,8 +82,15 @@ def test_vcycle_apply(dt, fac):
 
 
 def test_unported_cycle_options_raise():
+    """The W-cycle and linear prolongation are ported (held to the
+    reference in test_torch_variants.py); values the reference does not
+    know raise."""
     _, th = hierarchies()
-    with pytest.raises(NotImplementedError):
-        tgmg.build_gmg(th, tgmg.CycleOpts(cycle_type="W", **OPTS), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tgmg.build_gmg(th, tgmg.CycleOpts(interpolator="linear", **OPTS), device="cpu")
+    w = tgmg.build_gmg(th, tgmg.CycleOpts(cycle_type="W", **OPTS), device="cpu")
+    lin = tgmg.build_gmg(th, tgmg.CycleOpts(interpolator="linear", **OPTS), device="cpu")
+    assert w.opts.cycle_type == "W"
+    assert all(t.prolong_mode == "linear" for t in lin.transfers)
+    with pytest.raises(ValueError):
+        tgmg.build_gmg(th, tgmg.CycleOpts(cycle_type="F", **OPTS), device="cpu")
+    with pytest.raises(ValueError):
+        tgmg.build_gmg(th, tgmg.CycleOpts(interpolator="cubic", **OPTS), device="cpu")

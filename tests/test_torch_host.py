@@ -97,9 +97,15 @@ def test_problem_data_equal(name):
 
 
 def test_unported_options_raise():
+    """The quadratic closures are ported in 2D (tables held to the
+    reference in test_torch_variants.py); in 3D and for unknown schemes
+    the port raises as the reference does."""
     _, th = hierarchies()
-    with pytest.raises(NotImplementedError):
-        tiface.build_iface_tables(th.finest, scheme="quadratic")
+    assert tiface.build_iface_tables(th.finest, scheme="quadratic").face_depth == 2
+    _, th3 = hierarchies(D=3)
+    for pl, scheme in ((th3.finest, "quadratic"), (th.finest, "cubic")):
+        with pytest.raises(ValueError):
+            tiface.build_iface_tables(pl, scheme=scheme)
 
 
 def _trees_equal(a, b):
@@ -144,16 +150,22 @@ def test_port_checkpoint_loads_into_jax(tmp_path):
 def test_port_never_imports_jax():
     """Import every module of the port and chip_smoke, run a tiny CPU
     solve, Schur solves with the GMG and block-Jacobi preconditioners and
-    with GMRES, and a 3D apply, and check that JAX was never loaded."""
+    with GMRES, a 3D apply and two CLI runs, and check that JAX was never
+    loaded."""
     code = """
 import sys
 import numpy as np
 import torch
 import pressurepoissonsolver_torch
-from pressurepoissonsolver_torch import checkpoint, cuda_build, domain, geometry, gmg, iface, krylov, matrix, precond, problems, solver
+from pressurepoissonsolver_torch import checkpoint, cli, cuda_build, domain, geometry, gmg, iface, krylov, matrix, precond, problems, solver
+from pressurepoissonsolver_torch.apps import steady2d, steady3d
 from pressurepoissonsolver_torch.ops import ghost_stencil, level_ops, patch_bcgs, transforms
-from pressurepoissonsolver_torch.utils import timer
+from pressurepoissonsolver_torch.utils import timer, writers
 import chip_smoke
+assert cli.main(2, ["--uniform", "3", "-n", "4", "-t", "1e-8", "--solver", "ir",
+                    "--inner-solver", "richardson", "--gmg-cycle-type", "W"], device="cpu") == 0
+assert cli.main(2, ["--uniform", "3", "-n", "4", "-t", "1e-8", "--schur",
+                    "--matrix-type", "pbm", "--monitor"], device="cpu") == 0
 h = domain.DomainHierarchy(geometry.refined_tree(2, 3, 1), n=4)
 s = solver.SolveOptions(tol=1e-8, precond_dtype=torch.float32,
                         gmg=gmg.CycleOpts(coarse_direct_max_dof=16, fac_smoothing="active"))

@@ -130,10 +130,18 @@ def test_bicgstab_breakdown_guard():
 
 
 def test_unported_solver_options_raise():
+    """Multi-device meshes are the one option not ported; unknown option
+    values raise; CG falls back to BiCGStab under the quadratic closures,
+    as in the reference."""
     _, th = hierarchies()
-    for kw in ({"krylov": "cg"}, {"inner_krylov": "richardson"},
-               {"inner_krylov": "cg"}, {"iface_scheme": "quadratic"}):
-        with pytest.raises(NotImplementedError):
-            tsolver.PoissonSolver(th, tsolver.SolveOptions(**kw), device="cpu")
     with pytest.raises(NotImplementedError):
         tsolver.PoissonSolver(th, mesh=object(), device="cpu")
+    for kw in ({"krylov": "minres"}, {"inner_krylov": "gmres"},
+               {"iface_scheme": "cubic"}, {"preconditioner": "ilu"}):
+        with pytest.raises(ValueError):
+            tsolver.PoissonSolver(th, tsolver.SolveOptions(**kw), device="cpu")
+    s = tsolver.PoissonSolver(th, tsolver.SolveOptions(
+        krylov="cg", inner_krylov="cg", iface_scheme="quadratic",
+        gmg=tgmg.CycleOpts(coarse_direct_max_dof=64)), device="cpu")
+    assert (s.opts.krylov, s.opts.inner_krylov) == ("bicgstab", "bicgstab")
+    assert s.fine_level.face_depth == 2
