@@ -49,7 +49,17 @@ Phases, any failure of which raises and exits non-zero:
    then small runs (``CLI_SMALL``: the monitored solves, the assembled and
    pointer-block operators, every Schur preconditioner, Neumann walls,
    per-patch BiCGStab, the output files and a config round trip);
-6. print the kernel table, the card line, and last the result line
+6. the port's measurement scripts, each driven with the launch counts set
+   to 0 just before it: ``bench.main()`` at its defaults (the 2D bench
+   configuration of phase 3, its Schur solve and the apply times), held to
+   the reference's keys, counts and errors; ``scripts/bench3d.main()`` on
+   the 3D bench mesh written with ``Tree.to_file``; the op report
+   (``scripts/profile_ops.main()`` at divide 1, n=64, whose f32
+   ``stencil_only`` row must agree with phase 3's warm kernel time within
+   1.5x, then ``utils.profiling.op_report``); the native table generator
+   held equal to the Python builders on both bench meshes, with both
+   builders' seconds and the bench's set-up seconds with each;
+7. print the kernel table, the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -59,7 +69,6 @@ import io
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -109,6 +118,18 @@ SCHUR_SMALL_BAND = {"gmg": 1, "gmres-gmg": 1, "none": 3, "schwarz": 3}
 # of the composite solve (5.739378371e-4)
 SCHUR3D_SMALL_ITERS = 6
 SCHUR3D_SMALL_ERROR = 5.739378371e-4
+
+# the keys the JAX reference's bench.py (IR, Schur on) and
+# scripts/bench3d.py print; the port's bench prints each of them.  Its
+# default run is the bench configuration of phase 3 (BENCH_ERROR).
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "dof", "solve_s",
+              "outer_iterations", "inner_iterations", "residual", "error",
+              "stencil_nnz_per_s", "apply_timing", "apply_f64_ms",
+              "apply_f64_roofline_pct", "apply_f32_ms", "apply_f32_roofline_pct",
+              "schur_complete_solve_s", "schur_dof_per_s", "schur_iterations",
+              "schur_residual", "setup_s", "compile_s", "dtype", "device")
+BENCH3D_KEYS = ("metric", "value", "unit", "dof", "dof_per_s", "outer_iterations",
+                "inner_iterations", "residual", "error", "mode", "device")
 
 # the command-line apps at full width: the JAX reference's CLI
 # (pressurepoissonsolver_tpu.cli on the CPU, jax_enable_x64) on the 2D bench
@@ -162,9 +183,9 @@ CLI_SMALL = {
     "bcgs": (["--patch_solver", "bcgs"], (6,), 3.5642034555e-3),
 }
 
-# H100 SXM: device-memory rate, and peak rates outside the tensor cores
-# (NVIDIA's data sheet: 67 TFLOP/s float32, 34 TFLOP/s float64)
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM: peak rates outside the tensor cores (NVIDIA's data sheet: 67
+# TFLOP/s float32, 34 TFLOP/s float64); the memory rate per card is
+# utils.profiling.HBM_BYTES_PER_S
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # the Pallas kernel each CUDA kernel replaces, per dimension
 REPLACES = {2: "pressurepoissonsolver_tpu/ops/pallas_stencil.py:87",
@@ -181,14 +202,6 @@ ODD_SHAPES = {2: [(37, 12), (37, 6), (3, 1)], 3: [(37, 6), (3, 1)]}
 WIDTH1_SHAPES = {2: [(1048, 62), (1048, 63), (37, 7)], 3: [(624, 30), (624, 31), (37, 7)]}
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0].strip()
-
-
 def stencil_shapes(solver):
     """The ``(P, n)`` shapes the bench solve gives the ghost stencil: the
     f32 composite apply on every GMG level above the coarse solve and the
@@ -200,21 +213,21 @@ def stencil_shapes(solver):
     return {"float32": sorted(f32, reverse=True), "float64": [(solver.fine_level.P, n)]}
 
 
-def kernel_bound(D, args, out):
+def kernel_bound(D, args, out, bw):
     """(ms, "bytes" | "operations"): the least time the card could take for
     one call, from the bytes it must move (each input read once, the output
-    written once) and the flops it does (5D - 1 per cell, 3 more per
-    ghost)."""
+    written once) at ``bw`` bytes/s and the flops it does (5D - 1 per cell,
+    3 more per ghost)."""
     nbytes = sum(t.numel() * t.element_size() for t in (*args, out))
     P, n = args[0].shape[0], args[0].shape[1]
     flops = P * (n**D * (5 * D - 1) + 2 * D * n ** (D - 1) * 3)
     name = str(out.dtype).replace("torch.", "")
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_bytes = nbytes / bw
     t_ops = flops / PEAK_FLOPS[name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernels(torch, gs, timer, card, D, shapes):
+def check_kernels(torch, gs, timer, card, bw, D, shapes):
     """The ``D``-dimensional ghost stencil against its plain version at
     every shape of the main path and at an odd one, in f32 and f64; device
     and host-paced times at the finest shape and the odd one.  At the finest
@@ -254,7 +267,7 @@ def check_kernels(torch, gs, timer, card, D, shapes):
                 for hold in (True, False):
                     t[label, hold] = timer.cuda_median_ms(fn, reps=50, hold=hold)
             warm_ms, plain_warm_ms = t["kernel", True], t["plain", True]
-            bound_ms, bound_by = kernel_bound(D, args, out_k)
+            bound_ms, bound_by = kernel_bound(D, args, out_k, bw)
             nbytes = (2 * P * n**D + 2 * D * P * n ** (D - 1)) * out_k.element_size()
             msg = (f"{line}; device ms warm: kernel {warm_ms:.5f} "
                    f"({nbytes / (warm_ms * 1e-3) / 1e9:.0f} GB/s of u, gf and "
@@ -306,7 +319,7 @@ def width1_ms(torch, gs, timer, card):
         python3 -c "import sys; sys.path[:0] = ['OLD', '.']; import torch,
         chip_smoke as c; from pressurepoissonsolver_torch.ops import
         ghost_stencil as gs; from pressurepoissonsolver_torch.utils import
-        timer; c.width1_ms(torch, gs, timer, c.card_line())"
+        timer; c.width1_ms(torch, gs, timer, 'old package')"
     """
     rng = np.random.default_rng(SEED + 1)
     times = {}
@@ -811,19 +824,15 @@ def profile_solve(torch, card, label, solve) -> None:
     (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from pressurepoissonsolver_torch.utils.profiling import kernel_times
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         solve()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = []
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0.0)
-            kern.append((float(us), int(e.count), e.key))
+    kern = kernel_times(prof)
     busy = sum(k[0] for k in kern)
     assert busy > 0, f"{label}: the profiler reported no device time"
     print(f"{label} [{card}]: one solve (profiled) wall {wall_us / 1e3:.3f} ms, "
@@ -833,6 +842,179 @@ def profile_solve(torch, card, label, solve) -> None:
     ranked = sorted(kern, reverse=True)
     for us, cnt, key in ranked[:12] + [k for k in ranked[12:] if "ghost_stencil" in k[2]]:
         print(f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:100]}", flush=True)
+
+
+@contextlib.contextmanager
+def environ(**kw):
+    """``os.environ`` with ``kw`` set, restored afterwards."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_json(fn):
+    """``fn()`` with its standard output captured: the JSON object of its
+    last line (printed here too) and ``fn``'s own return value."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn()
+    lines = buf.getvalue().splitlines()
+    for text in lines:
+        print(f"  {text}", flush=True)
+    return json.loads(lines[-1]), ret
+
+
+def bench_2d(torch, gs, card, warm_f32_ms):
+    """``bench.main()`` at its defaults (n=64, divide 1, IR, Schur, 3
+    reps), with the launch counts set to 0 just before it and read just
+    after: the reference's keys, counts and error; both applies contain the
+    kernel, so neither is faster than its warm time."""
+    from pressurepoissonsolver_torch import bench
+
+    gs.reset_launches()
+    out, ret = run_json(bench.main)
+    torch.cuda.synchronize()
+    launches = dict(gs.launches)
+    line = (f"bench.py (port) [{card}]: outer {out['outer_iterations']} inner "
+            f"{out['inner_iterations']} residual {out['residual']:.3e} error "
+            f"{out['error']:.6e} solve_s {out['solve_s']:.6f} setup_s "
+            f"{out['setup_s']:.3f}; Schur {out['schur_iterations']} residual "
+            f"{out['schur_residual']:.3e}; apply ms f32 {out['apply_f32_ms']:.5f} f64 "
+            f"{out['apply_f64_ms']:.5f} ({out['apply_timing']}); stencil launches "
+            f"{launches}")
+    print(line, flush=True)
+    missing = set(BENCH_KEYS) - set(out)
+    assert not missing and set(out) == set(ret), (missing, line)
+    assert out["outer_iterations"] == 3 and 6 <= out["inner_iterations"] <= 8, line
+    assert out["residual"] <= 1e-10, line
+    assert abs(out["error"] - BENCH_ERROR) <= 0.01 * BENCH_ERROR, line
+    assert abs(out["schur_iterations"] - SCHUR_BENCH_ITERS) <= 1, line
+    assert out["schur_residual"] <= 1e-10, line
+    for key in ("apply_f32_ms", "apply_f64_ms"):
+        assert np.isfinite(out[key]) and out[key] >= warm_f32_ms, line
+    assert all(launches.values()) and not any(gs.launches_3d.values()), line
+    return out
+
+
+def bench_3d(torch, port, gs, card, tmp):
+    """``scripts/bench3d.main()`` on the generated 3D bench mesh written
+    with ``Tree.to_file`` (n=32), counts set to 0 just before it."""
+    from pressurepoissonsolver_torch.scripts import bench3d
+
+    tree = port.refined_tree(3, 3, 2)
+    tree.refine_leaves()
+    mesh = os.path.join(tmp, "bench3d_mesh.bin")
+    tree.to_file(mesh)
+    gs.reset_launches()
+    with environ(PPS_BENCH3D_MESH=mesh):
+        out, _ = run_json(bench3d.main)
+    torch.cuda.synchronize()
+    launches = dict(gs.launches_3d)
+    line = (f"bench3d (port) [{card}]: {out['dof']} DOF, outer "
+            f"{out['outer_iterations']} inner {out['inner_iterations']} residual "
+            f"{out['residual']:.3e} error {out['error']:.6e} value {out['value']:.6f} s; "
+            f"3D stencil launches {launches}")
+    print(line, flush=True)
+    assert not set(BENCH3D_KEYS) - set(out), line
+    assert out["outer_iterations"] == 2 and 6 <= out["inner_iterations"] <= 8, line
+    assert out["residual"] <= 1e-10, line
+    assert abs(out["error"] - BENCH3D_ERROR) <= 0.01 * BENCH3D_ERROR, line
+    assert all(launches.values()) and not any(gs.launches.values()), line
+
+
+def op_reports(torch, port, card, warm_f32_ms):
+    """``profile_ops.main()`` at the bench's cutting, every row printed;
+    the f32 ``stencil_only`` row times the same launch as phase 3's warm 2D
+    f32 kernel time at (1048, 64); then ``op_report`` of that level."""
+    from pressurepoissonsolver_torch.bench import bench_tree
+    from pressurepoissonsolver_torch.ops.level_ops import Level
+    from pressurepoissonsolver_torch.scripts import profile_ops
+    from pressurepoissonsolver_torch.utils import profiling
+
+    with environ(PPS_PROFILE_DIVIDE="1", PPS_PROFILE_N="64"):
+        rep = profile_ops.main()
+    row = rep["f32"]["stencil_only"]
+    ratio = row["ms"] / warm_f32_ms
+    line = (f"op report f32 stencil_only [{card}]: {row['ms']:.5f} ms "
+            f"({row['timing']}) against the kernel's warm {warm_f32_ms:.5f} ms: "
+            f"{ratio:.3f}x")
+    print(line, flush=True)
+    assert row["timing"] == "held_stream_device" and 1 / 1.5 <= ratio <= 1.5, line
+    for name in ("f32", "f64"):
+        for key, r in rep[name].items():
+            assert np.isfinite(r["ms"]) and r["ms"] > 0, (name, key, r)
+    hier = port.DomainHierarchy(bench_tree(1), n=64)
+    lvl = Level(hier.finest, torch.float32, device="cuda")
+    for key, r in profiling.op_report(lvl, hbm_force=True).items():
+        print(f"op_report f32 (P={lvl.P}, n=64) [{card}]: {key:16s} {r}", flush=True)
+        assert np.isfinite(r["ms"]) and r["roofline_pct"] > 0, (key, r)
+
+
+def native_tables(torch, port, card):
+    """The native table generator against the Python builders on the 2D
+    and 3D bench meshes (every table equal), both builders' seconds, and
+    the bench's set-up seconds (hierarchy + solver) with each."""
+    from pressurepoissonsolver_torch import iface, native
+    from pressurepoissonsolver_torch.solver import SolveOptions
+
+    assert native.available(), "the native table generator did not build"
+    pl_fields = ("ids", "starts", "spacings", "refine_level", "parent_id",
+                 "orth_on_parent", "neumann", "nbr_type", "nbr_slot", "coarse_orth",
+                 "fine_nbr_slots")
+    if_fields = ("num_ifaces", "m", "iface_side_idx", "iface_side_mask", "contrib_patch",
+                 "contrib_side", "contrib_iface", "contrib_case", "case_w", "case_src")
+    for D, base, corner, n in ((2, 5, 2, 64), (3, 3, 2, 32)):
+        tree = port.refined_tree(D, base, corner)
+        tree.refine_leaves()
+        secs, built = {}, {}
+        for use in (True, False):
+            t0 = time.perf_counter()
+            hier = port.DomainHierarchy(tree, n=n, use_native=use)
+            tables = [pl.prebuilt_iface_tables or iface.build_iface_tables(pl)
+                      for pl in hier.levels]
+            secs[hier.builder] = time.perf_counter() - t0
+            built[hier.builder] = (hier, tables)
+        (hn, tn), (hp, tp) = built["native"], built["python"]
+        for a, b, ta, tb in zip(hn.levels, hp.levels, tn, tp):
+            for k in pl_fields:
+                assert np.array_equal(getattr(a, k), getattr(b, k)), (D, k)
+            for k in if_fields:
+                assert np.array_equal(getattr(ta, k), getattr(tb, k)), (D, k)
+        setup = {}
+        if D == 2:
+            opts = SolveOptions(tol=1e-10, dtype=torch.float64, precond_dtype=torch.float32,
+                                gmg=port.CycleOpts(pre_sweeps=2, post_sweeps=1,
+                                                   fac_smoothing="active"))
+            for use in (True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                hier = port.DomainHierarchy(tree, n=n, use_native=use)
+                port.PoissonSolver(hier, opts, device="cuda")
+                torch.cuda.synchronize()
+                setup[hier.builder] = time.perf_counter() - t0
+        print(f"native tables {D}D bench mesh ({len(hn.levels)} levels, "
+              f"{hn.finest.num_patches} patches, n={n}) [{card}]: equal to the Python "
+              f"builder's; hierarchy + tables: native {secs['native']:.3f} s, python "
+              f"{secs['python']:.3f} s"
+              + (f"; bench setup_s: native {setup['native']:.3f} s, python "
+                 f"{setup['python']:.3f} s" if setup else ""), flush=True)
+
+
+def bench_phase(torch, port, gs, card, tmp, warm_f32_ms):
+    """Phase 6: the port's bench scripts, op report and native tables."""
+    t0 = time.perf_counter()
+    bench_2d(torch, gs, card, warm_f32_ms)
+    bench_3d(torch, port, gs, card, tmp)
+    op_reports(torch, port, card, warm_f32_ms)
+    native_tables(torch, port, card)
+    print(f"bench phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def build_kernels(gs, cuda_build) -> None:
@@ -863,7 +1045,7 @@ def main() -> None:
     from pressurepoissonsolver_torch.ops import ghost_stencil as gs
     from pressurepoissonsolver_torch.problems import get_problem, init_problem
     from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
-    from pressurepoissonsolver_torch.utils import timer
+    from pressurepoissonsolver_torch.utils import profiling, timer
 
     port = types.SimpleNamespace(
         DomainHierarchy=DomainHierarchy, refined_tree=refined_tree,
@@ -876,8 +1058,9 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
-    card = card_line()
-    print(f"card: {card}", flush=True)
+    card = profiling.card_line()
+    bw = profiling._device_bw("cuda")
+    print(f"card: {card}; memory rate {bw:.4g} B/s", flush=True)
 
     # phase 2
     build_kernels(gs, cuda_build)
@@ -887,7 +1070,7 @@ def main() -> None:
         torch, port, card, 2, 5, 2, 64,
         CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
                   coarse_direct_max_dof=4096))
-    tables = {2: check_kernels(torch, gs, timer, card, 2, stencil_shapes(solver))}
+    tables = {2: check_kernels(torch, gs, timer, card, bw, 2, stencil_shapes(solver))}
     solve_small(torch, port)
     u_ir, launches2 = solve_bench(torch, solver, f, exact, gs, timer, card)
     launches = {2: launches2}
@@ -900,7 +1083,7 @@ def main() -> None:
     # phase 4: 3D, the defaults of scripts/bench3d.py
     solver, f, exact, setup_s = setup_bench(torch, port, card, 3, 3, 2, 32, CycleOpts())
     assert setup_s < 60, f"3D setup took {setup_s:.1f} s"
-    tables[3] = check_kernels(torch, gs, timer, card, 3, stencil_shapes(solver))
+    tables[3] = check_kernels(torch, gs, timer, card, bw, 3, stencil_shapes(solver))
     solve_small_3d(torch, port)
     launches[3] = solve_bench_3d(torch, solver, f, exact, gs, timer, card)
     del solver, f, exact
@@ -914,7 +1097,10 @@ def main() -> None:
         cli_small(torch, port, cli, gs, card, tmp)
         print(f"CLI phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # phase 6
+        # phase 6: the bench scripts, the op report, the native tables
+        bench_phase(torch, port, gs, card, tmp, tables[2]["float32"]["warm_ms"])
+
+    # phase 7
     kernels = [
         {
             "name": f"ghost_stencil_{D}d_{name}",

@@ -264,17 +264,42 @@ class DomainHierarchy:
     """The full finest→coarsest stream of :class:`PatchLevel` objects
     (reference ``DomainGenerator`` contract, ``DomainGenerator.h:437-456``).
 
-    Tables come from the pure-Python builder :func:`extract_level`; the
-    reference's native C++ table generator is not part of this package."""
+    With ``use_native`` (and ``g++`` at hand, :func:`.native.available`)
+    every level's patch and interface tables come from the native C++
+    generator, which fills ``iface_tables`` and each level's
+    ``prebuilt_iface_tables`` (consumed by ``ops.level_ops.Level``);
+    otherwise, and for a callable Neumann spec, from the pure-Python
+    builders :func:`extract_level` and ``iface.build_iface_tables``, which
+    give the same tables.  ``builder`` records which one ran."""
 
-    def __init__(self, tree: Tree, n: int, neumann=False):
+    def __init__(self, tree: Tree, n: int, neumann=False, use_native: bool = True):
         self.tree = tree
         self.n = n
         self.neumann = neumann
         self.levels: List[PatchLevel] = []
+        #: per-level prebuilt interface tables (None from the Python builder)
+        self.iface_tables: List[Optional[object]] = []
         nm = normalize_neumann(neumann, tree.D)
+        native = None
+        if use_native and not callable(nm):
+            from . import native as native_mod
+
+            if native_mod.available():
+                native = native_mod
+        self.builder = "python" if native is None else "native"
         for lvl in range(tree.num_levels - 1, -1, -1):
-            self.levels.append(extract_level(tree, lvl, n, nm))
+            if native is None:
+                pl, tables = extract_level(tree, lvl, n, nm), None
+            elif isinstance(nm, bool):
+                pl, tables = native.build_level_native(tree, lvl, n, nm)
+            else:
+                # per-side spec: the native builder takes one flag, and the
+                # interface tables do not depend on the walls: post-fix them
+                pl, tables = native.build_level_native(tree, lvl, n, False)
+                pl.neumann = (pl.nbr_type == NBR_NONE) & nm[None, :]
+            pl.prebuilt_iface_tables = tables
+            self.levels.append(pl)
+            self.iface_tables.append(tables)
 
     @property
     def finest(self) -> PatchLevel:

@@ -381,7 +381,11 @@ class Level:
         self.device = torch.device(device)
         self.m = self.n ** (self.D - 1)
 
-        t = iface_mod.build_iface_tables(patch_level, scheme=iface_scheme)
+        # the native generator's tables when the hierarchy built them
+        # (bilinear only); else the Python builder's, which are the same
+        t = getattr(patch_level, "prebuilt_iface_tables", None)
+        if t is None or iface_scheme != "bilinear":
+            t = iface_mod.build_iface_tables(patch_level, scheme=iface_scheme)
         self.tables = t
         self.num_ifaces = t.num_ifaces
         self.face_depth = t.face_depth

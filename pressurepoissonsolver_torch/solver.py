@@ -217,11 +217,18 @@ class PoissonSolver:
         inner_tol: float = 1e-5,
         max_outer: int = 12,
         inner_max_iter: int = 60,
+        sync: bool = True,
     ):
         """Mixed-precision iterative refinement: inner GMG-preconditioned
         solves (``opts.inner_krylov``: BiCGStab, CG in the cell-volume
         inner product, or Richardson) in the preconditioner dtype (f32),
         residual updates in f64.
+
+        ``sync`` is the reference's keyword and changes nothing here: the
+        reference runs the whole loop on the device and, with
+        ``sync=False``, leaves its counts there; this loop reads the
+        relative residual on the host every round to decide whether to
+        stop, so the counts are host integers whatever ``sync`` says.
 
         The inner operator is the cycle's finest level when it has the
         preconditioner dtype, else a bilinear level of that dtype: with the

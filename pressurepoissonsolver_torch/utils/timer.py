@@ -15,7 +15,9 @@ When the host needs longer to enqueue a call than the device needs to run
 it, the events measure the host's pace (the device idles between them).
 ``hold=True`` first parks the stream on a sleep kernel long enough for the
 host to enqueue every call; the calls then run back to back and the events
-measure device time alone.  ``fn`` must not synchronise.
+measure device time alone.  ``fn`` must not synchronise.  A held timing
+checks that the hold outlasted the enqueue and takes fewer calls under a
+longer hold when it did not.
 
 Back-to-back calls on the same tensors find them in the 50 MB L2 when they
 fit.  :func:`cold_median_ms` rotates the calls over several input sets, so
@@ -34,8 +36,10 @@ from typing import Callable, Dict, List, Sequence
 
 import torch
 
-# sleep-kernel length for ``hold`` (clock cycles; ~0.1 s on an H100)
+# sleep-kernel length for ``hold`` (clock cycles; ~0.1 s on an H100), and
+# the longest hold a retry takes (~1.6 s)
 HOLD_CYCLES = 200_000_000
+HOLD_MAX_CYCLES = 16 * HOLD_CYCLES
 
 
 class Timer:
@@ -96,28 +100,53 @@ class Timer:
         return self.report()
 
 
+class HostPaced(RuntimeError):
+    """The host could not queue even one call of a held timing before the
+    hold ran out, so no device time could be taken with events."""
+
+
 def cuda_median_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3,
                    hold: bool = False) -> float:
     """Median device milliseconds of ``reps`` calls of ``fn``, each
     bracketed by CUDA events, after ``warmup`` untimed calls.  Raises
-    without a CUDA device."""
+    without a CUDA device.
+
+    With ``hold``, an event recorded right after the sleep kernel tells
+    whether the sleep was still running when the last call had been queued;
+    if it was not (the enqueue outlasted the hold, or the launch queue
+    filled and blocked the host), the calls may have run at the host's
+    pace, and the timing is taken again with a quarter of the calls and
+    four times the hold, down to one call under ``HOLD_MAX_CYCLES``.  When
+    even that fails it raises :class:`HostPaced`: a held time is device
+    time or nothing."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_median_ms needs a CUDA device")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    if hold:
-        torch.cuda._sleep(HOLD_CYCLES)
-    pairs = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    cycles = HOLD_CYCLES
+    while True:
+        held = None
+        if hold:
+            torch.cuda._sleep(cycles)
+            held = torch.cuda.Event()
+            held.record()
+        pairs = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        covered = held is None or not held.query()
+        torch.cuda.synchronize()
+        if covered:
+            return statistics.median(s.elapsed_time(e) for s, e in pairs)
+        if reps == 1 and cycles >= HOLD_MAX_CYCLES:
+            raise HostPaced(f"one call outlasted a hold of {cycles} cycles")
+        reps = max(1, reps // 4)
+        cycles = min(4 * cycles, HOLD_MAX_CYCLES)
 
 
 def cold_sets(set_bytes: int) -> int:

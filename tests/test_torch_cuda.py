@@ -1,8 +1,10 @@
 """The port on a CUDA card: the 2D and 3D ghost-stencil kernels against
 their plain versions, the composite apply, the active-set residual apply and
 the Schur path's ``apply_with_interface`` and per-patch BiCGStab through the
-kernels against the CPU, and small 2D and 3D solves (``solve_refined`` and
-``solve_schur``).
+kernels against the CPU, small 2D and 3D solves (``solve_refined`` and
+``solve_schur``), and the measurement surface: the bench scripts at a small
+size, ``time_op``'s held device time and its fallback, a trace and the op
+report.
 
 Every test here needs a card and skips without one (the CUDA kernel has no
 CPU mode).  This file imports no JAX, so it runs on a machine without it;
@@ -471,3 +473,91 @@ def test_sparse_operators_on_card_match_cpu(cuda, D):
     assert _rel(ref, matrix.bcoo_matvec(A_S, device=cuda)(g.to(cuda))) <= 1e-12
     A = matrix.assemble_composite(h.finest)
     assert _rel(cpu.apply(f), matrix.bcoo_matvec(A, device=cuda)(f.to(cuda))) <= 1e-12
+
+
+# --- the measurement surface: bench scripts, time_op, trace ----------------
+
+
+def test_small_bench_on_card_matches_cpu(cuda, monkeypatch, tmp_path):
+    """The port's ``bench`` and ``bench3d`` at a small size on the card
+    against the same runs on the CPU: counts, errors; the apply rows are
+    device times."""
+    from pressurepoissonsolver_torch import bench
+    from pressurepoissonsolver_torch.scripts import bench3d
+
+    for k, v in {"PPS_BENCH_N": "8", "PPS_BENCH_DIVIDE": "0",
+                 "PPS_BENCH_COARSE_DOF": "64", "PPS_BENCH_REPS": "1",
+                 "PPS_BENCH3D_N": "4", "PPS_BENCH3D_REPS": "1"}.items():
+        monkeypatch.setenv(k, v)
+    mesh = str(tmp_path / "mesh3d.bin")
+    refined_tree(3, 3, 2).to_file(mesh)
+    monkeypatch.setenv("PPS_BENCH3D_MESH", mesh)
+    outs = {}
+    for main in (bench.main, bench3d.main):
+        ref, got = main(device="cpu"), main(device=cuda)
+        assert got["dof"] == ref["dof"] and got["outer_iterations"] == ref["outer_iterations"]
+        assert abs(got["inner_iterations"] - ref["inner_iterations"]) <= 1
+        assert got["residual"] <= 1e-10
+        assert abs(got["error"] - ref["error"]) <= 1e-6 * ref["error"]
+        assert got["device"] != "cpu" and set(got) == set(ref)
+        outs[main] = got
+    got = outs[bench.main]
+    assert got["apply_timing"] == "held_stream_device"
+    assert 0 < got["apply_f32_ms"] and 0 < got["apply_f64_ms"]
+    assert abs(got["schur_iterations"] - 5) <= 1 and got["schur_residual"] <= 1e-10
+
+
+def test_time_op_held_against_a_synchronised_wall(cuda):
+    """A held device time of one apply is device time: no longer than the
+    synchronised wall of back-to-back calls (which adds the host's pace)."""
+    from pressurepoissonsolver_torch.utils import profiling
+
+    lvl = Level(_hierarchy().finest, torch.float32, device=cuda)
+    u = torch.randn((lvl.P, 8, 8), device=cuda)
+    held, how = profiling.measure(lvl.apply, u, reps=50, in_graph=True)
+    wall, how_wall = profiling.measure(lvl.apply, u, reps=50)
+    assert (how, how_wall) == ("held_stream_device", "synchronised_wall")
+    assert 0 < held <= wall
+    assert profiling.time_op(lvl.apply, u, reps=50, in_graph=True, hbm_rotate=3) > 0
+
+
+def test_time_op_reports_profiler_busy_when_the_hold_cannot_cover(cuda, monkeypatch):
+    """A hold too short for the enqueue is detected, never reported as held
+    device time: the row falls back to the profiler's device busy time."""
+    from pressurepoissonsolver_torch.utils import profiling, timer
+
+    monkeypatch.setattr(timer, "HOLD_CYCLES", 1)
+    monkeypatch.setattr(timer, "HOLD_MAX_CYCLES", 1)
+    x = torch.ones(1 << 20, device=cuda)
+
+    def many(v):
+        for _ in range(64):
+            v = v + 1.0
+        return v
+
+    with pytest.raises(timer.HostPaced):
+        timer.cuda_median_ms(lambda: many(x), reps=20, hold=True)
+    t, how = profiling.measure(many, x, reps=20, in_graph=True)
+    assert how == "profiler_device_busy" and 0 < t < 1.0
+
+
+def test_trace_and_op_report_on_card(cuda, tmp_path):
+    """A trace of a composite apply on the card names the stencil kernel;
+    the op report's rows are held device times with nonzero shares."""
+    import json
+
+    from pressurepoissonsolver_torch.utils import profiling
+
+    lvl = Level(_hierarchy().finest, torch.float32, device=cuda)
+    u = torch.randn((lvl.P, 8, 8), device=cuda)
+    with profiling.trace(str(tmp_path)):
+        with profiling.annotate("pps_card_apply"):
+            lvl.apply(u)
+    with open(tmp_path / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert "pps_card_apply" in names
+    assert any("ghost_stencil_2d_kernel" in nm for nm in names)
+    rep = profiling.op_report(lvl, reps=20)
+    for row in rep.values():
+        assert row["timing"] == "held_stream_device" and row["roofline_pct"] > 0

@@ -150,8 +150,8 @@ def test_port_checkpoint_loads_into_jax(tmp_path):
 def test_port_never_imports_jax():
     """Import every module of the port and chip_smoke, run a tiny CPU
     solve, Schur solves with the GMG and block-Jacobi preconditioners and
-    with GMRES, a 3D apply and two CLI runs, and check that JAX was never
-    loaded."""
+    with GMRES, a 3D apply, two CLI runs, a tiny bench and an op report on
+    natively built tables, and check that JAX was never loaded."""
     code = """
 import sys
 import numpy as np
@@ -160,8 +160,15 @@ import pressurepoissonsolver_torch
 from pressurepoissonsolver_torch import checkpoint, cli, cuda_build, domain, geometry, gmg, iface, krylov, matrix, precond, problems, solver
 from pressurepoissonsolver_torch.apps import steady2d, steady3d
 from pressurepoissonsolver_torch.ops import ghost_stencil, level_ops, patch_bcgs, transforms
-from pressurepoissonsolver_torch.utils import timer, writers
+from pressurepoissonsolver_torch.utils import profiling, timer, writers
+from pressurepoissonsolver_torch import bench, native
+from pressurepoissonsolver_torch.scripts import bench3d, profile_ops
+import os
 import chip_smoke
+os.environ.update(PPS_BENCH_N="4", PPS_BENCH_DIVIDE="0", PPS_BENCH_COARSE_DOF="16",
+                  PPS_BENCH_REPS="1")
+out = bench.main(device="cpu")
+assert out["residual"] <= 1e-10 and out["schur_residual"] <= 1e-10, out
 assert cli.main(2, ["--uniform", "3", "-n", "4", "-t", "1e-8", "--solver", "ir",
                     "--inner-solver", "richardson", "--gmg-cycle-type", "W"], device="cpu") == 0
 assert cli.main(2, ["--uniform", "3", "-n", "4", "-t", "1e-8", "--schur",
@@ -184,6 +191,8 @@ h3 = domain.DomainHierarchy(geometry.refined_tree(3, 2, 1), n=4)
 lvl3 = level_ops.Level(h3.finest, torch.float32, device="cpu")
 au = lvl3.apply(torch.ones((h3.finest.num_patches, 4, 4, 4)))
 assert au.shape == (h3.finest.num_patches, 4, 4, 4) and bool(torch.isfinite(au).all())
+assert h3.builder == ("native" if native.available() else "python")
+assert set(profiling.op_report(lvl3, reps=1)) == {"interpolate", "apply", "patch_solve", "smooth"}
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "pressurepoissonsolver_tpu")))
 assert not bad, bad
 print("ok")
