@@ -59,8 +59,22 @@ Phases, any failure of which raises and exits non-zero:
    1.5x, then ``utils.profiling.op_report``); the native table generator
    held equal to the Python builders on both bench meshes, with both
    builders' seconds and the bench's set-up seconds with each;
-7. print the kernel table, the card line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+7. the patch-sharded solve (``DomainHierarchy(num_shards=k)``,
+   ``PoissonSolver(mesh=make_mesh(k))``, the cut-face halo engine of
+   ``parallel.halo``), each part driven with the launch counts set to 0
+   just before it: (a) a world of one rank under NCCL in this process, the
+   2D bench through ``solve_refined`` and ``solve_schur(gmg)`` (phase 3's
+   counts and errors, and its solutions within 1e-8 of max|u|) and the 3D
+   bench; (b) a world of four ranks spawned on the one card under gloo
+   (NCCL refuses two ranks on one GPU; the exchanges are staged through
+   pinned host buffers), rendezvousing through a ``FileStore``: the 2D
+   bench and a small 3D mesh on every rank, held to the same counts and
+   errors, rank 0's gathered fields to phase 3's, aligned by patch id, the
+   padded patches exactly 0, ``0 < comm_rows <= cut faces``; a correctness
+   run, not a scaling one; (c) ``cli.main`` with ``--shards 1`` against
+   phase 5's ``--solver ir`` run; every stencil launch on the vector path;
+8. print the kernel table (its launches include phase 7's), the card
+   line, and last the result line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -629,6 +643,7 @@ def solve_bench_schur(torch, solver, f, exact, u_ir, gs, card):
     profile_solve(torch, card, "Schur profile",
                   lambda: solver.solve_schur(f, tol=1e-10, max_iter=60,
                                              preconditioner="gmg"))
+    return u
 
 
 def schur_small_3d(torch, port, gs, card):
@@ -748,10 +763,12 @@ def cli_bench(torch, port, cli, gs, timer, card, tmp):
     total = {(D, dt): 0 for D in (2, 3) for dt in ("float32", "float64")}
     runs = [(2, label, *spec) for label, spec in CLI_BENCH_2D.items()]
     runs.append((3, "3d-ir-bicgstab", *CLI_BENCH_3D))
+    outs = {}
     for D, label, flags, ref, error in runs:
         res = cli_run(torch, cli, gs, D, head[D] + flags + ["--out-json", js])
         check_cli_run(label, *res, ref, label in CLI_F64_RUNS, error,
                       CLI_RESIDUAL_LIMIT.get(label, 1e-10), card)
+        outs[label] = res[0]
         for dt, cnt in res[2].items():
             total[D, dt] += cnt
     for label in CLI_PROFILED:
@@ -765,6 +782,7 @@ def cli_bench(torch, port, cli, gs, timer, card, tmp):
         del run
     print(f"CLI full-width runs: stencil launches per (D, dtype) {total}", flush=True)
     assert all(total.values()), total
+    return head, outs
 
 
 def cli_small(torch, port, cli, gs, card, tmp):
@@ -1017,6 +1035,348 @@ def bench_phase(torch, port, gs, card, tmp, warm_f32_ms):
     print(f"bench phase {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# -- phase 7: the patch-sharded solve -----------------------------------------
+
+# the world spawned on the one card (NCCL refuses two ranks on one GPU, so
+# it runs under gloo, its exchanges staged through pinned host buffers)
+SHARDED_WORLD = 4
+# seconds the parent waits for the spawned world
+SHARDED_TIMEOUT = 300
+
+
+def sharded_setup(torch, port, D, base, corner, n, gmg, mesh, refine=True):
+    """A bench-style problem on ``mesh``: the tree ``refined_tree(D, base,
+    corner)`` (refined once with ``refine``) at patch size n, sharded over
+    the mesh's ranks; the solver and the global right-hand side and exact
+    solution."""
+    tree = port.refined_tree(D, base, corner)
+    if refine:
+        tree.refine_leaves()
+    hier = port.DomainHierarchy(tree, n=n, num_shards=mesh.size())
+    opts = port.SolveOptions(tol=1e-10, dtype=torch.float64,
+                             precond_dtype=torch.float32, gmg=gmg)
+    solver = port.PoissonSolver(hier, opts, mesh=mesh, device="cuda")
+    f, exact = port.init_problem(hier.finest, port.get_problem("trig", D))
+    return solver, f, exact
+
+
+def _rel_diff(u, ref) -> float:
+    return float(np.abs(u - ref).max() / np.abs(ref).max())
+
+
+def sharded_world1(torch, port, gs, card, u_ir, u_schur):
+    """Phase 7 (a): a world of one rank under NCCL, in this process, at
+    full width: the 2D bench through ``solve_refined`` and ``solve_schur``
+    (held to phase 3's counts, errors and solutions), then the 3D bench;
+    every stencil launch through the kernels' vector path.  The stencil
+    launches per dimension and dtype."""
+    import torch.distributed as dist
+
+    from pressurepoissonsolver_torch.parallel.sharding import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(1)
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    launches = {}
+    try:
+        mem0 = torch.cuda.memory_allocated()
+        solver, f, exact = sharded_setup(
+            torch, port, 2, 5, 2, 64, port.CycleOpts(
+                pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                coarse_direct_max_dof=4096), mesh)
+        op = solver._op
+        print(f"sharded world 1 (nccl) [{card}]: 2D bench, {op.P} patches, "
+              f"exchange offsets {op.exchange.offsets}, comm_rows {op.comm_rows}, "
+              f"host-staged {op.comm.host_staged}; setup {time.perf_counter() - t0:.3f} s, "
+              f"{(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB on the card",
+              flush=True)
+        u, info, rep, launches[2] = timed_solves(
+            torch, solver, f, exact, card, "sharded world 1 bench solve", gs, 2,
+            inner_tol=1e-4)
+        diff = _rel_diff(u.cpu().numpy(), u_ir)
+        print(f"sharded world 1 bench solve: launches per solve "
+              f"{ {k: v / 4 for k, v in launches[2].items()} }; max|u - u_phase3| / "
+              f"max|u_phase3| = {diff:.3e}", flush=True)
+        assert info["outer_iterations"] == 3 and 6 <= info["inner_iterations"] <= 8, info
+        assert rep["residual"] <= 1e-10, rep
+        assert abs(rep["error"] - BENCH_ERROR) <= 0.01 * BENCH_ERROR, rep
+        assert diff <= 1e-8, diff
+        assert all(launches[2].values()), launches[2]
+
+        gs.reset_launches()
+        times = []
+        for rep_i in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            u, res = solver.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
+            torch.cuda.synchronize()
+            if rep_i:
+                times.append(time.perf_counter() - t1)
+        schur_launches, widths = dict(gs.launches), dict(gs.widths[2])
+        rep = solver.report(u, f, exact)
+        diff = _rel_diff(u.cpu().numpy(), u_schur)
+        line = (f"sharded world 1 bench Schur solve [{card}]: iterations "
+                f"{res.iterations} residual {rep['residual']:.3e} error "
+                f"{rep['error']:.6e} best {min(times):.6f} s of "
+                f"{[round(t, 6) for t in times]}; launches per solve "
+                f"{ {k: v / 3 for k, v in schur_launches.items()} }, per elements "
+                f"per thread {widths}; max|u - u_phase3| / max|u_phase3| = {diff:.3e}")
+        print(line, flush=True)
+        assert abs(res.iterations - SCHUR_BENCH_ITERS) <= 1, line
+        assert rep["residual"] <= 1e-10, line
+        assert abs(rep["error"] - SCHUR_BENCH_ERROR) <= 0.01 * SCHUR_BENCH_ERROR, line
+        assert diff <= 1e-8, line
+        assert schur_launches["float32"] > 0 and widths[1] == 0, line
+        for k, v in schur_launches.items():
+            launches[2][k] += v
+        del solver, f, exact, u
+
+        solver, f, exact = sharded_setup(torch, port, 3, 3, 2, 32, port.CycleOpts(), mesh)
+        u, info, rep, launches[3] = timed_solves(
+            torch, solver, f, exact, card, "sharded world 1 3D bench solve", gs, 3)
+        print(f"sharded world 1 3D bench solve: launches per solve "
+              f"{ {k: v / 4 for k, v in launches[3].items()} }", flush=True)
+        assert info["outer_iterations"] == 2 and 6 <= info["inner_iterations"] <= 8, info
+        assert rep["residual"] <= 1e-10, rep
+        assert abs(rep["error"] - BENCH3D_ERROR) <= 0.01 * BENCH3D_ERROR, rep
+        assert all(launches[3].values()), launches[3]
+        del solver, f, exact, u
+    finally:
+        dist.destroy_process_group()
+    print(f"sharded world 1 phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def sharded_rank(rank, world, tmp):
+    """One rank of phase 7 (b), spawned: gloo over a ``FileStore`` in
+    ``tmp``, on ``cuda:0`` with the kernels phase 2 built.  The 2D bench
+    through ``solve_refined`` and ``solve_schur`` and the small 3D mesh
+    through ``solve_refined``; rank 0 checks the gathered fields against
+    phase 3's (aligned by patch id) and every rank writes its numbers to
+    ``tmp/rank<r>.json``.  Prints only lines that start with its rank."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from pressurepoissonsolver_torch.domain import DomainHierarchy
+    from pressurepoissonsolver_torch.geometry import refined_tree
+    from pressurepoissonsolver_torch.gmg import CycleOpts
+    from pressurepoissonsolver_torch.ops import ghost_stencil as gs
+    from pressurepoissonsolver_torch.parallel.sharding import gather_patches, make_mesh
+    from pressurepoissonsolver_torch.problems import get_problem, init_problem
+    from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
+
+    port = types.SimpleNamespace(
+        DomainHierarchy=DomainHierarchy, refined_tree=refined_tree,
+        CycleOpts=CycleOpts, get_problem=get_problem, init_problem=init_problem,
+        PoissonSolver=PoissonSolver, SolveOptions=SolveOptions)
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gs.build(2)
+    gs.build(3)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    out = {"rank": rank}
+
+    def say(text):
+        # one write per line: the ranks share the parent's output
+        sys.stdout.write(f"[rank {rank}] {text}\n")
+        sys.stdout.flush()
+
+    def timed(fn, reps=2):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            ret = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return ret, walls
+
+    try:
+        mesh = make_mesh(world)
+        t0 = time.perf_counter()
+        solver, f, exact = sharded_setup(
+            torch, port, 2, 5, 2, 64, CycleOpts(
+                pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                coarse_direct_max_dof=4096), mesh)
+        op = solver._op
+        out["setup_s"] = time.perf_counter() - t0
+        out["setup_mib"] = torch.cuda.memory_allocated() / 2**20
+        out["comm_rows"], out["offsets"] = op.comm_rows, list(op.exchange.offsets)
+        out["widths_rows"] = list(op.exchange.widths)
+        out["host_staged"] = op.comm.host_staged
+        out["backend"] = op.comm.backend
+        from pressurepoissonsolver_torch.parallel.partition import block_partition, cut_faces
+
+        out["cut_faces"] = cut_faces(op.pl, block_partition(op.P, world))
+        say(f"2D bench: {op.Pl} of {op.P} patches, backend {op.comm.backend}, "
+            f"host-staged exchange {op.comm.host_staged}, offsets {op.exchange.offsets} "
+            f"rows per offset {op.exchange.widths}, comm_rows {op.comm_rows} "
+            f"(cut faces {out['cut_faces']}), setup {out['setup_s']:.2f} s, "
+            f"{out['setup_mib']:.1f} MiB on the card")
+
+        gs.reset_launches()
+        (u, info), walls = timed(lambda: solver.solve_refined(f, tol=1e-10, inner_tol=1e-4))
+        out["ir"] = {"info": {k: v for k, v in info.items() if k != "outer_history"},
+                     "walls": walls, "launches": dict(gs.launches),
+                     "widths": dict(gs.widths[2]), "report": solver.report(u, f, exact)}
+        say(f"2D bench solve_refined: {info['outer_iterations']} / "
+            f"{info['inner_iterations']}, error {out['ir']['report']['error']:.6e}, "
+            f"walls {[round(w, 3) for w in walls]} s, stencil launches in the 2 solves "
+            f"{out['ir']['launches']}, per width {out['ir']['widths']}")
+        ug = gather_patches(u, mesh).cpu().numpy()
+
+        gs.reset_launches()
+        (us, res), walls = timed(lambda: solver.solve_schur(
+            f, tol=1e-10, max_iter=60, preconditioner="gmg"))
+        out["schur"] = {"iterations": res.iterations, "walls": walls,
+                        "launches": dict(gs.launches), "widths": dict(gs.widths[2]),
+                        "report": solver.report(us, f, exact)}
+        say(f"2D bench solve_schur(gmg): {res.iterations} iterations, error "
+            f"{out['schur']['report']['error']:.6e}, walls {[round(w, 3) for w in walls]} s,"
+            f" stencil launches in the 2 solves {out['schur']['launches']}")
+        usg = gather_patches(us, mesh).cpu().numpy()
+        if rank == 0:
+            ref = np.load(os.path.join(tmp, "phase3.npz"))
+            ids = op.pl.ids[: op.pl.real_patches]
+            order = np.argsort(ref["ids"])
+            pos = order[np.searchsorted(ref["ids"][order], ids)]
+            assert np.array_equal(ref["ids"][pos], ids)
+            nr = op.pl.real_patches
+            out["ir"]["diff"] = _rel_diff(ug[:nr], ref["u_ir"][pos])
+            out["schur"]["diff"] = _rel_diff(usg[:nr], ref["u_schur"][pos])
+            out["dummy_2d"] = [int(op.P - nr), float(np.abs(ug[nr:]).max(initial=0.0)),
+                               float(np.abs(usg[nr:]).max(initial=0.0))]
+        del solver, f, exact, u, us
+
+        gs.reset_launches()
+        solver, f, exact = sharded_setup(torch, port, 3, 3, 2, 8, CycleOpts(), mesh,
+                                         refine=False)
+        (u, info), walls = timed(lambda: solver.solve_refined(f, tol=1e-10), reps=1)
+        rep = solver.report(u, f, exact)
+        pl = solver.fine_level.pl
+        ug = gather_patches(u, mesh).cpu().numpy()
+        out["small3d"] = {"info": {k: v for k, v in info.items() if k != "outer_history"},
+                          "walls": walls, "report": rep,
+                          "launches": dict(gs.launches_3d), "widths": dict(gs.widths[3]),
+                          "comm_rows": solver._op.comm_rows,
+                          "dummy": [int(pl.num_patches - pl.real_patches),
+                                    float(np.abs(ug[pl.real_patches:]).max(initial=0.0))]}
+        say(f"small 3D (78 patches, n=8): {info['outer_iterations']} / "
+            f"{info['inner_iterations']}, error {rep['error']:.10e}, wall "
+            f"{walls[0]:.3f} s, 3D launches {out['small3d']['launches']}")
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+
+
+def sharded_world4(torch, hier_ids, u_ir, u_schur, card, tmp):
+    """Phase 7 (b): ``SHARDED_WORLD`` ranks spawned on the one card, each
+    held to the single-device counts and errors; any rank's failure fails
+    the phase.  The stencil launches summed over the ranks."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    wdir = os.path.join(tmp, "world")
+    os.makedirs(wdir)
+    np.savez(os.path.join(wdir, "phase3.npz"), ids=hier_ids, u_ir=u_ir, u_schur=u_schur)
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=sharded_rank, args=(r, SHARDED_WORLD, wdir))
+             for r in range(SHARDED_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARDED_TIMEOUT
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    assert codes == [0] * SHARDED_WORLD, f"the spawned world's exit codes: {codes}"
+    outs = [json.load(open(os.path.join(wdir, f"rank{r}.json")))
+            for r in range(SHARDED_WORLD)]
+    r0 = outs[0]
+    launches = {2: {"float32": 0, "float64": 0}, 3: {"float32": 0, "float64": 0}}
+    for o in outs:
+        assert o["backend"] == "gloo" and o["host_staged"], o
+        assert 0 < o["comm_rows"] <= o["cut_faces"], o
+        for key, D, err in (("ir", 2, BENCH_ERROR), ("small3d", 3, SMALL3D_ERROR)):
+            info, rep = o[key]["info"], o[key]["report"]
+            want = (3, 7) if D == 2 else (2, 7)
+            assert info["outer_iterations"] == want[0], (key, o["rank"], info)
+            assert abs(info["inner_iterations"] - want[1]) <= 1, (key, o["rank"], info)
+            assert rep["residual"] <= 1e-10, (key, rep)
+            tol = 0.01 if D == 2 else 1e-6
+            assert abs(rep["error"] - err) <= tol * err, (key, rep)
+            assert o[key]["widths"]["1"] == 0 and sum(o[key]["launches"].values()), o[key]
+            for dt, c in o[key]["launches"].items():
+                launches[D][dt] += c
+        assert abs(o["schur"]["iterations"] - SCHUR_BENCH_ITERS) <= 1, o["schur"]
+        assert o["schur"]["report"]["residual"] <= 1e-10, o["schur"]
+        assert abs(o["schur"]["report"]["error"] - SCHUR_BENCH_ERROR) <= 0.01 * SCHUR_BENCH_ERROR
+        assert o["schur"]["widths"]["1"] == 0 and o["schur"]["launches"]["float32"] > 0
+        for dt, c in o["schur"]["launches"].items():
+            launches[2][dt] += c
+        assert o["small3d"]["dummy"][0] > 0 and o["small3d"]["dummy"][1] == 0.0, o["small3d"]
+    assert r0["ir"]["diff"] <= 1e-8 and r0["schur"]["diff"] <= 1e-8, (r0["ir"], r0["schur"])
+    assert r0["dummy_2d"][1:] == [0.0, 0.0], r0["dummy_2d"]
+    print(f"sharded world {SHARDED_WORLD} (gloo, one card) [{card}]: counts and errors "
+          f"as phase 3 on every rank; rank 0: max|u - u_phase3| / max|u_phase3| IR "
+          f"{r0['ir']['diff']:.3e}, Schur {r0['schur']['diff']:.3e}; 2D dummy patches "
+          f"{r0['dummy_2d'][0]}, small 3D dummy patches {r0['small3d']['dummy'][0]} "
+          f"(exactly 0); comm_rows per rank {[o['comm_rows'] for o in outs]} (cut faces "
+          f"{r0['cut_faces']}), offsets {r0['offsets']}; MiB on the card after setup "
+          f"per rank {[round(o['setup_mib'], 1) for o in outs]}; IR walls per rank "
+          f"{[[round(w, 3) for w in o['ir']['walls']] for o in outs]} s; stencil "
+          f"launches of the world {launches}; phase {time.perf_counter() - t0:.1f} s "
+          f"(a correctness run: the ranks share one card)", flush=True)
+    return launches
+
+
+def sharded_cli(torch, cli, gs, card, head, phase5):
+    """Phase 7 (c): ``cli.main(2, <bench mesh> --solver ir --shards 1)``
+    in-process (a one-rank NCCL group of its own), held to phase 5's
+    ``--solver ir`` run."""
+    import torch.distributed as dist
+
+    js = os.path.join(os.path.dirname(head[1]), "shards1.json")
+    out, lines, launches, widths, other = cli_run(
+        torch, cli, gs, 2, head + ["--solver", "ir", "--shards", "1", "--out-json", js])
+    ref = phase5["ir"]
+    check_cli_run("ir --shards 1", out, lines, launches, widths, other, _counts(ref),
+                  False, ref["error"], 1e-10, card)
+    print(f"CLI ir --shards 1 against phase 5's ir run: iterations {_counts(out)} / "
+          f"{_counts(ref)}, error {out['error']:.13e} / {ref['error']:.13e} "
+          f"(relative difference {abs(out['error'] - ref['error']) / ref['error']:.3e})",
+          flush=True)
+    assert _counts(out) == _counts(ref), (out, ref)
+    assert abs(out["error"] - ref["error"]) <= 1e-4 * ref["error"], (out, ref)
+    assert not dist.is_initialized()
+    return launches
+
+
+def sharded_phase(torch, port, cli, gs, card, tmp, u_ir, u_schur, hier_ids, head, phase5):
+    """Phase 7: the patch-sharded solve (a), (b), (c); the stencil launches
+    of the phase per dimension and dtype."""
+    t0 = time.perf_counter()
+    launches = sharded_world1(torch, port, gs, card, u_ir, u_schur)
+    for D, per in sharded_world4(torch, hier_ids, u_ir, u_schur, card, tmp).items():
+        for dt, c in per.items():
+            launches[D][dt] += c
+    for dt, c in sharded_cli(torch, cli, gs, card, head[2], phase5).items():
+        launches[2][dt] += c
+    print(f"sharded phase {time.perf_counter() - t0:.1f} s; stencil launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def build_kernels(gs, cuda_build) -> None:
     """Phase 2: one nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -1077,8 +1437,11 @@ def main() -> None:
     # the Schur path of bench.py on the same solver
     check_identity(torch, solver, gs, card)
     schur_small(torch, port, gs, card)
-    solve_bench_schur(torch, solver, f, exact, u_ir, gs, card)
-    del solver, f, exact, u_ir
+    u_schur = solve_bench_schur(torch, solver, f, exact, u_ir, gs, card)
+    # phase 7 holds the sharded solves to these
+    phase3 = dict(hier_ids=solver.fine_level.pl.ids.copy(), u_ir=u_ir.cpu().numpy(),
+                  u_schur=u_schur.cpu().numpy())
+    del solver, f, exact, u_ir, u_schur
 
     # phase 4: 3D, the defaults of scripts/bench3d.py
     solver, f, exact, setup_s = setup_bench(torch, port, card, 3, 3, 2, 32, CycleOpts())
@@ -1093,14 +1456,22 @@ def main() -> None:
     # phase 5: the command-line apps, in-process
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        cli_bench(torch, port, cli, gs, timer, card, tmp)
+        head, phase5 = cli_bench(torch, port, cli, gs, timer, card, tmp)
         cli_small(torch, port, cli, gs, card, tmp)
         print(f"CLI phase {time.perf_counter() - t0:.1f} s", flush=True)
 
         # phase 6: the bench scripts, the op report, the native tables
         bench_phase(torch, port, gs, card, tmp, tables[2]["float32"]["warm_ms"])
 
-    # phase 7
+        # phase 7: the patch-sharded solve, each part driven with the
+        # launch counts set to 0 just before it and read just after
+        sharded = sharded_phase(torch, port, cli, gs, card, tmp, head=head,
+                                phase5=phase5, **phase3)
+        for D in (2, 3):
+            for name, cnt in sharded[D].items():
+                launches[D][name] += cnt
+
+    # phase 8
     kernels = [
         {
             "name": f"ghost_stencil_{D}d_{name}",

@@ -270,12 +270,26 @@ class DomainHierarchy:
     ``prebuilt_iface_tables`` (consumed by ``ops.level_ops.Level``);
     otherwise, and for a callable Neumann spec, from the pure-Python
     builders :func:`extract_level` and ``iface.build_iface_tables``, which
-    give the same tables.  ``builder`` records which one ran."""
+    give the same tables.  ``builder`` records which one ran.
 
-    def __init__(self, tree: Tree, n: int, neumann=False, use_native: bool = True):
+    ``num_shards > 1`` prepares every level for patch-axis sharding over
+    that many ranks: the patch slots are reordered along the Morton curve
+    (``partition="morton"``, the only method; :mod:`.parallel.partition`, the
+    static replacement of the reference's Zoltan balancing; a parent's
+    Morton key prefixes its children's, so parents land near their
+    children), and every level is padded with isolated dummy patches to a
+    multiple of ``num_shards`` (``parallel.sharding.pad_level``)."""
+
+    def __init__(self, tree: Tree, n: int, neumann=False, use_native: bool = True,
+                 num_shards: int = 1, partition: str = "morton"):
+        if partition != "morton":
+            raise ValueError(f"partition={partition!r}: only 'morton'")
+        if num_shards < 1:
+            raise ValueError(f"num_shards={num_shards}: at least 1")
         self.tree = tree
         self.n = n
         self.neumann = neumann
+        self.num_shards = num_shards
         self.levels: List[PatchLevel] = []
         #: per-level prebuilt interface tables (None from the Python builder)
         self.iface_tables: List[Optional[object]] = []
@@ -297,6 +311,8 @@ class DomainHierarchy:
                 # interface tables do not depend on the walls: post-fix them
                 pl, tables = native.build_level_native(tree, lvl, n, False)
                 pl.neumann = (pl.nbr_type == NBR_NONE) & nm[None, :]
+            if num_shards > 1:
+                pl, tables = _shard_level(pl, tables, num_shards)
             pl.prebuilt_iface_tables = tables
             self.levels.append(pl)
             self.iface_tables.append(tables)
@@ -310,6 +326,23 @@ class DomainHierarchy:
 
     def __getitem__(self, i: int) -> PatchLevel:
         return self.levels[i]
+
+
+def _shard_level(pl: PatchLevel, tables, num_shards: int):
+    """One level's tables Morton-ordered and padded
+    to a multiple of ``num_shards`` (see :class:`DomainHierarchy`)."""
+    from . import iface as iface_mod
+    from .parallel.partition import morton_order, reorder_level
+    from .parallel.sharding import pad_level
+
+    perm = morton_order(pl)
+    pl = reorder_level(pl, perm)
+    if tables is not None:
+        tables = iface_mod.permute_tables(tables, perm)
+    pl = pad_level(pl, num_shards)
+    if tables is not None:
+        tables = iface_mod.pad_tables(tables, pl.num_patches)
+    return pl, tables
 
 
 def parent_slots(fine: PatchLevel, coarse: PatchLevel) -> np.ndarray:

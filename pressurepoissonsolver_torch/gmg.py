@@ -17,6 +17,15 @@ matmuls:
 The cycles mirror ``GMG::VCycle``/``GMG::WCycle`` (``GMG/VCycle.h:44-60``,
 ``GMG/WCycle.h:42-67``) with FAC active-set smoothing on the coarse levels
 and a dense direct solve at the bottom.
+
+With a mesh (``build_gmg(..., mesh=)``) every level, transfer and
+active-set smoother is the halo engine's (:mod:`.parallel.halo`) and works
+on this rank's block of rows; the coarse direct solve all-gathers the
+coarsest right-hand side, multiplies it by the replicated inverse and keeps
+this rank's rows.  The reference first builds masked full sweeps for its
+sharded levels and then upgrades them (``attach_sharded_active``); the
+masked form serves only its ``comm="pjit"`` engine, which is not ported,
+so here the cycle builds the per-rank subset smoothers at once.
 """
 
 from __future__ import annotations
@@ -292,13 +301,12 @@ class GMGCycle:
                 if not mask.any():
                     self._skip[k] = True
                     continue
-                self._asmooth[k] = ActiveSmoother(levels[k], mask)
                 # residual apply on nbr(active) only: after active-set
                 # smoothing u vanishes off the active set, so every
                 # nonzero row of A u lies within one ring of it
-                self._aapply[k] = ActiveSmoother(
-                    levels[k], _expand_ring(levels[k].pl, mask, 1), build_solver=False
-                )
+                self._asmooth[k] = levels[k].active_smoother(mask)
+                self._aapply[k] = levels[k].active_smoother(
+                    _expand_ring(levels[k].pl, mask, 1), build_solver=False)
 
     def _build_coarse_direct(self) -> None:
         from .matrix import assemble_composite
@@ -326,8 +334,9 @@ class GMGCycle:
         opts = self.opts
         if k == len(self.levels) - 1:
             if self._coarse_inv is not None:
-                sol = torch.mv(self._coarse_inv.to(f.dtype), f.reshape(-1))
-                return sol.reshape(f.shape)
+                fg = lvl.gather(f)
+                sol = torch.mv(self._coarse_inv.to(f.dtype), fg.reshape(-1))
+                return lvl.local_rows(sol.reshape(fg.shape))
             if opts.coarse_sweeps <= 0:
                 return torch.zeros_like(f)
             u = lvl.smooth_zero(f)
@@ -389,23 +398,30 @@ def build_gmg(
     dtype: torch.dtype = torch.float64,
     *,
     device="cuda",
-    fine: Optional[Level] = None,
+    fine=None,
+    mesh=None,
 ) -> GMGCycle:
     """Build the level stack + transfers (reference
     ``GMG::CycleFactory2d::getCycle``, ``GMG/CycleFactory2d.cpp:69-134``):
-    stop adding levels when ``max_levels`` is reached or the coarsest level
-    is small enough for the direct solve.  ``fine`` reuses an existing
-    finest level of the same dtype."""
+    stop adding levels when ``max_levels`` is reached, the patch count per
+    shard falls below ``patches_per_shard``, or the coarsest level is small
+    enough for the direct solve.  ``fine`` reuses an existing finest level
+    of the same dtype (a ``ShardedLevel`` with a mesh).  With ``mesh`` every
+    level and transfer runs patch-sharded through the halo engine on this
+    rank's ``device``; the global levels behind them are built on the host,
+    and only this rank's rows and tables go to the device."""
     opts = opts or CycleOpts()
+    num_shards = 1 if mesh is None else mesh.size()
+    host = device if mesh is None else torch.device("cpu")
     if fine is None:
-        fine = Level(hierarchy[0], dtype=dtype, device=device)
+        fine = Level(hierarchy[0], dtype=dtype, device=host)
     levels: List[Level] = [fine]
     transfers: List[Transfer] = []
     for k in range(1, len(hierarchy)):
         if opts.max_levels > 0 and len(levels) >= opts.max_levels:
             break
         pl = hierarchy[k]
-        if pl.num_patches < opts.patches_per_shard:
+        if pl.num_patches / num_shards < opts.patches_per_shard:
             break
         if (
             opts.coarse_direct
@@ -413,7 +429,15 @@ def build_gmg(
             <= opts.coarse_direct_max_dof
         ):
             break  # current coarsest is small enough for a direct solve
-        lvl = Level(pl, dtype=dtype, device=device)
-        transfers.append(Transfer(levels[-1], lvl, prolong_mode=opts.interpolator))
+        lvl = Level(pl, dtype=dtype, device=host)
+        transfers.append(Transfer(getattr(levels[-1], "base", levels[-1]), lvl,
+                                  prolong_mode=opts.interpolator))
         levels.append(lvl)
+    if mesh is not None:
+        from .parallel.halo import ShardedLevel, ShardedTransfer
+
+        levels = [lvl if isinstance(lvl, ShardedLevel) else ShardedLevel(lvl, mesh, device)
+                  for lvl in levels]
+        transfers = [ShardedTransfer(t, levels[k], levels[k + 1])
+                     for k, t in enumerate(transfers)]
     return GMGCycle(levels, transfers, opts)

@@ -195,6 +195,54 @@ class IfaceTables:
     face_depth: int = 1
 
 
+def permute_tables(t: "IfaceTables", perm: np.ndarray) -> "IfaceTables":
+    """Re-slot interface tables after a patch-slot permutation
+    (``parallel.partition.reorder_level``): patch-indexed rows permute,
+    contribution patch ids remap, interface ids are slot-independent."""
+    inv = np.empty(len(perm), dtype=np.int64)
+    inv[perm] = np.arange(len(perm))
+    return IfaceTables(
+        num_ifaces=t.num_ifaces,
+        m=t.m,
+        iface_side_idx=t.iface_side_idx[perm],
+        iface_side_mask=t.iface_side_mask[perm],
+        contrib_patch=inv[t.contrib_patch].astype(np.int32),
+        contrib_side=t.contrib_side,
+        contrib_iface=t.contrib_iface,
+        contrib_case=t.contrib_case,
+        case_w=t.case_w,
+        case_src=t.case_src,
+        face_depth=t.face_depth,
+    )
+
+
+def pad_tables(t: "IfaceTables", num_patches: int) -> "IfaceTables":
+    """Extend the patch-indexed rows for padded dummy patches (no
+    interfaces, no contributions)."""
+    P_now = t.iface_side_idx.shape[0]
+    pad = num_patches - P_now
+    if pad <= 0:
+        return t
+    S = t.iface_side_idx.shape[1]
+    return IfaceTables(
+        num_ifaces=t.num_ifaces,
+        m=t.m,
+        iface_side_idx=np.concatenate(
+            [t.iface_side_idx, np.zeros((pad, S), dtype=t.iface_side_idx.dtype)]
+        ),
+        iface_side_mask=np.concatenate(
+            [t.iface_side_mask, np.zeros((pad, S), dtype=bool)]
+        ),
+        contrib_patch=t.contrib_patch,
+        contrib_side=t.contrib_side,
+        contrib_iface=t.contrib_iface,
+        contrib_case=t.contrib_case,
+        case_w=t.case_w,
+        case_src=t.case_src,
+        face_depth=t.face_depth,
+    )
+
+
 def quadratic2d_templates(n: int):
     """Case templates of the reference's higher-order 2D refinement
     closures (``StencilHelper2d.h:222-224,344-346``, used by the 2D

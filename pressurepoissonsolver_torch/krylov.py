@@ -28,14 +28,19 @@ import scipy.linalg
 import torch
 
 Op = Callable[[torch.Tensor], torch.Tensor]
+#: a reduction hook: the sum of a rank-local partial over the solver's
+#: process group (``parallel.sharding.Comm.all_reduce``); ``None`` on one
+#: device, where no collective is made
+Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+def _dot(a: torch.Tensor, b: torch.Tensor, allreduce: Reduce = None) -> torch.Tensor:
+    d = torch.dot(a.reshape(-1), b.reshape(-1))
+    return d if allreduce is None else allreduce(d)
 
 
-def _norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(_dot(a, a))
+def _norm(a: torch.Tensor, allreduce: Reduce = None) -> torch.Tensor:
+    return torch.sqrt(_dot(a, a, allreduce))
 
 
 def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -61,28 +66,31 @@ class BiCGStabState(NamedTuple):
     rhat: torch.Tensor
 
 
-def bicgstab_init(A: Op, b: torch.Tensor, x0: Optional[torch.Tensor] = None):
+def bicgstab_init(A: Op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
+                  allreduce: Reduce = None):
     """Initial state and ``||r0||``."""
     if x0 is None:
         x, r = torch.zeros_like(b), b  # b - A(0) = b
     else:
         x, r = x0, b - A(x0)
-    return BiCGStabState(x=x, r=r, p=r, rho=_dot(r, r), rhat=r), _norm(r)
+    return (BiCGStabState(x=x, r=r, p=r, rho=_dot(r, r, allreduce), rhat=r),
+            _norm(r, allreduce))
 
 
-def bicgstab_step(A: Op, M: Optional[Op], st: BiCGStabState) -> BiCGStabState:
+def bicgstab_step(A: Op, M: Optional[Op], st: BiCGStabState,
+                  allreduce: Reduce = None) -> BiCGStabState:
     """One BiCGStab iteration; launches device work only (no host read)."""
     x, r, p, rho, rhat = st
     mp = p if M is None else M(p)
     ap = A(mp)
-    alpha = _safe_div(rho, _dot(rhat, ap))
+    alpha = _safe_div(rho, _dot(rhat, ap, allreduce))
     s = r - alpha * ap
     ms = s if M is None else M(s)
     as_ = A(ms)
-    omega = _safe_div(_dot(as_, s), _dot(as_, as_))
+    omega = _safe_div(_dot(as_, s, allreduce), _dot(as_, as_, allreduce))
     x = x + alpha * mp + omega * ms
     r = r - alpha * ap - omega * as_
-    rho_new = _dot(r, rhat)
+    rho_new = _dot(r, rhat, allreduce)
     beta = _safe_div(rho_new * alpha, rho * omega)
     p = beta * (p - omega * ap) + r
     return BiCGStabState(x=x, r=r, p=p, rho=rho_new, rhat=rhat)
@@ -95,19 +103,22 @@ def bicgstab(
     M: Optional[Op] = None,
     tol: float = 1e-12,
     max_iter: int = 1000,
+    allreduce: Reduce = None,
 ) -> KrylovResult:
     """Right-preconditioned BiCGStab (``BiCGStab.h:45-106``).
 
     The stop test compares in the working dtype, as the reference does; a
-    zero initial residual gives ``nan > tol`` = False and stops at once."""
-    st, r0_norm = bicgstab_init(A, b, x0)
+    zero initial residual gives ``nan > tol`` = False and stops at once.
+    ``allreduce`` (every solver here takes it) sums each dot over the
+    ranks of a sharded solve."""
+    st, r0_norm = bicgstab_init(A, b, x0, allreduce)
     k = 0
     while k < max_iter:
-        if not bool((_norm(st.r) / r0_norm > tol).item()):
+        if not bool((_norm(st.r, allreduce) / r0_norm > tol).item()):
             break
-        st = bicgstab_step(A, M, st)
+        st = bicgstab_step(A, M, st, allreduce)
         k += 1
-    return KrylovResult(x=st.x, iterations=k, residual_norm=_norm(st.r),
+    return KrylovResult(x=st.x, iterations=k, residual_norm=_norm(st.r, allreduce),
                         r0_norm=r0_norm)
 
 
@@ -122,6 +133,7 @@ def residual_history(
     M: Optional[Op] = None,
     tol: float = 1e-12,
     max_iter: int = 100,
+    allreduce: Reduce = None,
 ) -> Tuple[KrylovResult, np.ndarray]:
     """BiCGStab with a per-iteration residual-norm history (the
     ``--monitor`` hook; the reference's BiCGStab reports only the final
@@ -129,27 +141,28 @@ def residual_history(
     ``k``, ``hist[0] = ||r0||``, up to the count.  The stop test is
     ``||r|| / ||r0|| <= tol`` after each iteration, in the working dtype;
     the count is ``max_iter`` when it never holds."""
-    st, r0_norm = bicgstab_init(A, b)
+    st, r0_norm = bicgstab_init(A, b, allreduce=allreduce)
     r0 = _host_scalar(r0_norm)
     hist = [r0]
     k = 0
     while k < max_iter:
-        st = bicgstab_step(A, M, st)
+        st = bicgstab_step(A, M, st, allreduce)
         k += 1
-        rn = _host_scalar(_norm(st.r))
+        rn = _host_scalar(_norm(st.r, allreduce))
         hist.append(rn)
         if rn / r0 <= tol:
             break
-    return (KrylovResult(x=st.x, iterations=k, residual_norm=_norm(st.r),
+    return (KrylovResult(x=st.x, iterations=k, residual_norm=_norm(st.r, allreduce),
                          r0_norm=r0_norm), np.asarray(hist))
 
 
-def _weighted_dot(weight: Optional[torch.Tensor], dtype: torch.dtype):
+def _weighted_dot(weight: Optional[torch.Tensor], dtype: torch.dtype,
+                  allreduce: Reduce = None):
     """``<a, c>_w = sum(w * a * c)``, or the plain dot without a weight."""
     if weight is None:
-        return _dot
+        return lambda a, c: _dot(a, c, allreduce)
     w = weight.to(dtype)
-    return lambda a, c: _dot(a * w, c)
+    return lambda a, c: _dot(a * w, c, allreduce)
 
 
 def cg(
@@ -160,6 +173,7 @@ def cg(
     tol: float = 1e-12,
     max_iter: int = 1000,
     weight: Optional[torch.Tensor] = None,
+    allreduce: Reduce = None,
 ) -> KrylovResult:
     """Preconditioned conjugate gradient.
 
@@ -173,7 +187,7 @@ def cg(
     The stop test ``<r, r>_w / <r0, r0>_w > tol^2`` runs in the working
     dtype, ``tol^2`` squared in it, as in the reference; no breakdown
     guard, as in the reference."""
-    wdot = _weighted_dot(weight, b.dtype)
+    wdot = _weighted_dot(weight, b.dtype, allreduce)
     if x0 is None:
         x, r = torch.zeros_like(b), b  # b - A(0) = b
     else:
@@ -208,12 +222,13 @@ def cg_history(
     tol: float = 1e-12,
     max_iter: int = 100,
     weight: Optional[torch.Tensor] = None,
+    allreduce: Reduce = None,
 ) -> Tuple[KrylovResult, np.ndarray]:
     """Preconditioned CG with a per-iteration residual-norm history (see
     ``residual_history``): the norms are the weighted ones when ``weight``
     is given, and the divisions are guarded against a zero denominator, as
     in the reference's monitored CG."""
-    wdot = _weighted_dot(weight, b.dtype)
+    wdot = _weighted_dot(weight, b.dtype, allreduce)
     x, r = torch.zeros_like(b), b  # b - A(0) = b
     r0_norm = torch.sqrt(wdot(r, r))
     r0 = _host_scalar(r0_norm)
@@ -247,6 +262,7 @@ def richardson(
     M: Optional[Op] = None,
     tol: float = 1e-12,
     max_iter: int = 100,
+    allreduce: Reduce = None,
 ) -> KrylovResult:
     """Preconditioned Richardson iteration ``x += M(b - A x)``: with a
     multigrid preconditioner, plain multigrid iteration.  Each step costs
@@ -256,15 +272,16 @@ def richardson(
         x, r = torch.zeros_like(b), b
     else:
         x, r = x0, b - A(x0)
-    r0_norm = _norm(r)
+    r0_norm = _norm(r, allreduce)
     k = 0
     while k < max_iter:
-        if not bool((_norm(r) / r0_norm > tol).item()):
+        if not bool((_norm(r, allreduce) / r0_norm > tol).item()):
             break
         x = x + (r if M is None else M(r))
         r = b - A(x)
         k += 1
-    return KrylovResult(x=x, iterations=k, residual_norm=_norm(r), r0_norm=r0_norm)
+    return KrylovResult(x=x, iterations=k, residual_norm=_norm(r, allreduce),
+                        r0_norm=r0_norm)
 
 
 def gmres(
@@ -276,6 +293,7 @@ def gmres(
     restart: int = 30,
     max_iter: int = 1000,
     history: bool = False,
+    allreduce: Reduce = None,
 ):
     """Right-preconditioned restarted GMRES(restart): Arnoldi with two-pass
     modified Gram-Schmidt, Givens rotations, and the true residual checked
@@ -311,7 +329,7 @@ def gmres(
     else:
         x = x0.reshape(-1)
         r = bf - Af(x)
-    r0_norm = _norm(r)
+    r0_norm = _norm(r, allreduce)
     rnorm = r0_norm
     r0 = hdt(r0_norm.item())
     # tolerance on ||r||/||r0||, as bicgstab's
@@ -337,10 +355,14 @@ def gmres(
                 w = Af(Mf(V[j]))
                 Vj = V[: j + 1]
                 h1 = Vj @ w
+                if allreduce is not None:
+                    h1 = allreduce(h1)
                 w = w - Vj.t() @ h1
                 h2 = Vj @ w
+                if allreduce is not None:
+                    h2 = allreduce(h2)
                 w = w - Vj.t() @ h2
-                wnorm = _norm(w)
+                wnorm = _norm(w, allreduce)
                 # the one host read of the step: the new column and ||w||
                 col = torch.cat([h1 + h2, wnorm.reshape(1)]).cpu().numpy()
                 h = np.zeros(restart + 1, dtype=hdt)
@@ -382,7 +404,7 @@ def gmres(
             # the next cycle's r)
             x_new = x + Mf(dx)
             r_new = bf - Af(x_new)
-            rnorm_new = _norm(r_new)
+            rnorm_new = _norm(r_new, allreduce)
             rn_new = hdt(rnorm_new.item())
             # reject a non-finite update: keep the last good iterate;
             # ``it`` still advances, so the loop ends at max_iter

@@ -291,11 +291,15 @@ def _isolated_patches(pl: PatchLevel, slots: np.ndarray) -> PatchLevel:
     )
 
 
-def schur_block_jacobi(level, A_S: sp.csr_matrix = None):
+def schur_block_jacobi(level, A_S: sp.csr_matrix = None, engine=None):
     """Block-Jacobi preconditioner for the interface system: the inverses
     of the m×m diagonal blocks of ``I - S`` (the reference's ``PBMatrix``
     ``getDiagInv`` + ``BlockJacobiSmoother``, ``Experimental/PBMatrix.cpp``),
-    applied as one batched matmul on ``level``'s device."""
+    applied as one batched matmul on ``level``'s device.
+
+    ``engine`` (optional): a halo ``ShardedLevel`` of ``level``; the
+    inverse blocks are then this rank's block of its owner-sharded gamma
+    layout (identity blocks on the padding rows), on the engine's device."""
     if A_S is None:
         A_S = assemble_schur(level)
     m = level.m
@@ -306,7 +310,13 @@ def schur_block_jacobi(level, A_S: sp.csr_matrix = None):
     same = (ri // m) == (ci // m)
     # accumulated in entry order, as a loop over the entries would
     np.add.at(blocks, (ri[same] // m, ri[same] % m, ci[same] % m), v[same])
-    binv = torch.as_tensor(np.linalg.inv(blocks), dtype=level.dtype, device=level.device)
+    binv = np.linalg.inv(blocks)
+    if engine is not None:
+        owned = engine._owned_ids[engine.me]
+        arr = np.tile(np.eye(m), (max(engine.NOg, 1), 1, 1))
+        arr[: len(owned)] = binv[owned]
+        binv = arr
+    binv = torch.as_tensor(binv, dtype=level.dtype, device=(engine or level).device)
 
     def M(gamma):
         return torch.bmm(binv, gamma.unsqueeze(-1)).squeeze(-1)

@@ -266,16 +266,22 @@ class _ContribPipeline:
     def interpolate(self, faces: torch.Tensor, m: int) -> torch.Tensor:
         """gamma[NIf, m] from per-patch face traces [P, 2D*depth, m]."""
         P, S2f = faces.shape[0], faces.shape[1]
-        ffp = torch.cat([faces.reshape(P * S2f, m), faces.new_zeros(1, m)], dim=0)
+        return self.interpolate_rows(
+            torch.cat([faces.reshape(P * S2f, m), faces.new_zeros(1, m)], dim=0))
+
+    def interpolate_rows(self, ffp: torch.Tensor) -> torch.Tensor:
+        """gamma[NIf, m] from the flat source rows ``ffp [R+1, m]`` whose
+        last row is zero (the pad row every table pads to)."""
+        m = ffp.shape[1]
         gs = ffp.index_select(0, self.idx_s).reshape(self.num_ifaces, self.Ks, m)
-        gamma = (gs * self.w_s.to(faces.dtype)).sum(dim=1)
+        gamma = (gs * self.w_s.to(ffp.dtype)).sum(dim=1)
         if self.idx_m is not None:
             # all case templates in ONE [Cm, m] @ [m, ncase*m] matmul; the
             # per-row case selection is folded into the gather (row r,
             # case k -> r*ncase + k); the last idx_m entry reads the zero
             # face row, so row Cm*ncase is a guaranteed-zero pad
             gm = ffp.index_select(0, self.idx_m)  # [Cm+1, m]
-            vals = torch.matmul(gm, self.mm_W.to(faces.dtype)).reshape(
+            vals = torch.matmul(gm, self.mm_W.to(ffp.dtype)).reshape(
                 gm.shape[0] * self.mm_ncase, m)
             sums = vals.index_select(0, self.mm_gather).reshape(-1, self.Km, m).sum(dim=1)
             sp = torch.cat([sums, sums.new_zeros(1, m)], dim=0)
@@ -659,6 +665,20 @@ class Level:
     def zeros(self) -> torch.Tensor:
         return torch.zeros((self.P,) + self.pl.ns_shape, dtype=self.dtype,
                            device=self.device)
+
+    # -- the engine hooks a sharded level (``parallel.halo``) overrides -------
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global field: ``x`` itself on one device."""
+        return x
+
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This device's rows of a global field: all of ``x``."""
+        return x
+
+    def active_smoother(self, active: np.ndarray, build_solver: bool = True):
+        """The FAC active-set smoother of this level over ``active``."""
+        return ActiveSmoother(self, active, build_solver=build_solver)
 
 
 class ActiveSmoother:

@@ -13,8 +13,11 @@ n=16), ``PPS_PROFILE_N`` (default 16), ``PPS_PROFILE_DTYPE`` (``f32``
 skips the f64 rows), ``PPS_PROFILE_OUT`` (write the report as JSON),
 ``PPS_PROFILE_HBM_FORCE`` (add ``<op>_hbm`` rows whose inputs rotate
 through copies beyond the L2), ``PPS_BENCH_MESH`` (the 2D mesh file, as
-for ``bench``).  ``PPS_PROFILE_HALO`` (the sharded halo engine) raises:
-multi-device is not ported.
+for ``bench``), ``PPS_PROFILE_HALO`` (add the f32 rows of the sharded
+halo engine on a one-rank mesh, ``halo_ndev1_f32``: the exchange-buffer
+pipeline of the multi-device path with no peer, so that the sharded ops
+have a measured one-card cost; the group it starts, if none is running,
+ends with it).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..bench import bench_tree
 from ..domain import DomainHierarchy
@@ -86,10 +90,31 @@ def level_breakdown(lvl: Level, reps: int = 500, light: bool = False) -> dict:
     return out
 
 
+def halo_rows(h: DomainHierarchy, device, bw: float) -> dict:
+    """``apply``, ``smooth`` and ``interpolate`` of the f32 halo engine
+    (``parallel.halo.ShardedLevel``) on a one-rank mesh."""
+    from ..parallel.halo import ShardedLevel
+    from ..parallel.sharding import make_mesh
+
+    own = not dist.is_initialized()
+    mesh = make_mesh(1)
+    try:
+        sl = ShardedLevel(Level(h.finest, dtype=torch.float32, device="cpu"), mesh,
+                          device)
+        u = sl.local_rows(profiling.random_field(sl, np.random.default_rng(0)))
+        field = u.numel() * u.element_size()
+        return {name: profiling.timed_row(fn, (u,), nbytes, bw, 200)
+                for name, fn, nbytes in (
+                    ("apply", sl.apply, 2 * field),
+                    ("smooth", lambda x: sl.smooth(x, x), 3 * field),
+                    ("interpolate", sl.interpolate, field))}
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
 def main(device="cuda") -> dict:
     """Print (and with ``PPS_PROFILE_OUT`` write) the report; return it."""
-    if os.environ.get("PPS_PROFILE_HALO"):
-        raise NotImplementedError("PPS_PROFILE_HALO: multi-device is not ported")
     device = torch.device(device)
     divide = int(os.environ.get("PPS_PROFILE_DIVIDE", "3"))
     n = int(os.environ.get("PPS_PROFILE_N", "16"))
@@ -140,6 +165,11 @@ def main(device="cuda") -> dict:
         for k, v in rep.items():
             print(f"  {k:18s} {v}", flush=True)
         report[name] = rep
+        dump()
+    if os.environ.get("PPS_PROFILE_HALO"):
+        report["halo_ndev1_f32"] = halo_rows(h, device, bw)
+        for k, v in report["halo_ndev1_f32"].items():
+            print(f"  halo.{k:13s} {v}", flush=True)
         dump()
     if out_path:
         print(f"wrote {out_path}", flush=True)

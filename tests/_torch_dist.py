@@ -1,0 +1,324 @@
+"""Spawned ``torch.distributed`` worlds for the sharded parity tests.
+
+A test module starts its world once (:class:`World`): ``k`` processes
+from the ``spawn`` context, each on the CPU under gloo, rendezvousing
+through a ``FileStore`` in the test's temporary directory.  Each rank runs
+one battery of this module on the same inputs (made from numpy seeds) and
+pickles what it returns; the parent reads the results and the test
+functions assert on them.  This module and the batteries import torch,
+numpy and the port only: no JAX, so the children never start it.
+"""
+
+import contextlib
+import io
+import json
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+# per rank, how long the parent waits for the world (s)
+TIMEOUT = 240
+
+
+def _child(rank, world, tmp, battery, kw):
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        from pressurepoissonsolver_torch.parallel.sharding import make_mesh
+
+        mesh = make_mesh(world)
+        out = BATTERIES[battery](mesh, tmp, **kw)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+
+
+class World:
+    """``battery(mesh, tmp, **kw)`` started on ``world`` spawned gloo
+    ranks; :meth:`wait` returns every rank's result, in rank order, and
+    raises when a rank fails or the world hangs.  The parent is free to
+    work (the reference's side) until it waits."""
+
+    def __init__(self, world, tmp, battery, **kw):
+        self.world, self.tmp = world, str(tmp)
+        ctx = mp.get_context("spawn")
+        self.procs = [ctx.Process(target=_child, args=(r, world, self.tmp, battery, kw))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def close(self):
+        """Kill the ranks still running; the processes that were."""
+        alive = [p for p in self.procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+        return alive
+
+    def wait(self):
+        for p in self.procs:
+            p.join(TIMEOUT)
+        alive = self.close()
+        codes = [p.exitcode for p in self.procs]
+        if alive or any(codes):
+            raise RuntimeError(f"world of {self.world}: exit codes {codes}")
+        out = []
+        for r in range(self.world):
+            with open(os.path.join(self.tmp, f"rank{r}.pkl"), "rb") as fh:
+                out.append(pickle.load(fh))
+        return out
+
+
+def run_world(world, tmp, battery, **kw):
+    """:class:`World` ``(world, tmp, battery, **kw).wait()``."""
+    return World(world, tmp, battery, **kw).wait()
+
+
+def trees():
+    """The small meshes of the batteries (built in code)."""
+    from pressurepoissonsolver_torch.geometry import refined_tree
+
+    return {"2d": refined_tree(2, 3, 1), "3d": refined_tree(3, 2, 1),
+            "2d-deep": refined_tree(2, 4, 2)}
+
+
+def field(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape)
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def _tables(sl):
+    """The host tables of a ShardedLevel the reference also has."""
+    ex = {name: {"offsets": list(e.offsets), "widths": list(e.widths),
+                 "comm_rows": e.comm_rows, "buf_rows": e.buf_rows,
+                 "send_tbl": [t.copy() for t in e.send_tbl]}
+          for name, e in (("faces", sl.exchange), ("gamma", sl.ex_gamma))}
+    return {"exchange": ex, "owned_ids": sl._owned_ids, "NOg": sl.NOg, "NIg": sl.NIg,
+            "NRg": sl.NRg, "comm_rows": sl.comm_rows,
+            **{k: getattr(sl, k).copy() for k in (
+                "_own_pos", "_gifidx", "_ifidx", "_imask", "_gfsrc", "_gfw_own",
+                "_gfw_mix")}}
+
+
+def tensor_bytes(obj, skip=("base", "mesh", "comm")) -> int:
+    """Bytes of the distinct storages of the tensors ``obj`` holds: its
+    attributes, through lists, tuples, dicts and the port's own objects,
+    less the attributes named in ``skip``."""
+    seen, objs = set(), set()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            st = x.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                return st.nbytes()
+            return 0
+        if isinstance(x, (list, tuple)):
+            return sum(walk(v) for v in x)
+        if isinstance(x, dict):
+            return sum(walk(v) for v in x.values())
+        if type(x).__module__.startswith("pressurepoissonsolver_torch") and id(x) not in objs:
+            objs.add(id(x))
+            return sum(walk(v) for k, v in vars(x).items() if k not in skip)
+        return 0
+
+    return walk(obj)
+
+
+def level_battery(mesh, tmp, n=8):
+    """The halo engine's level, transfer and smoother ops at the world's
+    size, each on the same inputs as the reference's single-device ops;
+    every result gathered to the global layout."""
+    from pressurepoissonsolver_torch.domain import DomainHierarchy
+    from pressurepoissonsolver_torch.gmg import Transfer
+    from pressurepoissonsolver_torch.ops.level_ops import Level
+    from pressurepoissonsolver_torch.parallel import halo
+    from pressurepoissonsolver_torch.parallel.partition import block_partition, cut_faces
+    from pressurepoissonsolver_torch.parallel.sharding import shard_patch_array
+
+    k = mesh.size()
+    tr = trees()
+    out = {}
+    cpu = torch.device("cpu")
+
+    def level(h, i=0):
+        return Level(h[i], dtype=torch.float64, device=cpu)
+
+    def loc(x, sl):
+        return shard_patch_array(x, sl.mesh).clone()
+
+    # 2D: refined_tree(2, 3, 1) at n, Dirichlet and all-Neumann walls
+    for neumann in (False, True):
+        key = "2d-neumann" if neumann else "2d"
+        # the Python builder, as the reference's side (the native tables
+        # number the interfaces in the unsharded slot order)
+        h = DomainHierarchy(tr["2d"], n=n, neumann=neumann, num_shards=k,
+                            use_native=False)
+        lvl = level(h)
+        sl = halo.ShardedLevel(lvl, mesh)
+        P = lvl.P
+        u, f = field(11, (P, n, n)), field(1, (P, n, n))
+        res = {"tables": _tables(sl),
+               "bytes": (tensor_bytes(sl), tensor_bytes(lvl)),
+               "cuts": cut_faces(h.finest, block_partition(P, k)),
+               "apply": _np(sl.gather(sl.apply(loc(u, sl)))),
+               "smooth": _np(sl.gather(sl.smooth(loc(f, sl), loc(u, sl)))),
+               "smooth_zero": _np(sl.gather(sl.smooth_zero(loc(f, sl))))}
+        if not neumann:
+            g = field(7, (lvl.num_ifaces, lvl.m))
+            NOg = max(sl.NOg, 1)
+            g_own = np.zeros((NOg, lvl.m))
+            for j, i in enumerate(sl._owned_ids[sl.me]):
+                g_own[j] = g[i]
+            g_own = torch.as_tensor(g_own)
+            res["interpolate"] = sl.gamma_global(sl.interpolate(loc(u, sl)))
+            res["patch_solve"] = _np(sl.gather(sl.patch_solve(loc(f, sl), g_own)))
+            res["fold_gamma"] = _np(sl.gather(sl.fold_gamma(loc(f, sl), g_own)))
+            res["schur_S"] = sl.gamma_global(sl.schur_S(g_own))
+            res["halo_apply"] = _np(sl.gather(halo.HaloApply(lvl, mesh)(loc(u, sl))))
+            res["integrate"] = float(sl.integrate(loc(u, sl)))
+            # zero data on the padded patches stays exactly zero there
+            real = (np.arange(P) < h.finest.real_patches).reshape(-1, 1, 1)
+            u0, f0 = (loc(np.where(real, x, 0.0), sl) for x in (u, f))
+            res["dummy"] = _np(sl.gather(torch.stack([
+                sl.apply(u0), sl.smooth(f0, u0), sl.smooth_zero(f0),
+                sl.patch_solve(f0, sl.gamma_zeros())], dim=1)))[h.finest.real_patches:]
+            # transfers, both prolongation modes
+            coarse = level(h, 1)
+            sc = halo.ShardedLevel(coarse, mesh)
+            uf, uc = field(3, (P, n, n)), field(4, (coarse.P, n, n))
+            for mode in ("constant", "linear"):
+                st = halo.ShardedTransfer(Transfer(lvl, coarse, prolong_mode=mode), sl, sc)
+                res[f"restrict_{mode}"] = _np(sc.gather(st.restrict(loc(uf, sl))))
+                res[f"prolong_{mode}"] = _np(sl.gather(
+                    st.prolong_add(loc(uc, sc), loc(uf, sl))))
+                res["transfer_tables"] = {
+                    "comm_rows": st.comm_rows,
+                    "child_src": st._child_src.copy(), "pt_src": st._pt_src.copy(),
+                    **{name: (list(e.offsets), [t.copy() for t in e.send_tbl])
+                       for name, e in (("pool", st.ex_pool), ("full", st.ex_full),
+                                       ("par", st.ex_par))}}
+        out[key] = res
+
+    # 3D: refined_tree(3, 2, 1) at n = 4
+    h3 = DomainHierarchy(tr["3d"], n=4, num_shards=k)
+    lvl3 = level(h3)
+    sl3 = halo.ShardedLevel(lvl3, mesh)
+    u3 = field(6, (lvl3.P, 4, 4, 4))
+    out["3d"] = {"apply": _np(sl3.gather(sl3.apply(loc(u3, sl3))))}
+
+    # the FAC active-set smoothers on a level whose active set is proper
+    h = DomainHierarchy(tr["2d-deep"], n=n, num_shards=k)
+    from pressurepoissonsolver_torch.gmg import _expand_ring, _fac_active_mask
+
+    fine, coarse = level(h, 0), level(h, 1)
+    mask = _fac_active_mask(Transfer(fine, coarse), 1)
+    ring = _expand_ring(h[1], mask, 1)
+    sc = halo.ShardedLevel(coarse, mesh)
+    sm = halo.ShardedActiveSmoother(sc, mask)
+    sa = halo.ShardedActiveSmoother(sc, ring)
+    f, u = field(8, (coarse.P, n, n)), field(9, (coarse.P, n, n))
+    u0 = np.where(mask.reshape(-1, 1, 1), u, 0.0)
+    out["active"] = {
+        "mask": mask, "ring": ring,
+        "smooth": _np(sc.gather(sm.smooth(loc(f, sc), loc(u, sc)))),
+        "smooth_zero": _np(sc.gather(sm.smooth_zero(loc(f, sc)))),
+        "apply_scattered": _np(sc.gather(sa.apply_scattered(loc(u0, sc)))),
+        "counts": [sm.Pa]}
+    return out
+
+
+# the multigrid of the public solves: a V(1,1) cycle down to a 64-DOF
+# direct solve, so that the transfers and coarse levels run sharded
+SMALL_GMG = dict(coarse_direct_max_dof=64)
+# the CLI run, with and without --shards
+CLI_ARGV = ["--uniform", "3", "-n", "8", "-t", "1e-10", "--gmg-coarse-direct-dof", "256"]
+
+
+def _solver(mesh, h, **opts):
+    from pressurepoissonsolver_torch.gmg import CycleOpts
+    from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
+
+    gmg = opts.pop("gmg", {})
+    return PoissonSolver(h, SolveOptions(gmg=CycleOpts(**gmg), **opts), mesh=mesh,
+                         device="cpu")
+
+
+def solve_battery(mesh, tmp, n=8):
+    """The public sharded solves and the sharded CLI at the world's size;
+    solutions gathered to the global layout."""
+    from pressurepoissonsolver_torch import cli
+    from pressurepoissonsolver_torch.domain import DomainHierarchy
+    from pressurepoissonsolver_torch.parallel.sharding import gather_patches
+    from pressurepoissonsolver_torch.problems import get_problem, init_problem
+
+    k = mesh.size()
+    tree = trees()["2d"]
+    out = {}
+
+    def problem(h):
+        return init_problem(h.finest, get_problem("trig", 2))
+
+    h = DomainHierarchy(tree, n=n, num_shards=k)
+    f, exact = problem(h)
+    s = _solver(mesh, h, tol=1e-11, gmg=SMALL_GMG)
+    r = s.solve(f)
+    out["solve"] = {"x": _np(gather_patches(r.x, mesh)), "iterations": r.iterations,
+                    "rel": float(r.residual_norm / r.r0_norm)}
+    u, r, hist = s.solve_monitored(f, max_iter=60)
+    out["monitored"] = {"x": _np(gather_patches(u, mesh)), "iterations": r.iterations,
+                        "hist": hist}
+    for krylov in ("gmres", "cg"):  # the Arnoldi and the weighted dots
+        r = _solver(mesh, h, tol=1e-11, krylov=krylov, gmg=SMALL_GMG).solve(f)
+        out[f"solve_{krylov}"] = {"x": _np(gather_patches(r.x, mesh)),
+                                  "iterations": r.iterations,
+                                  "rel": float(r.residual_norm / r.r0_norm)}
+
+    hm = DomainHierarchy(tree, n=n, neumann=["x_lo", "y_hi"], num_shards=k)
+    fm, _ = problem(hm)
+    r = _solver(mesh, hm, tol=1e-11, gmg=SMALL_GMG).solve(fm)
+    out["solve_mixed"] = {"x": _np(gather_patches(r.x, mesh)),
+                          "iterations": r.iterations,
+                          "rel": float(r.residual_norm / r.r0_norm)}
+
+    s = _solver(mesh, h, tol=1e-10, dtype=torch.float64, precond_dtype=torch.float32,
+                gmg=dict(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                         coarse_direct_max_dof=64))
+    u, info = s.solve_refined(f, tol=1e-10)
+    out["refined"] = {"x": _np(gather_patches(u, mesh)),
+                      "info": {kk: v for kk, v in info.items() if kk != "outer_history"},
+                      "report": s.report(u, f, exact)}
+
+    s = _solver(mesh, h, tol=1e-10, dtype=torch.float64, precond_dtype=torch.float32,
+                gmg=dict(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                         coarse_direct_max_dof=64))
+    for prec in ("gmg", "blockjacobi"):
+        u, res = s.solve_schur(f, tol=1e-10, max_iter=60, preconditioner=prec)
+        out[f"schur_{prec}"] = {"x": _np(gather_patches(u, mesh)),
+                                "iterations": res.iterations,
+                                "report": s.report(u, f, exact)}
+
+    # the CLI, every rank in-process; rank 0 writes the out-json
+    js = os.path.join(tmp, "cli.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(2, CLI_ARGV + ["--shards", str(k), "--out-json", js],
+                      device="cpu")
+    out["cli"] = {"rc": rc, "stdout": buf.getvalue()}
+    dist.barrier()
+    if mesh.get_local_rank("p") == 0:
+        with open(js) as fh:
+            out["cli"]["json"] = json.load(fh)
+    return out
+
+
+BATTERIES = {"level": level_battery, "solve": solve_battery}

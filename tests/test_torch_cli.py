@@ -251,13 +251,16 @@ BAD = [
 
 @pytest.mark.parametrize("argv", BAD, ids=[" ".join(a) for a in BAD])
 def test_cli_rejects_bad_combos(argv, capsys):
-    """Invalid combinations exit up front, as in the reference; every
-    ``--shards`` above 0 exits: multi-device is not ported."""
+    """Invalid combinations exit up front, as in the reference; the
+    shard-only ones say why (``--shards 2`` outside a two-rank world, an
+    assembled Schur matrix with ``--shards``)."""
     with pytest.raises(SystemExit) as exc:
         tcli.main(2, ["--uniform", "2", "-n", "8"] + argv, device="cpu")
     assert exc.value.code == 2
     if "--shards" in argv:
-        assert "not ported" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert ("single-device only" in err if "crs" in argv
+                else "world has 1 rank" in err)
 
 
 def test_quadratic_3d_rejected():

@@ -561,3 +561,100 @@ def test_trace_and_op_report_on_card(cuda, tmp_path):
     rep = profiling.op_report(lvl, reps=20)
     for row in rep.values():
         assert row["timing"] == "held_stream_device" and row["roofline_pct"] > 0
+
+
+@pytest.fixture
+def mesh1(cuda):
+    """A one-rank NCCL mesh on the card, ended with the test."""
+    import torch.distributed as dist
+
+    from pressurepoissonsolver_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(1)
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_sharded_world1_apply_on_card_matches_level(mesh1, dt):
+    """The halo engine's apply on a one-rank NCCL mesh (its global level on
+    the host) equals the level's, through the 2D kernel on its vector
+    path."""
+    from pressurepoissonsolver_torch.parallel.halo import ShardedLevel
+
+    h = DomainHierarchy(refined_tree(2, 4, 2), n=8, num_shards=1)
+    rng = np.random.default_rng(4)
+    for pl in h.levels:
+        lvl = Level(pl, DTYPES[dt], device="cuda")
+        sl = ShardedLevel(Level(pl, DTYPES[dt], device="cpu"), mesh1, "cuda")
+        assert not sl.comm.host_staged and sl.exchange.offsets == []
+        u = torch.as_tensor(rng.standard_normal((pl.num_patches, 8, 8)),
+                            dtype=DTYPES[dt], device="cuda")
+        before = gs.launches[str(DTYPES[dt])[6:]]
+        got = _launch_takes(2, _width(8, dt), lambda: sl.apply(u))
+        assert gs.launches[str(DTYPES[dt])[6:]] == before + 1
+        assert _rel(lvl.apply(u), got) <= RTOL[dt]
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_sharded_world1_apply_scattered_on_card_matches_level(mesh1, dt):
+    """The sharded active-set residual apply (one-rank NCCL mesh) equals
+    the single-device one and launches the kernel."""
+    from pressurepoissonsolver_torch.parallel.halo import ShardedActiveSmoother
+
+    h = DomainHierarchy(refined_tree(2, 4, 2), n=8, num_shards=1)
+    opts = CycleOpts(fac_smoothing="active", coarse_direct_max_dof=64)
+    plain = build_gmg(h, opts, DTYPES[dt], device="cuda")
+    sharded = build_gmg(h, opts, DTYPES[dt], device="cuda", mesh=mesh1)
+    rng = np.random.default_rng(5)
+    seen = 0
+    for a, b in zip(plain._aapply, sharded._aapply):
+        if a is None:
+            continue
+        seen += 1
+        assert isinstance(b, ShardedActiveSmoother)
+        u = torch.as_tensor(rng.standard_normal((a.level.P, 8, 8)),
+                            dtype=DTYPES[dt], device="cuda")
+        before = sum(gs.launches.values())
+        got = b.apply_scattered(u)
+        assert sum(gs.launches.values()) == before + 1
+        assert _rel(a.apply_scattered(u), got) <= RTOL[dt]
+    assert seen == 2
+
+
+def test_sharded_solver_keeps_the_global_levels_on_the_host(mesh1):
+    """With a mesh the solver's global levels stay on the host and every
+    engine level (GMG and the f32 finest) works on the card."""
+    h = DomainHierarchy(refined_tree(2, 4, 2), n=8, num_shards=1)
+    s = PoissonSolver(h, SolveOptions(precond_dtype=torch.float32, gmg=CycleOpts(
+        fac_smoothing="active", coarse_direct_max_dof=64)), mesh=mesh1, device="cuda")
+    f, _ = init_problem(h.finest, get_problem("trig", 2))
+    s.solve_refined(f, tol=1e-8)
+    engines = [s._op, s._fine_low] + list(s.gmg.levels)
+    assert s.fine_level.device.type == "cpu"
+    assert all(e.base.device.type == "cpu" for e in engines)
+    assert all(e.device.type == "cuda" and e.h2inv.is_cuda and e._cellvol.is_cuda
+               for e in engines)
+    assert s.gmg._coarse_inv.is_cuda
+
+
+def test_sharded_world1_solve_on_card_matches_plain(mesh1):
+    """``solve_refined`` on a one-rank NCCL mesh takes the plain solver's
+    counts to the same solution."""
+    h = DomainHierarchy(refined_tree(2, 4, 2), n=8, num_shards=1)
+    opts = dict(tol=1e-10, precond_dtype=torch.float32,
+                gmg=CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                              coarse_direct_max_dof=64))
+    f, exact = init_problem(h.finest, get_problem("trig", 2))
+    out = []
+    for mesh in (None, mesh1):
+        gs.reset_launches()
+        s = PoissonSolver(h, SolveOptions(**opts), mesh=mesh, device="cuda")
+        u, info = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+        out.append((u, info, s.report(u, f, exact), dict(gs.launches)))
+    (u1, i1, r1, l1), (u2, i2, r2, l2) = out
+    assert i2["outer_iterations"] == i1["outer_iterations"] == 3
+    assert abs(i2["inner_iterations"] - i1["inner_iterations"]) <= 1
+    assert r2["residual"] <= 1e-10 and l2["float32"] > 0 and l2["float64"] > 0
+    assert _rel(u1, u2) <= 1e-9

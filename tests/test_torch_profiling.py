@@ -99,9 +99,19 @@ def test_level_breakdown_rows(light):
 
 
 def test_profile_ops_halo_is_not_ported(monkeypatch):
+    """The halo engine is ported: ``PPS_PROFILE_HALO`` adds its rows (on a
+    one-rank group that ends with the report)."""
+    import torch.distributed as dist
+
     monkeypatch.setenv("PPS_PROFILE_HALO", "1")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        profile_ops.main(device="cpu")
+    monkeypatch.setenv("PPS_PROFILE_DIVIDE", "0")
+    monkeypatch.setenv("PPS_PROFILE_N", "4")
+    monkeypatch.setenv("PPS_PROFILE_DTYPE", "f32")
+    rep = profile_ops.main(device="cpu")
+    assert set(rep["halo_ndev1_f32"]) == {"apply", "smooth", "interpolate"}
+    for row in rep["halo_ndev1_f32"].values():
+        assert math.isfinite(row["ms"]) and row["timing"] == "cpu_wall"
+    assert not dist.is_initialized()
 
 
 def test_trace_writes_a_file_with_the_annotation(tmp_path):

@@ -130,14 +130,16 @@ def test_bicgstab_breakdown_guard():
 
 
 def test_unported_solver_options_raise():
-    """Multi-device meshes are the one option not ported; unknown option
-    values raise; CG falls back to BiCGStab under the quadratic closures,
-    as in the reference."""
+    """The reference's ``comm="pjit"`` mesh engine is the one option not
+    ported; unknown option values raise; CG falls back to BiCGStab under
+    the quadratic closures, as in the reference."""
     _, th = hierarchies()
     with pytest.raises(NotImplementedError):
-        tsolver.PoissonSolver(th, mesh=object(), device="cpu")
+        tsolver.PoissonSolver(th, tsolver.SolveOptions(comm="pjit"), mesh=object(),
+                              device="cpu")
     for kw in ({"krylov": "minres"}, {"inner_krylov": "gmres"},
-               {"iface_scheme": "cubic"}, {"preconditioner": "ilu"}):
+               {"iface_scheme": "cubic"}, {"preconditioner": "ilu"},
+               {"comm": "mpi"}):
         with pytest.raises(ValueError):
             tsolver.PoissonSolver(th, tsolver.SolveOptions(**kw), device="cpu")
     s = tsolver.PoissonSolver(th, tsolver.SolveOptions(
