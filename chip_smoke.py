@@ -11,7 +11,8 @@ Phases, any failure of which raises and exits non-zero:
 1. require CUDA; turn TF32 off for matmuls and convolutions; print the
    card's name and power limit;
 2. build the CUDA kernels from ``pressurepoissonsolver_torch/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source (the 2D and 3D stencils and the split stencil's
+   face term), all started together;
 3. 2D: hold the 2D kernel against its plain PyTorch version on the card,
    at the main path's shapes, at odd shapes and with ``u`` at an element
    offset (the one-element-per-thread path), and time both with CUDA
@@ -60,21 +61,41 @@ Phases, any failure of which raises and exits non-zero:
    held equal to the Python builders on both bench meshes, with both
    builders' seconds and the bench's set-up seconds with each;
 7. the patch-sharded solve (``DomainHierarchy(num_shards=k)``,
-   ``PoissonSolver(mesh=make_mesh(k))``, the cut-face halo engine of
-   ``parallel.halo``), each part driven with the launch counts set to 0
-   just before it: (a) a world of one rank under NCCL in this process, the
-   2D bench through ``solve_refined`` and ``solve_schur(gmg)`` (phase 3's
-   counts and errors, and its solutions within 1e-8 of max|u|) and the 3D
-   bench; (b) a world of four ranks spawned on the one card under gloo
-   (NCCL refuses two ranks on one GPU; the exchanges are staged through
-   pinned host buffers), rendezvousing through a ``FileStore``: the 2D
-   bench and a small 3D mesh on every rank, held to the same counts and
-   errors, rank 0's gathered fields to phase 3's, aligned by patch id, the
-   padded patches exactly 0, ``0 < comm_rows <= cut faces``; a correctness
-   run, not a scaling one; (c) ``cli.main`` with ``--shards 1`` against
-   phase 5's ``--solver ir`` run; every stencil launch on the vector path;
-8. print the kernel table (its launches include phase 7's), the card
-   line, and last the result line ``{"ok": true, "device": {...}}``.
+   ``PoissonSolver(mesh=make_mesh(k))``, with both engines: the cut-face
+   halo engine of ``parallel.halo`` and the gathered engine of
+   ``parallel.gathered``, ``comm="pjit"``), each part driven with the
+   launch counts set to 0 just before it: (a) a world of one rank under
+   NCCL in this process, the 2D bench through ``solve_refined`` and
+   ``solve_schur(gmg)`` with each engine (phase 3's counts and errors, and
+   its solutions within 1e-8 of max|u|; each engine's card MiB after
+   setup) and the 3D bench (halo); (b) the kernels' no-gf mode, which the
+   halo apply runs while its exchange is in flight, and the face-term
+   kernel it adds after, each against its plain version at the bench
+   shapes, timed against its bound, and the fused launch timed against
+   the split one (no-gf launch and face term); (c) a world of four ranks
+   spawned on the one card under gloo (NCCL refuses two ranks on one GPU;
+   the exchanges are staged through pinned host buffers), rendezvousing
+   through a ``FileStore``: the 2D bench with each engine and a small 3D
+   mesh (halo) on every rank, held to the same counts and errors, rank 0's
+   gathered fields to phase 3's, aligned by patch id, the padded patches
+   exactly 0, ``0 < comm_rows <= cut faces``, the halo engine's no-gf
+   and face-term launches counted (one of each per split apply); one halo
+   apply profiled on rank 0: its base kernel must be launched while the
+   exchange is outstanding (after every offset is posted, before the
+   first wait); the kernel's device interval against the exchange's
+   in-flight window and the first wait against a settled exchange's are
+   printed; a correctness run, not a scaling one; (d) ``cli.main`` with
+   ``--shards 1`` against phase 5's ``--solver ir`` run; every stencil
+   launch on the vector path; (e) ``scripts.multihost --device cuda`` (2
+   "hosts" x 4 ranks, every rank on the one card under gloo), both engines
+   matching the single-process solve; (f) the no-gf mode and the
+   face-term kernel against their plain versions, and the split launch
+   against the fused one, at every per-rank shape that (c) and (e) gave
+   them (2D n=64 and n=8, 3D n=8), in f32 and f64;
+8. print the kernel table (its launches include phase 7's; each stencil
+   entry also has the no-gf mode's times, bound and launches; the
+   face-term kernel has entries of its own), the card line, and last the
+   result line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -82,6 +103,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import sys
 import tempfile
@@ -206,6 +228,11 @@ REPLACES = {2: "pressurepoissonsolver_tpu/ops/pallas_stencil.py:87",
             3: "pressurepoissonsolver_tpu/ops/pallas_stencil.py:231"}
 SOURCES = {2: "pressurepoissonsolver_torch/csrc/ghost_stencil.cu",
            3: "pressurepoissonsolver_torch/csrc/ghost_stencil_3d.cu"}
+# the face term of the halo apply's split stencil: a kernel of the port with
+# no Pallas counterpart; in the JAX halo engine it is XLA code (the face-pad
+# sum of ShardedLevel._stencil_local)
+FACES_SOURCE = "pressurepoissonsolver_torch/csrc/ghost_faces.cu"
+FACES_REPLACES = "pressurepoissonsolver_tpu/parallel/halo.py:626"
 # patch shapes (P, n) off the main path, checked against the plain version;
 # n=6 in f32 and n=1 take the kernels' one-element-per-thread path
 ODD_SHAPES = {2: [(37, 12), (37, 6), (3, 1)], 3: [(37, 6), (3, 1)]}
@@ -1040,21 +1067,22 @@ def bench_phase(torch, port, gs, card, tmp, warm_f32_ms):
 # the world spawned on the one card (NCCL refuses two ranks on one GPU, so
 # it runs under gloo, its exchanges staged through pinned host buffers)
 SHARDED_WORLD = 4
-# seconds the parent waits for the spawned world
-SHARDED_TIMEOUT = 300
+# seconds the parent waits for the spawned world, and for the multihost job
+SHARDED_TIMEOUT = 420
+MULTIHOST_TIMEOUT = 420
 
 
-def sharded_setup(torch, port, D, base, corner, n, gmg, mesh, refine=True):
+def sharded_setup(torch, port, D, base, corner, n, gmg, mesh, refine=True, comm="halo"):
     """A bench-style problem on ``mesh``: the tree ``refined_tree(D, base,
     corner)`` (refined once with ``refine``) at patch size n, sharded over
-    the mesh's ranks; the solver and the global right-hand side and exact
-    solution."""
+    the mesh's ranks through the engine ``comm``; the solver and the global
+    right-hand side and exact solution."""
     tree = port.refined_tree(D, base, corner)
     if refine:
         tree.refine_leaves()
     hier = port.DomainHierarchy(tree, n=n, num_shards=mesh.size())
     opts = port.SolveOptions(tol=1e-10, dtype=torch.float64,
-                             precond_dtype=torch.float32, gmg=gmg)
+                             precond_dtype=torch.float32, gmg=gmg, comm=comm)
     solver = port.PoissonSolver(hier, opts, mesh=mesh, device="cuda")
     f, exact = port.init_problem(hier.finest, port.get_problem("trig", D))
     return solver, f, exact
@@ -1067,9 +1095,9 @@ def _rel_diff(u, ref) -> float:
 def sharded_world1(torch, port, gs, card, u_ir, u_schur):
     """Phase 7 (a): a world of one rank under NCCL, in this process, at
     full width: the 2D bench through ``solve_refined`` and ``solve_schur``
-    (held to phase 3's counts, errors and solutions), then the 3D bench;
-    every stencil launch through the kernels' vector path.  The stencil
-    launches per dimension and dtype."""
+    with each engine (held to phase 3's counts, errors and solutions), then
+    the 3D bench (halo); every stencil launch through the kernels' vector
+    path.  The stencil launches per dimension and dtype."""
     import torch.distributed as dist
 
     from pressurepoissonsolver_torch.parallel.sharding import make_mesh
@@ -1077,59 +1105,66 @@ def sharded_world1(torch, port, gs, card, u_ir, u_schur):
     t0 = time.perf_counter()
     mesh = make_mesh(1)
     assert dist.get_backend() == "nccl", dist.get_backend()
-    launches = {}
+    launches = {2: {"float32": 0, "float64": 0}}
     try:
-        mem0 = torch.cuda.memory_allocated()
-        solver, f, exact = sharded_setup(
-            torch, port, 2, 5, 2, 64, port.CycleOpts(
-                pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
-                coarse_direct_max_dof=4096), mesh)
-        op = solver._op
-        print(f"sharded world 1 (nccl) [{card}]: 2D bench, {op.P} patches, "
-              f"exchange offsets {op.exchange.offsets}, comm_rows {op.comm_rows}, "
-              f"host-staged {op.comm.host_staged}; setup {time.perf_counter() - t0:.3f} s, "
-              f"{(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB on the card",
-              flush=True)
-        u, info, rep, launches[2] = timed_solves(
-            torch, solver, f, exact, card, "sharded world 1 bench solve", gs, 2,
-            inner_tol=1e-4)
-        diff = _rel_diff(u.cpu().numpy(), u_ir)
-        print(f"sharded world 1 bench solve: launches per solve "
-              f"{ {k: v / 4 for k, v in launches[2].items()} }; max|u - u_phase3| / "
-              f"max|u_phase3| = {diff:.3e}", flush=True)
-        assert info["outer_iterations"] == 3 and 6 <= info["inner_iterations"] <= 8, info
-        assert rep["residual"] <= 1e-10, rep
-        assert abs(rep["error"] - BENCH_ERROR) <= 0.01 * BENCH_ERROR, rep
-        assert diff <= 1e-8, diff
-        assert all(launches[2].values()), launches[2]
-
-        gs.reset_launches()
-        times = []
-        for rep_i in range(3):
-            torch.cuda.synchronize()
+        for comm in ("halo", "pjit"):
             t1 = time.perf_counter()
-            u, res = solver.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
-            torch.cuda.synchronize()
-            if rep_i:
-                times.append(time.perf_counter() - t1)
-        schur_launches, widths = dict(gs.launches), dict(gs.widths[2])
-        rep = solver.report(u, f, exact)
-        diff = _rel_diff(u.cpu().numpy(), u_schur)
-        line = (f"sharded world 1 bench Schur solve [{card}]: iterations "
-                f"{res.iterations} residual {rep['residual']:.3e} error "
-                f"{rep['error']:.6e} best {min(times):.6f} s of "
-                f"{[round(t, 6) for t in times]}; launches per solve "
-                f"{ {k: v / 3 for k, v in schur_launches.items()} }, per elements "
-                f"per thread {widths}; max|u - u_phase3| / max|u_phase3| = {diff:.3e}")
-        print(line, flush=True)
-        assert abs(res.iterations - SCHUR_BENCH_ITERS) <= 1, line
-        assert rep["residual"] <= 1e-10, line
-        assert abs(rep["error"] - SCHUR_BENCH_ERROR) <= 0.01 * SCHUR_BENCH_ERROR, line
-        assert diff <= 1e-8, line
-        assert schur_launches["float32"] > 0 and widths[1] == 0, line
-        for k, v in schur_launches.items():
-            launches[2][k] += v
-        del solver, f, exact, u
+            mem0 = torch.cuda.memory_allocated()
+            solver, f, exact = sharded_setup(
+                torch, port, 2, 5, 2, 64, port.CycleOpts(
+                    pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                    coarse_direct_max_dof=4096), mesh, comm=comm)
+            op = solver._op
+            assert type(op).__name__ == {"halo": "ShardedLevel",
+                                         "pjit": "GatheredLevel"}[comm]
+            print(f"sharded world 1 (nccl) {comm} [{card}]: 2D bench, {op.P} patches, "
+                  f"engine {type(op).__name__}, host-staged {op.comm.host_staged}; "
+                  f"setup {time.perf_counter() - t1:.3f} s, "
+                  f"{(torch.cuda.memory_allocated() - mem0) / 2**20:.1f} MiB on the card",
+                  flush=True)
+            label = f"sharded world 1 {comm} bench solve"
+            u, info, rep, ir = timed_solves(torch, solver, f, exact, card, label, gs, 2,
+                                            inner_tol=1e-4)
+            diff = _rel_diff(u.cpu().numpy(), u_ir)
+            print(f"{label}: launches per solve { {k: v / 4 for k, v in ir.items()} }; "
+                  f"max|u - u_phase3| / max|u_phase3| = {diff:.3e}", flush=True)
+            assert info["outer_iterations"] == 3 and 6 <= info["inner_iterations"] <= 8, info
+            assert rep["residual"] <= 1e-10, rep
+            assert abs(rep["error"] - BENCH_ERROR) <= 0.01 * BENCH_ERROR, rep
+            assert diff <= 1e-8, diff
+            assert all(ir.values()), ir
+            assert not any(gs.launches_nogf[2].values()), "world 1 split an apply"
+            assert not any(gs.launches_faces[2].values()), "world 1 split an apply"
+
+            gs.reset_launches()
+            times = []
+            for rep_i in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                u, res = solver.solve_schur(f, tol=1e-10, max_iter=60,
+                                            preconditioner="gmg")
+                torch.cuda.synchronize()
+                if rep_i:
+                    times.append(time.perf_counter() - t1)
+            schur_launches, widths = dict(gs.launches), dict(gs.widths[2])
+            rep = solver.report(u, f, exact)
+            diff = _rel_diff(u.cpu().numpy(), u_schur)
+            line = (f"sharded world 1 {comm} bench Schur solve [{card}]: iterations "
+                    f"{res.iterations} residual {rep['residual']:.3e} error "
+                    f"{rep['error']:.6e} best {min(times):.6f} s of "
+                    f"{[round(t, 6) for t in times]}; launches per solve "
+                    f"{ {k: v / 3 for k, v in schur_launches.items()} }, per elements "
+                    f"per thread {widths}; max|u - u_phase3| / max|u_phase3| = "
+                    f"{diff:.3e}")
+            print(line, flush=True)
+            assert abs(res.iterations - SCHUR_BENCH_ITERS) <= 1, line
+            assert rep["residual"] <= 1e-10, line
+            assert abs(rep["error"] - SCHUR_BENCH_ERROR) <= 0.01 * SCHUR_BENCH_ERROR, line
+            assert diff <= 1e-8, line
+            assert schur_launches["float32"] > 0 and widths[1] == 0, line
+            for k, v in (*ir.items(), *schur_launches.items()):
+                launches[2][k] += v
+            del solver, f, exact, u, op
 
         solver, f, exact = sharded_setup(torch, port, 3, 3, 2, 32, port.CycleOpts(), mesh)
         u, info, rep, launches[3] = timed_solves(
@@ -1147,13 +1182,266 @@ def sharded_world1(torch, port, gs, card, u_ir, u_schur):
     return launches
 
 
+# the bench shape of each dimension's no-gf check
+NOGF_SHAPES = {2: (1048, 64), 3: (624, 32)}
+
+
+def nogf_kernels(torch, gs, timer, card, bw):
+    """Phase 7 (b): each kernel's no-gf mode (``gf=None``: ghost ``coef *
+    u_b``, no face entry read) at the bench shape, in f32 and f64, against
+    its plain version; device ms cold and warm and its bound (the bytes of
+    u, coef, h2 and out); the fused launch (with the faces) against the
+    split one (no-gf launch, then ``add_ghost_faces``), warm, both held to
+    each other; the face-term kernel the split adds (``check_faces``).
+    These comparison launches are not counted: every path resets the
+    counts before it runs.  ``({D: {dtype: no-gf numbers}}, {D: {dtype:
+    face-term kernel numbers}})``."""
+    rng = np.random.default_rng(SEED + 1)
+    out, faces = {}, {}
+    for D, (P, n) in NOGF_SHAPES.items():
+        kernel = gs.ghost_stencil if D == 2 else gs.ghost_stencil_3d
+        plain = gs.ghost_stencil_plain if D == 2 else gs.ghost_stencil_3d_plain
+        out[D], faces[D] = {}, {}
+        for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            name = str(dtype).replace("torch.", "")
+            u, gf, coef, h2 = stencil_args(torch, rng, D, P, n, dtype)
+            base = kernel(u, None, coef, h2)
+            width = gs.last_width[D]
+            ref = plain(u, None, coef, h2)
+            torch.cuda.synchronize()
+            err = float((base - ref).abs().max())
+            scale = float(ref.abs().max())
+            fused = kernel(u, gf, coef, h2)
+            split = gs.add_ghost_faces(base.clone(), gf, h2)
+            split_err = float((split - fused).abs().max())
+            line = (f"kernel ghost_stencil_{D}d {name} no-gf P={P} n={n} width={width} "
+                    f"[{card}]: max_abs_err={err:.3e} max|out|={scale:.3e} (limit "
+                    f"{rtol:g}*max|out|); split - fused max_abs {split_err:.3e}")
+            assert width > 1 and err <= rtol * scale, line
+            assert split_err <= rtol * float(fused.abs().max()), line
+            args = [u, None, coef, h2]
+            bound_ms, bound_by = kernel_bound(D, [u, coef, h2], base, bw)
+            set_bytes = sum(a.numel() * a.element_size() for a in (u, coef, h2, base))
+            sets = [args] + [[u.clone(), None, coef.clone(), h2.clone()]
+                             for _ in range(timer.cold_sets(set_bytes) - 1)]
+            ms = timer.cold_median_ms(kernel, sets)
+            plain_ms = timer.cold_median_ms(plain, sets)
+            del sets
+            warm = {lab: timer.cuda_median_ms(fn, reps=50, hold=True) for lab, fn in (
+                ("nogf", lambda: kernel(u, None, coef, h2)),
+                ("fused", lambda: kernel(u, gf, coef, h2)),
+                ("split", lambda: gs.add_ghost_faces(kernel(u, None, coef, h2), gf, h2)))}
+            print(f"{line}; device ms cold: no-gf kernel {ms:.5f} ({100 * bound_ms / ms:.1f}% "
+                  f"of its bound {bound_ms:.5f} ms by {bound_by}) plain {plain_ms:.5f}; "
+                  f"warm: no-gf {warm['nogf']:.5f}, fused {warm['fused']:.5f}, split "
+                  f"(no-gf + face term) {warm['split']:.5f}", flush=True)
+            out[D][name] = {"nogf_ms": ms, "nogf_warm_ms": warm["nogf"],
+                            "nogf_plain_ms": plain_ms, "nogf_bound_ms": bound_ms,
+                            "nogf_max_abs_err": err, "fused_warm_ms": warm["fused"],
+                            "split_warm_ms": warm["split"]}
+            faces[D][name] = check_faces(torch, gs, timer, card, bw, D, base, gf, h2, rtol)
+    return out, faces
+
+
+def faces_bound(D, out, gf, h2, bw):
+    """(ms, "bytes" | "operations") of one face-term call: gf and h2 read
+    once, each boundary cell of out read and written once; at most 2 flops
+    per side term and 2 per cell."""
+    P, n = out.shape[0], out.shape[1]
+    nb = 1 if n == 1 else (4 * n - 4 if D == 2 else 2 * n * n + (n - 2) * (4 * n - 4))
+    nbytes = (gf.numel() + h2.numel() + 2 * P * nb) * out.element_size()
+    flops = P * (2 * gf.shape[1] * gf.shape[2] + 2 * nb)
+    name = str(out.dtype).replace("torch.", "")
+    t_bytes, t_ops = nbytes / bw, flops / PEAK_FLOPS[name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_faces(torch, gs, timer, card, bw, D, base, gf, h2, rtol):
+    """The face-term kernel (``add_ghost_faces`` on the card) against its
+    plain version on the no-gf stencil's output at the bench shape; device
+    ms cold and warm (in place: the repeated calls keep adding) and its
+    bound.  The kernel table entry's numbers."""
+    name = str(base.dtype).replace("torch.", "")
+    got = gs.add_ghost_faces(base.clone(), gf, h2)
+    want = gs.add_ghost_faces_plain(base.clone(), gf, h2)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    line = (f"kernel ghost_faces_{D}d {name} P={base.shape[0]} n={base.shape[1]} [{card}]: "
+            f"max_abs_err={err:.3e} max|out|={scale:.3e} (limit {rtol:g}*max|out|)")
+    assert err <= rtol * scale, line
+    bound_ms, bound_by = faces_bound(D, base, gf, h2, bw)
+    set_bytes = sum(a.numel() * a.element_size() for a in (base, gf, h2))
+    sets = [[base.clone(), gf, h2]] + [[base.clone(), gf.clone(), h2.clone()]
+                                       for _ in range(timer.cold_sets(set_bytes) - 1)]
+    ms = timer.cold_median_ms(gs.add_ghost_faces, sets)
+    plain_ms = timer.cold_median_ms(gs.add_ghost_faces_plain, sets)
+    del sets
+    out = base.clone()
+    warm_ms = timer.cuda_median_ms(lambda: gs.add_ghost_faces(out, gf, h2), reps=50,
+                                   hold=True)
+    print(f"{line}; device ms cold: kernel {ms:.5f} ({100 * bound_ms / ms:.1f}% of its "
+          f"bound {bound_ms:.5f} ms by {bound_by}) plain {plain_ms:.5f}; warm kernel "
+          f"{warm_ms:.5f}", flush=True)
+    # no single PyTorch call computes the face term
+    return {"max_abs_err": err, "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def split_shapes(solver):
+    """The per-rank ``(P, n)`` shapes at which a halo-engine solver with
+    more than one rank splits its applies (no-gf launch, then the face
+    term): its fine level and every GMG level."""
+    return sorted({(lvl.Pl, lvl.n) for lvl in [solver._op, *solver.gmg.levels]},
+                  reverse=True)
+
+
+def check_path_shapes(torch, gs, card, shapes):
+    """Phase 7 (f): the no-gf mode and the face-term kernel against their
+    plain versions, and the split launch against the fused one, at every
+    per-rank shape ``shapes[D]`` that (c) and (e) gave them, in f32 and
+    f64 (the kernels take another tile and lane layout at another n).
+    ``{D: {dtype: (no-gf max_abs_err, face-term max_abs_err)}}``, the
+    largest over the shapes."""
+    rng = np.random.default_rng(SEED + 2)
+    out = {}
+    for D, sh in sorted(shapes.items()):
+        kernel = gs.ghost_stencil if D == 2 else gs.ghost_stencil_3d
+        plain = gs.ghost_stencil_plain if D == 2 else gs.ghost_stencil_3d_plain
+        out[D] = {}
+        for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            name = str(dtype).replace("torch.", "")
+            worst = [0.0, 0.0, 0.0]  # relative: no-gf, face term, split - fused
+            errs = [0.0, 0.0]
+            for P, n in sh:
+                u, gf, coef, h2 = stencil_args(torch, rng, D, P, n, dtype)
+                base = kernel(u, None, coef, h2)
+                ref = plain(u, None, coef, h2)
+                got = gs.add_ghost_faces(base.clone(), gf, h2)
+                want = gs.add_ghost_faces_plain(base.clone(), gf, h2)
+                fused = kernel(u, gf, coef, h2)
+                torch.cuda.synchronize()
+                e = [float((base - ref).abs().max()), float((got - want).abs().max()),
+                     float((got - fused).abs().max())]
+                scale = [float(x.abs().max()) for x in (ref, want, fused)]
+                for i in range(3):
+                    worst[i] = max(worst[i], e[i] / scale[i])
+                errs = [max(errs[0], e[0]), max(errs[1], e[1])]
+            line = (f"kernels at the path's per-rank shapes, {D}D {name} [{card}]: (P, n) "
+                    f"{sh}; largest max_abs_err / max|out|: no-gf {worst[0]:.3e}, face "
+                    f"term {worst[1]:.3e}, split - fused {worst[2]:.3e} (limit {rtol:g})")
+            print(line, flush=True)
+            assert max(worst) <= rtol, line
+            out[D][name] = tuple(errs)
+    return out
+
+
+def overlap_text(ov) -> str:
+    """One line of :func:`halo_overlap`'s numbers."""
+    (ls, le), (xs, ws) = ov["launch_us"], ov["outstanding_us"]
+    return (f"base launch on the host {ls - xs:.1f} us after the exchange was posted "
+            f"and {ws - le:.1f} us before its first wait (overlap with the "
+            f"outstanding window {ov['launch_overlap_us']:.1f} us); base kernel "
+            f"{ov['kernel_name']} {ov['kernel_device_us']:.1f} us on the card, starting "
+            f"{-ov['kernel_lead_us']:+.1f} us from the first wait's start, overlap with the "
+            f"in-flight window ({ov['in_flight_span_us']:.1f} us, posting to the last "
+            f"wait's end) {ov['overlap_us']:.1f} us; first wait {ov['first_wait_us']:.1f} "
+            f"us, a settled exchange's longest {ov['settled_wait_us']:.1f} us")
+
+
+def halo_overlap(torch, dist, op, u, rank):
+    """One profiled halo ``apply`` (every rank calls it; rank 0 profiles),
+    read on one clock (the profiler puts the device activity on the
+    host's).  The schedule: the host span of the no-gf base launch (marked
+    here for the profiled call) against the window in which the exchange
+    is outstanding, from the end of ``pps.halo.exchange_start`` (every
+    offset posted) to the start of the first ``pps.halo.exchange_wait``
+    (the waits alone).  On the device: the base kernel's interval and its
+    overlap with the in-flight window (posting to the end of the last
+    wait); how long the first wait blocked, beside the longest wait of a
+    settled exchange of the same rows (posted by every rank before a
+    barrier and waited for 50 ms later, when its rows have arrived): a
+    first wait longer than that finds rows not yet arrived.  ``None`` on
+    the other ranks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from pressurepoissonsolver_torch.ops import level_ops
+
+    rows = u.new_zeros(op.exchange.n_local, op.m)
+
+    def settled():
+        started = op.exchange.start(rows)
+        dist.barrier()
+        time.sleep(0.05)
+        with record_function("smoke.settled_exchange"):
+            op.exchange.finish(started)
+        torch.cuda.synchronize()
+
+    op.apply(u)
+    torch.cuda.synchronize()
+    dist.barrier()
+    if rank:
+        op.apply(u)
+        torch.cuda.synchronize()
+        settled()
+        return None
+    launch = level_ops._STENCIL[2]
+
+    def marked(u, gf, coef, h2):
+        if gf is not None:
+            return launch(u, gf, coef, h2)
+        with record_function("smoke.base_launch"):
+            return launch(u, gf, coef, h2)
+
+    level_ops._STENCIL[2] = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            op.apply(u)
+            torch.cuda.synchronize()
+            settled()
+    finally:
+        level_ops._STENCIL[2] = launch
+    evs = prof.events()
+
+    def spans(name):
+        # the host's spans (a span also shows as an annotation of the device)
+        return sorted((e.time_range.start, e.time_range.end) for e in evs
+                      if e.name == name and e.device_type == DeviceType.CPU)
+
+    post = spans("pps.halo.exchange_start")
+    settle = spans("smoke.settled_exchange")
+    marks = spans("smoke.base_launch")
+    kern = [e for e in evs if e.device_type == DeviceType.CUDA
+            and "ghost_stencil_2d_kernel" in e.name and "false>" in e.name]
+    assert len(post) == len(settle) == len(marks) == len(kern) == 1, (
+        post, settle, marks, [e.name for e in kern])
+    waits = spans("pps.halo.exchange_wait")
+    calm = [w for w in waits if settle[0][0] <= w[0] <= settle[0][1]]
+    mine = [w for w in waits if w[0] < settle[0][0]]
+    noffsets = len(op.exchange.offsets)
+    assert len(mine) == len(calm) == noffsets, (waits, settle, noffsets)
+    (ls, le), (ks, ke) = marks[0], (kern[0].time_range.start, kern[0].time_range.end)
+    xs, ws, xe = post[0][1], mine[0][0], mine[-1][1]
+    return {"launch_us": [ls, le], "outstanding_us": [xs, ws],
+            "launch_overlap_us": max(0.0, min(le, ws) - max(ls, xs)),
+            "kernel_us": [ks, ke], "in_flight_us": [xs, xe],
+            "kernel_name": re.search(r"ghost_stencil_2d_kernel<[^>]*>", kern[0].name)[0],
+            "overlap_us": max(0.0, min(ke, xe) - max(ks, xs)),
+            "in_flight_span_us": xe - xs, "kernel_device_us": ke - ks,
+            "first_wait_us": mine[0][1] - mine[0][0],
+            "settled_wait_us": max(w[1] - w[0] for w in calm),
+            "kernel_lead_us": ws - ks}
+
+
 def sharded_rank(rank, world, tmp):
-    """One rank of phase 7 (b), spawned: gloo over a ``FileStore`` in
+    """One rank of phase 7 (c), spawned: gloo over a ``FileStore`` in
     ``tmp``, on ``cuda:0`` with the kernels phase 2 built.  The 2D bench
-    through ``solve_refined`` and ``solve_schur`` and the small 3D mesh
-    through ``solve_refined``; rank 0 checks the gathered fields against
-    phase 3's (aligned by patch id) and every rank writes its numbers to
-    ``tmp/rank<r>.json``.  Prints only lines that start with its rank."""
+    through ``solve_refined`` and ``solve_schur`` with each engine, one
+    profiled halo apply, and the small 3D mesh through ``solve_refined``
+    (halo); rank 0 checks the gathered fields against phase 3's (aligned by
+    patch id) and every rank writes its numbers to ``tmp/rank<r>.json``.
+    Prints only lines that start with its rank."""
     import torch
     import torch.distributed as dist
 
@@ -1162,6 +1450,7 @@ def sharded_rank(rank, world, tmp):
     from pressurepoissonsolver_torch.geometry import refined_tree
     from pressurepoissonsolver_torch.gmg import CycleOpts
     from pressurepoissonsolver_torch.ops import ghost_stencil as gs
+    from pressurepoissonsolver_torch.parallel.partition import block_partition, cut_faces
     from pressurepoissonsolver_torch.parallel.sharding import gather_patches, make_mesh
     from pressurepoissonsolver_torch.problems import get_problem, init_problem
     from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
@@ -1176,6 +1465,7 @@ def sharded_rank(rank, world, tmp):
     torch.backends.cudnn.allow_tf32 = False
     gs.build(2)
     gs.build(3)
+    gs.build_faces()
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
                             rank=rank, world_size=world)
     out = {"rank": rank}
@@ -1196,62 +1486,80 @@ def sharded_rank(rank, world, tmp):
             walls.append(time.perf_counter() - t0)
         return ret, walls
 
+    def counts(D):
+        return {"launches": dict(gs.launches if D == 2 else gs.launches_3d),
+                "nogf": dict(gs.launches_nogf[D]), "faces": dict(gs.launches_faces[D]),
+                "widths": dict(gs.widths[D])}
+
     try:
         mesh = make_mesh(world)
-        t0 = time.perf_counter()
-        solver, f, exact = sharded_setup(
-            torch, port, 2, 5, 2, 64, CycleOpts(
-                pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
-                coarse_direct_max_dof=4096), mesh)
-        op = solver._op
-        out["setup_s"] = time.perf_counter() - t0
-        out["setup_mib"] = torch.cuda.memory_allocated() / 2**20
-        out["comm_rows"], out["offsets"] = op.comm_rows, list(op.exchange.offsets)
-        out["widths_rows"] = list(op.exchange.widths)
-        out["host_staged"] = op.comm.host_staged
-        out["backend"] = op.comm.backend
-        from pressurepoissonsolver_torch.parallel.partition import block_partition, cut_faces
+        ref = np.load(os.path.join(tmp, "phase3.npz")) if rank == 0 else None
+        for comm in ("halo", "pjit"):
+            t0 = time.perf_counter()
+            mem0 = torch.cuda.memory_allocated()
+            solver, f, exact = sharded_setup(
+                torch, port, 2, 5, 2, 64, CycleOpts(
+                    pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                    coarse_direct_max_dof=4096), mesh, comm=comm)
+            op = solver._op
+            o = out[comm] = {"setup_s": time.perf_counter() - t0,
+                             "setup_mib": (torch.cuda.memory_allocated() - mem0) / 2**20,
+                             "host_staged": op.comm.host_staged,
+                             "backend": op.comm.backend}
+            text = ""
+            if comm == "halo":
+                o["split_shapes"] = split_shapes(solver)
+                o["comm_rows"], o["offsets"] = op.comm_rows, list(op.exchange.offsets)
+                o["cut_faces"] = cut_faces(op.pl, block_partition(op.P, world))
+                text = (f", offsets {op.exchange.offsets} rows per offset "
+                        f"{op.exchange.widths}, comm_rows {op.comm_rows} (cut faces "
+                        f"{o['cut_faces']})")
+            say(f"2D bench, {comm}: {op.Pl} of {op.P} patches, backend {op.comm.backend}, "
+                f"host-staged {op.comm.host_staged}{text}, setup {o['setup_s']:.2f} s, "
+                f"{o['setup_mib']:.1f} MiB on the card")
 
-        out["cut_faces"] = cut_faces(op.pl, block_partition(op.P, world))
-        say(f"2D bench: {op.Pl} of {op.P} patches, backend {op.comm.backend}, "
-            f"host-staged exchange {op.comm.host_staged}, offsets {op.exchange.offsets} "
-            f"rows per offset {op.exchange.widths}, comm_rows {op.comm_rows} "
-            f"(cut faces {out['cut_faces']}), setup {out['setup_s']:.2f} s, "
-            f"{out['setup_mib']:.1f} MiB on the card")
+            gs.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            (u, info), walls = timed(lambda: solver.solve_refined(f, tol=1e-10,
+                                                                  inner_tol=1e-4))
+            # the solves' peak, which holds the gathered operands whole
+            o["peak_mib"] = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+            o["ir"] = {"info": {k: v for k, v in info.items() if k != "outer_history"},
+                       "walls": walls, **counts(2), "report": solver.report(u, f, exact)}
+            say(f"2D bench solve_refined, {comm}: {info['outer_iterations']} / "
+                f"{info['inner_iterations']}, error {o['ir']['report']['error']:.6e}, "
+                f"walls {[round(w, 3) for w in walls]} s, stencil launches in the 2 "
+                f"solves {o['ir']['launches']} (no-gf {o['ir']['nogf']}), per width "
+                f"{o['ir']['widths']}")
+            ug = gather_patches(u, mesh).cpu().numpy()
 
-        gs.reset_launches()
-        (u, info), walls = timed(lambda: solver.solve_refined(f, tol=1e-10, inner_tol=1e-4))
-        out["ir"] = {"info": {k: v for k, v in info.items() if k != "outer_history"},
-                     "walls": walls, "launches": dict(gs.launches),
-                     "widths": dict(gs.widths[2]), "report": solver.report(u, f, exact)}
-        say(f"2D bench solve_refined: {info['outer_iterations']} / "
-            f"{info['inner_iterations']}, error {out['ir']['report']['error']:.6e}, "
-            f"walls {[round(w, 3) for w in walls]} s, stencil launches in the 2 solves "
-            f"{out['ir']['launches']}, per width {out['ir']['widths']}")
-        ug = gather_patches(u, mesh).cpu().numpy()
-
-        gs.reset_launches()
-        (us, res), walls = timed(lambda: solver.solve_schur(
-            f, tol=1e-10, max_iter=60, preconditioner="gmg"))
-        out["schur"] = {"iterations": res.iterations, "walls": walls,
-                        "launches": dict(gs.launches), "widths": dict(gs.widths[2]),
-                        "report": solver.report(us, f, exact)}
-        say(f"2D bench solve_schur(gmg): {res.iterations} iterations, error "
-            f"{out['schur']['report']['error']:.6e}, walls {[round(w, 3) for w in walls]} s,"
-            f" stencil launches in the 2 solves {out['schur']['launches']}")
-        usg = gather_patches(us, mesh).cpu().numpy()
-        if rank == 0:
-            ref = np.load(os.path.join(tmp, "phase3.npz"))
-            ids = op.pl.ids[: op.pl.real_patches]
-            order = np.argsort(ref["ids"])
-            pos = order[np.searchsorted(ref["ids"][order], ids)]
-            assert np.array_equal(ref["ids"][pos], ids)
-            nr = op.pl.real_patches
-            out["ir"]["diff"] = _rel_diff(ug[:nr], ref["u_ir"][pos])
-            out["schur"]["diff"] = _rel_diff(usg[:nr], ref["u_schur"][pos])
-            out["dummy_2d"] = [int(op.P - nr), float(np.abs(ug[nr:]).max(initial=0.0)),
-                               float(np.abs(usg[nr:]).max(initial=0.0))]
-        del solver, f, exact, u, us
+            gs.reset_launches()
+            (us, res), walls = timed(lambda: solver.solve_schur(
+                f, tol=1e-10, max_iter=60, preconditioner="gmg"))
+            o["schur"] = {"iterations": res.iterations, "walls": walls, **counts(2),
+                          "report": solver.report(us, f, exact)}
+            say(f"2D bench solve_schur(gmg), {comm}: {res.iterations} iterations, error "
+                f"{o['schur']['report']['error']:.6e}, walls "
+                f"{[round(w, 3) for w in walls]} s, stencil launches in the 2 solves "
+                f"{o['schur']['launches']} (no-gf {o['schur']['nogf']})")
+            usg = gather_patches(us, mesh).cpu().numpy()
+            if rank == 0:
+                ids = op.pl.ids[: op.pl.real_patches]
+                order = np.argsort(ref["ids"])
+                pos = order[np.searchsorted(ref["ids"][order], ids)]
+                assert np.array_equal(ref["ids"][pos], ids)
+                nr = op.pl.real_patches
+                o["ir"]["diff"] = _rel_diff(ug[:nr], ref["u_ir"][pos])
+                o["schur"]["diff"] = _rel_diff(usg[:nr], ref["u_schur"][pos])
+                o["dummy_2d"] = [int(op.P - nr), float(np.abs(ug[nr:]).max(initial=0.0)),
+                                 float(np.abs(usg[nr:]).max(initial=0.0))]
+            if comm == "halo":
+                gs.reset_launches()
+                ov = halo_overlap(torch, dist, op, u.to(torch.float64), rank)
+                o["overlap"] = {**(ov or {}), **counts(2)}
+                if ov:
+                    say(f"profiled halo apply (f64): {overlap_text(ov)}")
+            del solver, f, exact, u, us, op
 
         gs.reset_launches()
         solver, f, exact = sharded_setup(torch, port, 3, 3, 2, 8, CycleOpts(), mesh,
@@ -1261,14 +1569,15 @@ def sharded_rank(rank, world, tmp):
         pl = solver.fine_level.pl
         ug = gather_patches(u, mesh).cpu().numpy()
         out["small3d"] = {"info": {k: v for k, v in info.items() if k != "outer_history"},
-                          "walls": walls, "report": rep,
-                          "launches": dict(gs.launches_3d), "widths": dict(gs.widths[3]),
+                          "walls": walls, "report": rep, **counts(3),
                           "comm_rows": solver._op.comm_rows,
+                          "split_shapes": split_shapes(solver),
                           "dummy": [int(pl.num_patches - pl.real_patches),
                                     float(np.abs(ug[pl.real_patches:]).max(initial=0.0))]}
         say(f"small 3D (78 patches, n=8): {info['outer_iterations']} / "
             f"{info['inner_iterations']}, error {rep['error']:.10e}, wall "
-            f"{walls[0]:.3f} s, 3D launches {out['small3d']['launches']}")
+            f"{walls[0]:.3f} s, 3D launches {out['small3d']['launches']} (no-gf "
+            f"{out['small3d']['nogf']})")
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
@@ -1276,9 +1585,10 @@ def sharded_rank(rank, world, tmp):
 
 
 def sharded_world4(torch, hier_ids, u_ir, u_schur, card, tmp):
-    """Phase 7 (b): ``SHARDED_WORLD`` ranks spawned on the one card, each
-    held to the single-device counts and errors; any rank's failure fails
-    the phase.  The stencil launches summed over the ranks."""
+    """Phase 7 (c): ``SHARDED_WORLD`` ranks spawned on the one card, each
+    held to the single-device counts and errors with each engine; any
+    rank's failure fails the phase.  The stencil launches summed over the
+    ranks, and the no-gf ones."""
     import multiprocessing
 
     t0 = time.perf_counter()
@@ -1303,41 +1613,124 @@ def sharded_world4(torch, hier_ids, u_ir, u_schur, card, tmp):
     outs = [json.load(open(os.path.join(wdir, f"rank{r}.json")))
             for r in range(SHARDED_WORLD)]
     r0 = outs[0]
-    launches = {2: {"float32": 0, "float64": 0}, 3: {"float32": 0, "float64": 0}}
+    launches = {D: {"float32": 0, "float64": 0} for D in (2, 3)}
+    nogf = {D: {"float32": 0, "float64": 0} for D in (2, 3)}
+    faces = {D: {"float32": 0, "float64": 0} for D in (2, 3)}
+
+    def add(D, run):
+        # every split apply launches the face-term kernel once
+        assert run["faces"] == run["nogf"], run
+        for dt, c in run["launches"].items():
+            launches[D][dt] += c
+        for dt, c in run["nogf"].items():
+            nogf[D][dt] += c
+            faces[D][dt] += c
+
     for o in outs:
-        assert o["backend"] == "gloo" and o["host_staged"], o
-        assert 0 < o["comm_rows"] <= o["cut_faces"], o
-        for key, D, err in (("ir", 2, BENCH_ERROR), ("small3d", 3, SMALL3D_ERROR)):
-            info, rep = o[key]["info"], o[key]["report"]
-            want = (3, 7) if D == 2 else (2, 7)
-            assert info["outer_iterations"] == want[0], (key, o["rank"], info)
-            assert abs(info["inner_iterations"] - want[1]) <= 1, (key, o["rank"], info)
-            assert rep["residual"] <= 1e-10, (key, rep)
-            tol = 0.01 if D == 2 else 1e-6
-            assert abs(rep["error"] - err) <= tol * err, (key, rep)
-            assert o[key]["widths"]["1"] == 0 and sum(o[key]["launches"].values()), o[key]
-            for dt, c in o[key]["launches"].items():
-                launches[D][dt] += c
-        assert abs(o["schur"]["iterations"] - SCHUR_BENCH_ITERS) <= 1, o["schur"]
-        assert o["schur"]["report"]["residual"] <= 1e-10, o["schur"]
-        assert abs(o["schur"]["report"]["error"] - SCHUR_BENCH_ERROR) <= 0.01 * SCHUR_BENCH_ERROR
-        assert o["schur"]["widths"]["1"] == 0 and o["schur"]["launches"]["float32"] > 0
-        for dt, c in o["schur"]["launches"].items():
-            launches[2][dt] += c
-        assert o["small3d"]["dummy"][0] > 0 and o["small3d"]["dummy"][1] == 0.0, o["small3d"]
-    assert r0["ir"]["diff"] <= 1e-8 and r0["schur"]["diff"] <= 1e-8, (r0["ir"], r0["schur"])
-    assert r0["dummy_2d"][1:] == [0.0, 0.0], r0["dummy_2d"]
-    print(f"sharded world {SHARDED_WORLD} (gloo, one card) [{card}]: counts and errors "
-          f"as phase 3 on every rank; rank 0: max|u - u_phase3| / max|u_phase3| IR "
-          f"{r0['ir']['diff']:.3e}, Schur {r0['schur']['diff']:.3e}; 2D dummy patches "
-          f"{r0['dummy_2d'][0]}, small 3D dummy patches {r0['small3d']['dummy'][0]} "
-          f"(exactly 0); comm_rows per rank {[o['comm_rows'] for o in outs]} (cut faces "
-          f"{r0['cut_faces']}), offsets {r0['offsets']}; MiB on the card after setup "
-          f"per rank {[round(o['setup_mib'], 1) for o in outs]}; IR walls per rank "
-          f"{[[round(w, 3) for w in o['ir']['walls']] for o in outs]} s; stencil "
-          f"launches of the world {launches}; phase {time.perf_counter() - t0:.1f} s "
-          f"(a correctness run: the ranks share one card)", flush=True)
-    return launches
+        for comm in ("halo", "pjit"):
+            e = o[comm]
+            assert e["backend"] == "gloo" and e["host_staged"], e
+            info, rep = e["ir"]["info"], e["ir"]["report"]
+            assert info["outer_iterations"] == 3, (comm, o["rank"], info)
+            assert abs(info["inner_iterations"] - 7) <= 1, (comm, o["rank"], info)
+            assert rep["residual"] <= 1e-10, (comm, rep)
+            assert abs(rep["error"] - BENCH_ERROR) <= 0.01 * BENCH_ERROR, (comm, rep)
+            assert abs(e["schur"]["iterations"] - SCHUR_BENCH_ITERS) <= 1, e["schur"]
+            assert e["schur"]["report"]["residual"] <= 1e-10, e["schur"]
+            assert (abs(e["schur"]["report"]["error"] - SCHUR_BENCH_ERROR)
+                    <= 0.01 * SCHUR_BENCH_ERROR)
+            for run in (e["ir"], e["schur"]):
+                assert run["widths"]["1"] == 0 and run["launches"]["float32"] > 0, run
+                add(2, run)
+            # the halo engine splits every world-4 apply; the gathered one never
+            split = sum(e["ir"]["nogf"].values())
+            assert (split > 0) if comm == "halo" else (split == 0), (comm, e["ir"])
+        assert 0 < o["halo"]["comm_rows"] <= o["halo"]["cut_faces"], o["halo"]
+        add(2, o["halo"]["overlap"])
+        s3 = o["small3d"]
+        info, rep = s3["info"], s3["report"]
+        assert info["outer_iterations"] == 2 and abs(info["inner_iterations"] - 7) <= 1
+        assert rep["residual"] <= 1e-10, rep
+        assert abs(rep["error"] - SMALL3D_ERROR) <= 1e-6 * SMALL3D_ERROR, rep
+        assert s3["widths"]["1"] == 0 and sum(s3["launches"].values()) and sum(
+            s3["nogf"].values()), s3
+        add(3, s3)
+        assert s3["dummy"][0] > 0 and s3["dummy"][1] == 0.0, s3
+    for comm in ("halo", "pjit"):
+        e = r0[comm]
+        assert e["ir"]["diff"] <= 1e-8 and e["schur"]["diff"] <= 1e-8, (comm, e)
+        assert e["dummy_2d"][1:] == [0.0, 0.0], (comm, e["dummy_2d"])
+    ov = r0["halo"]["overlap"]
+    line = (f"sharded world {SHARDED_WORLD} (gloo, one card) [{card}]: counts and errors "
+            f"as phase 3 on every rank with both engines; rank 0: max|u - u_phase3| / "
+            f"max|u_phase3| IR halo {r0['halo']['ir']['diff']:.3e} pjit "
+            f"{r0['pjit']['ir']['diff']:.3e}, Schur halo "
+            f"{r0['halo']['schur']['diff']:.3e} pjit {r0['pjit']['schur']['diff']:.3e}; "
+            f"2D dummy patches {r0['halo']['dummy_2d'][0]}, small 3D dummy patches "
+            f"{r0['small3d']['dummy'][0]} (exactly 0); comm_rows per rank "
+            f"{[o['halo']['comm_rows'] for o in outs]} (cut faces "
+            f"{r0['halo']['cut_faces']}), offsets {r0['halo']['offsets']}; MiB on the "
+            f"card after setup per rank: halo "
+            f"{[round(o['halo']['setup_mib'], 1) for o in outs]}, pjit "
+            f"{[round(o['pjit']['setup_mib'], 1) for o in outs]}, peak in the IR solves "
+            f"halo {[round(o['halo']['peak_mib'], 1) for o in outs]}, pjit "
+            f"{[round(o['pjit']['peak_mib'], 1) for o in outs]}; IR walls per rank: "
+            f"halo {[[round(w, 3) for w in o['halo']['ir']['walls']] for o in outs]} s, "
+            f"pjit {[[round(w, 3) for w in o['pjit']['ir']['walls']] for o in outs]} s; "
+            f"Schur walls rank 0: halo {[round(w, 3) for w in r0['halo']['schur']['walls']]}"
+            f" pjit {[round(w, 3) for w in r0['pjit']['schur']['walls']]} s; stencil "
+            f"launches of the world {launches}, no-gf {nogf}, face-term kernel "
+            f"{faces}; profiled halo apply on rank 0: {overlap_text(ov)}; phase "
+            f"{time.perf_counter() - t0:.1f} s (a correctness run: the ranks share one "
+            f"card)")
+    print(line, flush=True)
+    # the base kernel was launched while the exchange was outstanding:
+    # after every offset was posted, before the first wait (launched after
+    # the waits, or with the waits inside the start, it lies outside)
+    (ls, le), (xs, ws) = ov["launch_us"], ov["outstanding_us"]
+    assert xs <= ls and le <= ws and ov["launch_overlap_us"] > 0, ov
+    shapes = {2: {tuple(x) for o in outs for x in o["halo"]["split_shapes"]},
+              3: {tuple(x) for o in outs for x in o["small3d"]["split_shapes"]}}
+    return launches, nogf, faces, shapes
+
+
+def multihost_check(card, tmp):
+    """Phase 7 (e): ``scripts.multihost --device cuda`` in a process group
+    of its own (killed whole on a timeout); both engines must match the
+    single-process solve.  The per-rank 2D ``(P, n)`` shapes of its
+    solves."""
+    import signal
+    import subprocess
+
+    from pressurepoissonsolver_torch.scripts import multihost
+
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "multihost.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pressurepoissonsolver_torch.scripts.multihost",
+         "--device", "cuda", "--out", out], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=MULTIHOST_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, log[-4000:]
+    with open(out) as fh:
+        rep = json.load(fh)
+    print(f"multihost [{card}]: {rep['processes']} hosts x {rep['devices_per_process']} "
+          f"ranks, {rep['dof']} DOF, backend {rep['backend']!r}; pjit "
+          f"{rep['pjit']['iterations']} iterations, max|u - u_1proc| "
+          f"{rep['pjit']['max_abs_diff_vs_1proc']:.3e}; halo {rep['halo']['iterations']} "
+          f"iterations, {rep['halo']['max_abs_diff_vs_1proc']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    assert rep["ok"] and rep["pjit"]["match"] and rep["halo"]["match"], rep
+    # the per-rank shapes of the job's halo solves: every level of its
+    # hierarchy over its ranks
+    h, _, _ = multihost.build_problem()
+    k = multihost.NPROC * multihost.NDEV_PER_PROC
+    return {(h[i].num_patches // k, h[i].n) for i in range(len(h))}
 
 
 def sharded_cli(torch, cli, gs, card, head, phase5):
@@ -1362,29 +1755,48 @@ def sharded_cli(torch, cli, gs, card, head, phase5):
     return launches
 
 
-def sharded_phase(torch, port, cli, gs, card, tmp, u_ir, u_schur, hier_ids, head, phase5):
-    """Phase 7: the patch-sharded solve (a), (b), (c); the stencil launches
-    of the phase per dimension and dtype."""
+def sharded_phase(torch, port, cli, gs, timer, card, bw, tmp, u_ir, u_schur, hier_ids,
+                  head, phase5):
+    """Phase 7: the patch-sharded solve (a) to (f); the stencil launches of
+    the phase per dimension and dtype, the no-gf ones, the no-gf numbers
+    of (b) and the face-term kernel's table entries (launches from (c);
+    the largest errors of (b) and (f), and the shapes checked)."""
     t0 = time.perf_counter()
     launches = sharded_world1(torch, port, gs, card, u_ir, u_schur)
-    for D, per in sharded_world4(torch, hier_ids, u_ir, u_schur, card, tmp).items():
+    table, faces_table = nogf_kernels(torch, gs, timer, card, bw)
+    w4, nogf, faces, shapes = sharded_world4(torch, hier_ids, u_ir, u_schur, card, tmp)
+    for D, per in w4.items():
         for dt, c in per.items():
             launches[D][dt] += c
     for dt, c in sharded_cli(torch, cli, gs, card, head[2], phase5).items():
         launches[2][dt] += c
+    shapes[2] |= multihost_check(card, tmp)
+    shapes = {D: sorted(sh, reverse=True) for D, sh in shapes.items()}
+    for D, per in check_path_shapes(torch, gs, card, shapes).items():
+        for name, (nogf_err, faces_err) in per.items():
+            t, f = table[D][name], faces_table[D][name]
+            t["nogf_max_abs_err"] = max(t["nogf_max_abs_err"], nogf_err)
+            f["max_abs_err"] = max(f["max_abs_err"], faces_err)
+            t["nogf_shapes"] = f["shapes"] = [list(NOGF_SHAPES[D])] + [
+                list(x) for x in shapes[D]]
     print(f"sharded phase {time.perf_counter() - t0:.1f} s; stencil launches "
-          f"{launches}", flush=True)
-    return launches
+          f"{launches}, no-gf {nogf}, face-term kernel {faces}", flush=True)
+    for D in (2, 3):
+        for name, cnt in faces[D].items():
+            faces_table[D][name]["launches"] = cnt
+    return launches, nogf, table, faces_table
 
 
 def build_kernels(gs, cuda_build) -> None:
     """Phase 2: one nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(gs.build, D) for D in (2, 3)]:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+        for fut in [pool.submit(gs.build, 2), pool.submit(gs.build, 3),
+                    pool.submit(gs.build_faces)]:
             fut.result()
-    print(f"built both kernels in {time.perf_counter() - t0:.2f} s", flush=True)
-    for lib in ("ghost_stencil", "ghost_stencil_3d"):
+    print(f"built the three kernel libraries in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    for lib in ("ghost_stencil", "ghost_stencil_3d", "ghost_faces"):
         info = cuda_build.build_info[lib]
         print(f"  {lib}: nvcc {info['seconds']:.2f} s", flush=True)
         for line in info["log"].splitlines():
@@ -1465,8 +1877,9 @@ def main() -> None:
 
         # phase 7: the patch-sharded solve, each part driven with the
         # launch counts set to 0 just before it and read just after
-        sharded = sharded_phase(torch, port, cli, gs, card, tmp, head=head,
-                                phase5=phase5, **phase3)
+        sharded, nogf, nogf_table, faces_table = sharded_phase(
+            torch, port, cli, gs, timer, card, bw, tmp, head=head, phase5=phase5,
+            **phase3)
         for D in (2, 3):
             for name, cnt in sharded[D].items():
                 launches[D][name] += cnt
@@ -1480,6 +1893,20 @@ def main() -> None:
             "replaces": REPLACES[D],
             "launches": launches[D][name],
             **tables[D][name],
+            # the no-gf mode (the halo apply's base stencil): its launches
+            # are counted in "launches" too
+            "nogf_launches": nogf[D][name],
+            **nogf_table[D][name],
+        }
+        for D in (2, 3)
+        for name in ("float32", "float64")
+    ] + [
+        {
+            "name": f"ghost_faces_{D}d_{name}",
+            "route": "cuda",
+            "source": FACES_SOURCE,
+            "replaces": FACES_REPLACES,
+            **faces_table[D][name],
         }
         for D in (2, 3)
         for name in ("float32", "float64")

@@ -16,9 +16,11 @@ W-cycles with constant or linear prolongation, the quadratic 2D closures,
 the assembled operators (``matrix.bcoo_matvec``, ``pbm_matvec``) and the
 command-line apps (``python -m pressurepoissonsolver_torch.apps.steady2d``
 / ``steady3d``, :mod:`.cli`), and runs them patch-sharded over several
-devices, one rank each, through the cut-face halo engine over
-``torch.distributed`` (:mod:`.parallel`; the reference's ``comm="pjit"``
-engine is not ported).  The ghost-closure stencils run as the CUDA kernels in
+devices, one rank each, over ``torch.distributed`` (:mod:`.parallel`)
+through either of the reference's engines: the cut-face halo engine, whose
+exchange overlaps the stencil, or the gathered engine (``comm="pjit"``).
+It also runs the reference's multi-host check
+(:mod:`.scripts.multihost`).  The ghost-closure stencils run as the CUDA kernels in
 ``csrc/ghost_stencil.cu`` (2D) and ``csrc/ghost_stencil_3d.cu`` (3D) on
 CUDA tensors and as their plain PyTorch versions on CPU tensors.
 

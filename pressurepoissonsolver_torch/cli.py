@@ -8,8 +8,9 @@ GMG cycle options, tolerance, outputs, and ini config read/write
 runs on the CUDA card unless ``main`` is given another ``device``.
 
 ``--shards N`` runs the solve patch-sharded over N ranks, one per device,
-through the cut-face halo engine (``--comm auto|halo``; ``pjit`` is not
-ported): launch it as ``torchrun --nproc-per-node N -m
+through the cut-face halo engine (``--comm auto|halo``) or the gathered
+engine (``--comm pjit``, whose ops all-gather their operands): launch it
+as ``torchrun --nproc-per-node N -m
 pressurepoissonsolver_torch.apps.steady2d --shards N ...``; ``--shards 1``
 without ``torchrun`` starts a one-rank group of its own.  Rank 0 alone
 prints and writes the outputs.  :func:`parse_args`, :func:`setup` and
@@ -94,7 +95,8 @@ def build_parser(D: int) -> argparse.ArgumentParser:
     p.add_argument("--comm", type=str, default="auto",
                    choices=["auto", "pjit", "halo"],
                    help="multi-device communication schedule (with --shards); "
-                   "auto = the cut-face halo engine (pjit is not ported)")
+                   "auto = halo, the cut-face exchange; pjit = each op "
+                   "all-gathers its operand")
     p.add_argument("-t", "--tolerance", type=float, default=1e-12)
     p.add_argument("--max_iterations", type=int, default=1000)
     p.add_argument("--dtype", type=str, default="float64",
@@ -244,8 +246,6 @@ def parse_args(D: int, argv=None):
             parser.error(
                 f"--shards {args.shards} but the world has {world} rank(s); "
                 f"launch with torchrun --nproc-per-node {args.shards}")
-        if args.comm == "pjit":
-            parser.error("--comm pjit is not ported yet; use --comm halo")
     if args.neumann and args.neumann_sides:
         parser.error("--neumann and --neumann-sides are exclusive")
     return parser, args

@@ -47,6 +47,11 @@
 // by timing 1 to 8 rows at the bench shape and at n=63 (PERF.md).
 // The kernel allocates nothing, launches on the caller's stream and does
 // not synchronise.
+//
+// No-gf mode: a null gf pointer means the ghost is coef * u_b and gf is not
+// read (the template's G = false).  The sharded apply launches it on its
+// own rows while the cut-face exchange is in flight and adds the face term
+// 2 * h2 * gf afterwards, on the boundary cells.
 
 #include <cuda_runtime.h>
 
@@ -109,8 +114,8 @@ int vector_width(const void* u, const void* gf, const void* out, int n) {
 }
 
 // one thread per (patch, chunk of kRows<T, W> rows, vector of a row), vector
-// fastest
-template <typename T, int W>
+// fastest; G: gf is read (else the ghost is coef * u_b)
+template <typename T, int W, bool G>
 __global__ void __launch_bounds__(kThreads)
     ghost_stencil_2d_kernel(const T* __restrict__ u, const T* __restrict__ gf,
                             const T* __restrict__ coef,
@@ -131,7 +136,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* up = u + p * n * n + x0;  // row y at up + y * n
   T* op = out + p * n * n + x0;
-  const T* g = gf + p * 4 * n;
+  const T* g = G ? gf + p * 4 * n : nullptr;
   const T* cp = coef + p * 4;
   const T c0 = cp[0], c1 = cp[1], c2 = cp[2], c3 = cp[3];
   const T hx = h2[2 * p], hy = h2[2 * p + 1];
@@ -150,11 +155,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < kRows<T, W>; ++k) {
     const int y = y0 + k;
-    gx[k] = in && y < y1 && (xv == 0 || xv == nx - 1) ? g[(xv == 0 ? 0 : n) + y]
-                                                      : T(0);
+    gx[k] = G && in && y < y1 && (xv == 0 || xv == nx - 1)
+                ? g[(xv == 0 ? 0 : n) + y]
+                : T(0);
   }
-  const V gyl = in && y0 == 0 ? load<T, W>(g + 2 * n + x0) : V{};
-  const V gyh = in && y1 == n ? load<T, W>(g + 3 * n + x0) : V{};
+  const V gyl = G && in && y0 == 0 ? load<T, W>(g + 2 * n + x0) : V{};
+  const V gyh = G && in && y1 == n ? load<T, W>(g + 3 * n + x0) : V{};
 
   // every lane of a warp takes the same steps, for the shuffles
 #pragma unroll
@@ -170,7 +176,7 @@ __global__ void __launch_bounds__(kThreads)
       else
         lox = lane ? from_lo : up[y * n - 1];
       if (xv == nx - 1)
-        hix = c1 * c.a[W - 1] + two * (xv == 0 ? g[n + y] : gx[k]);
+        hix = c1 * c.a[W - 1] + two * (!G ? T(0) : xv == 0 ? g[n + y] : gx[k]);
       else
         hix = lane != 31 ? from_hi : up[y * n + W];
       const V loy = y == 0 ? ghost<T, W>(c2, c, gyl) : v[k];
@@ -188,7 +194,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int W>
+template <typename T, int W, bool G>
 int launch_width(const void* u, const void* gf, const void* coef,
                  const void* h2, void* out, long long P, int n,
                  cudaStream_t stream) {
@@ -196,7 +202,7 @@ int launch_width(const void* u, const void* gf, const void* coef,
   const long long walkers = P * chunks * (n / W);
   const long long blocks = (walkers + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  ghost_stencil_2d_kernel<T, W>
+  ghost_stencil_2d_kernel<T, W, G>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<const T*>(u), static_cast<const T*>(gf),
           static_cast<const T*>(coef), static_cast<const T*>(h2),
@@ -210,10 +216,13 @@ int launch(const void* u, const void* gf, const void* coef, const void* h2,
   if (P <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   if (n > 46340) return cudaErrorInvalidValue;  // n * n fits an int
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vector_width<T>(u, gf, out, n) > 1)
-    return launch_width<T, static_cast<int>(16 / sizeof(T))>(u, gf, coef, h2,
-                                                             out, P, n, s);
-  return launch_width<T, 1>(u, gf, coef, h2, out, P, n, s);
+  constexpr int V = static_cast<int>(16 / sizeof(T));
+  const bool vec = vector_width<T>(u, gf, out, n) > 1;
+  if (gf == nullptr)
+    return vec ? launch_width<T, V, false>(u, gf, coef, h2, out, P, n, s)
+               : launch_width<T, 1, false>(u, gf, coef, h2, out, P, n, s);
+  return vec ? launch_width<T, V, true>(u, gf, coef, h2, out, P, n, s)
+             : launch_width<T, 1, true>(u, gf, coef, h2, out, P, n, s);
 }
 
 }  // namespace

@@ -65,6 +65,12 @@
 // spilled at <float, 1>, none in the others.  The tile, slab and ring depth
 // were chosen by timing variants at the bench shape (PERF.md).  The kernel allocates nothing,
 // launches on the caller's stream and does not synchronise.
+//
+// No-gf mode: a null gf pointer means the ghost is coef * u_b and gf is not
+// read (the template's G = false: no face entries are copied into the
+// ring).  The sharded apply launches it on its own rows while the cut-face
+// exchange is in flight and adds the face term 2 * h2 * gf afterwards, on
+// the boundary cells.
 
 #include <cuda_runtime.h>
 
@@ -175,8 +181,9 @@ template <typename T, int W>
 constexpr int kRowsPerThread = 16 / (static_cast<int>(sizeof(T)) * W);
 
 // blockDim.x = n / W vectors times the tile's thread rows, rounded up to
-// whole warps; grid = P * ytiles * slabs blocks, slab fastest
-template <typename T, int W>
+// whole warps; grid = P * ytiles * slabs blocks, slab fastest; G: gf is read
+// (else the ghost is coef * u_b)
+template <typename T, int W, bool G>
 __global__ void __launch_bounds__(kMaxThreads, 2)
     ghost_stencil_3d_kernel(const T* __restrict__ u, const T* __restrict__ gf,
                             const T* __restrict__ coef,
@@ -219,7 +226,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 
   const T* up = u + p * m * n;
   T* op = out + p * m * n;
-  const T* g = gf + p * 6 * m;
+  const T* g = G ? gf + p * 6 * m : nullptr;
   // coef is held in registers in float; in double, whose registers are
   // scarcer, it is read where a ghost needs it
   const T* cp = coef + p * 6;
@@ -260,7 +267,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
 #pragma unroll
       for (int k = 0; k < R; ++k) {
         const int y = yt + k;
-        if (y < yend) {
+        if (G && y < yend) {
           if (y == 0) copy_async<sizeof(V)>(yf + x0, g + 2 * m + q * n + x0);
           if (y == n - 1)
             copy_async<sizeof(V)>(yf + n + x0, g + 3 * m + q * n + x0);
@@ -287,7 +294,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
     V gz[R];
 #pragma unroll
     for (int k = 0; k < R; ++k)
-      gz[k] = !kLean && yt + k < yend && (z == 0 || z == n - 1)
+      gz[k] = G && !kLean && yt + k < yend && (z == 0 || z == n - 1)
                   ? load<T, W>(g + (z == 0 ? 4 : 5) * m + r + k * n)
                   : V{};
     // planes up to z+1 have landed; kDepth - 1 more may be in flight
@@ -323,32 +330,33 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
         const T* tk = t + k * n;
         T lox, hix;
         if (xv == 0)
-          lox = cf(0) * c[k].a[0] + two * xf[y - y0];
+          lox = cf(0) * c[k].a[0] + two * (G ? xf[y - y0] : T(0));
         else
           lox = W > 1 && lane ? from_lo : tk[-1];
         if (xv == nx - 1)
-          hix = cf(1) * c[k].a[W - 1] + two * xf[rows + y - y0];
+          hix = cf(1) * c[k].a[W - 1] + two * (G ? xf[rows + y - y0] : T(0));
         else
           hix = W > 1 && lane != 31 ? from_hi : tk[W];
         // +-y: the thread's own rows, else the ring's (a halo row at the
         // tile's edge); rows are whole multiples of R within a tile
-        const V loy = y == 0 ? ghost<T, W>(cf(2), c[k], load<T, W>(yf + x0))
+        const V loy = y == 0 ? ghost<T, W>(cf(2), c[k], G ? load<T, W>(yf + x0) : V{})
                       : k > 0 ? c[k - 1]
                               : load<T, W>(tk - n);
         const V hiy = y == n - 1
-                          ? ghost<T, W>(cf(3), c[k], load<T, W>(yf + n + x0))
+                          ? ghost<T, W>(cf(3), c[k], G ? load<T, W>(yf + n + x0) : V{})
                       : k < R - 1 ? c[k + 1]
                                   : load<T, W>(tk + n);
         const V loz =
             z == 0 ? ghost<T, W>(cf(4), c[k],
-                                 kLean ? load<T, W>(g + 4 * m + r + k * n) : gz[k])
+                                 G && kLean ? load<T, W>(g + 4 * m + r + k * n) : gz[k])
                    : zm[k];
         // (n = 1: the one plane needs both z faces)
         const V hiz =
             z == n - 1
                 ? ghost<T, W>(cf(5), c[k],
-                              kLean || z == 0 ? load<T, W>(g + 5 * m + r + k * n)
-                                              : gz[k])
+                              G && (kLean || z == 0)
+                                  ? load<T, W>(g + 5 * m + r + k * n)
+                                  : gz[k])
                 : zp[k];
         V o;
 #pragma unroll
@@ -368,7 +376,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   wait_copies<0>();  // no copy outlives the block
 }
 
-template <typename T, int W>
+template <typename T, int W, bool G>
 int launch_width(const void* u, const void* gf, const void* coef,
                  const void* h2, void* out, long long P, int n,
                  cudaStream_t stream) {
@@ -392,11 +400,11 @@ int launch_width(const void* u, const void* gf, const void* coef,
     return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        ghost_stencil_3d_kernel<T, W>,
+        ghost_stencil_3d_kernel<T, W, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  ghost_stencil_3d_kernel<T, W>
+  ghost_stencil_3d_kernel<T, W, G>
       <<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(gf),
       static_cast<const T*>(coef), static_cast<const T*>(h2),
@@ -410,10 +418,13 @@ int launch(const void* u, const void* gf, const void* coef, const void* h2,
   if (P <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   if (n > kMaxThreads) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vector_width<T>(u, gf, out, n) > 1)
-    return launch_width<T, static_cast<int>(16 / sizeof(T))>(u, gf, coef, h2,
-                                                             out, P, n, s);
-  return launch_width<T, 1>(u, gf, coef, h2, out, P, n, s);
+  constexpr int V = static_cast<int>(16 / sizeof(T));
+  const bool vec = vector_width<T>(u, gf, out, n) > 1;
+  if (gf == nullptr)
+    return vec ? launch_width<T, V, false>(u, gf, coef, h2, out, P, n, s)
+               : launch_width<T, 1, false>(u, gf, coef, h2, out, P, n, s);
+  return vec ? launch_width<T, V, true>(u, gf, coef, h2, out, P, n, s)
+             : launch_width<T, 1, true>(u, gf, coef, h2, out, P, n, s);
 }
 
 }  // namespace

@@ -18,14 +18,15 @@ The cycles mirror ``GMG::VCycle``/``GMG::WCycle`` (``GMG/VCycle.h:44-60``,
 ``GMG/WCycle.h:42-67``) with FAC active-set smoothing on the coarse levels
 and a dense direct solve at the bottom.
 
-With a mesh (``build_gmg(..., mesh=)``) every level, transfer and
-active-set smoother is the halo engine's (:mod:`.parallel.halo`) and works
-on this rank's block of rows; the coarse direct solve all-gathers the
-coarsest right-hand side, multiplies it by the replicated inverse and keeps
-this rank's rows.  The reference first builds masked full sweeps for its
-sharded levels and then upgrades them (``attach_sharded_active``); the
-masked form serves only its ``comm="pjit"`` engine, which is not ported,
-so here the cycle builds the per-rank subset smoothers at once.
+With a mesh (``build_gmg(..., mesh=, comm=)``) every level, transfer and
+active-set smoother is a sharded engine's and works on this rank's block
+of rows: the cut-face halo engine's (:mod:`.parallel.halo`, ``comm="halo"``,
+with per-rank subset smoothers) or the gathered engine's
+(:mod:`.parallel.gathered`, ``comm="pjit"``, with the reference's masked
+full sweeps).  The cycle asks each level for its active-set smoother
+(``Level.active_smoother``) and never branches on the engine.  The coarse
+direct solve all-gathers the coarsest right-hand side, multiplies it by
+the replicated inverse and keeps this rank's rows.
 """
 
 from __future__ import annotations
@@ -400,16 +401,19 @@ def build_gmg(
     device="cuda",
     fine=None,
     mesh=None,
+    comm: str = "halo",
 ) -> GMGCycle:
     """Build the level stack + transfers (reference
     ``GMG::CycleFactory2d::getCycle``, ``GMG/CycleFactory2d.cpp:69-134``):
     stop adding levels when ``max_levels`` is reached, the patch count per
     shard falls below ``patches_per_shard``, or the coarsest level is small
     enough for the direct solve.  ``fine`` reuses an existing finest level
-    of the same dtype (a ``ShardedLevel`` with a mesh).  With ``mesh`` every
-    level and transfer runs patch-sharded through the halo engine on this
-    rank's ``device``; the global levels behind them are built on the host,
-    and only this rank's rows and tables go to the device."""
+    of the same dtype (the engine's level with a mesh).  With ``mesh`` every
+    level and transfer runs patch-sharded on this rank's ``device``, through
+    the halo engine (``comm="halo"``) or the gathered engine
+    (``comm="pjit"``, the reference's ``build_gmg(mesh=)``); the global
+    levels behind them are built on the host, and only this rank's rows and
+    tables go to the device."""
     opts = opts or CycleOpts()
     num_shards = 1 if mesh is None else mesh.size()
     host = device if mesh is None else torch.device("cpu")
@@ -434,10 +438,9 @@ def build_gmg(
                                   prolong_mode=opts.interpolator))
         levels.append(lvl)
     if mesh is not None:
-        from .parallel.halo import ShardedLevel, ShardedTransfer
+        from .parallel.rank_block import engine_classes
 
-        levels = [lvl if isinstance(lvl, ShardedLevel) else ShardedLevel(lvl, mesh, device)
-                  for lvl in levels]
-        transfers = [ShardedTransfer(t, levels[k], levels[k + 1])
-                     for k, t in enumerate(transfers)]
+        Lv, Tr = engine_classes(comm)
+        levels = [lvl if isinstance(lvl, Lv) else Lv(lvl, mesh, device) for lvl in levels]
+        transfers = [Tr(t, levels[k], levels[k + 1]) for k, t in enumerate(transfers)]
     return GMGCycle(levels, transfers, opts)

@@ -297,9 +297,10 @@ def schur_block_jacobi(level, A_S: sp.csr_matrix = None, engine=None):
     ``getDiagInv`` + ``BlockJacobiSmoother``, ``Experimental/PBMatrix.cpp``),
     applied as one batched matmul on ``level``'s device.
 
-    ``engine`` (optional): a halo ``ShardedLevel`` of ``level``; the
-    inverse blocks are then this rank's block of its owner-sharded gamma
-    layout (identity blocks on the padding rows), on the engine's device."""
+    ``engine`` (optional): a sharded engine of ``level`` (the halo
+    ``ShardedLevel`` or the gathered ``GatheredLevel``); the inverse blocks
+    are then this rank's block of its sharded gamma layout (identity blocks
+    on the padding rows), on the engine's device."""
     if A_S is None:
         A_S = assemble_schur(level)
     m = level.m

@@ -30,11 +30,24 @@ The launcher's own rule (``pps_ghost_stencil_vector_width``, on the
 launch's pointers) names the path of each launch: ``widths`` counts the
 launches per path and ``last_width`` holds the last one's.
 ``vector_width`` is the same rule in Python.
+
+No-gf mode: ``gf=None`` gives the stencil with the ghost ``coef * u_b``
+(the kernels take a null pointer and read no face entries); those
+launches are counted in ``launches``/``launches_3d`` with the others and
+also in ``launches_nogf``.  :func:`add_ghost_faces` adds the face term
+``2 * h2 * gf`` afterwards, so that ``add_ghost_faces(stencil(u, None),
+gf, h2)`` is ``stencil(u, gf)`` up to rounding: the split the sharded
+apply uses to run the stencil while its cut-face exchange is in flight.
+On a CUDA tensor the face term is a kernel of its own
+(``csrc/ghost_faces.cu``, one thread per boundary cell; counted in
+``launches_faces``), on a CPU tensor its plain version
+:func:`add_ghost_faces_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -44,6 +57,8 @@ from .. import cuda_build
 launches = {"float32": 0, "float64": 0}
 #: 3D kernel launches per dtype name
 launches_3d = {"float32": 0, "float64": 0}
+#: per D: the launches of the no-gf mode per dtype name (also counted above)
+launches_nogf = {2: {"float32": 0, "float64": 0}, 3: {"float32": 0, "float64": 0}}
 #: per D: kernel launches per elements per thread (1, 2 or 4)
 widths = {2: {1: 0, 2: 0, 4: 0}, 3: {1: 0, 2: 0, 4: 0}}
 #: per D: elements per thread of the last launch (0 before any)
@@ -62,7 +77,8 @@ _fns = {}  # (D, dtype) -> ctypes function
 
 
 def reset_launches() -> None:
-    for counts in (*_COUNTS.values(), *widths.values()):
+    for counts in (*_COUNTS.values(), *widths.values(), *launches_nogf.values(),
+                   *launches_faces.values()):
         for k in counts:
             counts[k] = 0
 
@@ -109,7 +125,8 @@ def vector_width(n: int, dtype: torch.dtype, *data_ptrs: int) -> int:
 
 
 def _plain(u, gf, coef, h2) -> torch.Tensor:
-    """The reference's ``_star_stencil`` in torch, for D = ``u.dim() - 1``."""
+    """The reference's ``_star_stencil`` in torch, for D = ``u.dim() - 1``
+    (``gf=None``: the ghost is ``coef * u_b``)."""
     D = u.dim() - 1
     P, n = u.shape[0], u.shape[-1]
     face = (P,) + (n,) * (D - 1)
@@ -117,10 +134,11 @@ def _plain(u, gf, coef, h2) -> torch.Tensor:
     out = None
     for a in range(D):
         ax = D - a  # array axis of spatial axis a (x fastest)
-        ghost_lo = (coef[:, 2 * a].reshape(col) * u.select(ax, 0)
-                    + 2.0 * gf[:, 2 * a].reshape(face))
-        ghost_hi = (coef[:, 2 * a + 1].reshape(col) * u.select(ax, n - 1)
-                    + 2.0 * gf[:, 2 * a + 1].reshape(face))
+        ghost_lo = coef[:, 2 * a].reshape(col) * u.select(ax, 0)
+        ghost_hi = coef[:, 2 * a + 1].reshape(col) * u.select(ax, n - 1)
+        if gf is not None:
+            ghost_lo = ghost_lo + 2.0 * gf[:, 2 * a].reshape(face)
+            ghost_hi = ghost_hi + 2.0 * gf[:, 2 * a + 1].reshape(face)
         lo = torch.cat([ghost_lo.unsqueeze(ax), u.narrow(ax, 0, n - 1)], dim=ax)
         hi = torch.cat([u.narrow(ax, 1, n - 1), ghost_hi.unsqueeze(ax)], dim=ax)
         term = (lo - 2.0 * u + hi) * h2[:, a].reshape((P,) + (1,) * D)
@@ -128,14 +146,14 @@ def _plain(u, gf, coef, h2) -> torch.Tensor:
     return out
 
 
-def ghost_stencil_plain(u: torch.Tensor, gf: torch.Tensor, coef: torch.Tensor,
+def ghost_stencil_plain(u: torch.Tensor, gf: Optional[torch.Tensor], coef: torch.Tensor,
                         h2: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the 2D kernel (``_star_stencil`` at D=2)."""
     _check(2, u, gf, coef, h2)
     return _plain(u, gf, coef, h2)
 
 
-def ghost_stencil_3d_plain(u: torch.Tensor, gf: torch.Tensor,
+def ghost_stencil_3d_plain(u: torch.Tensor, gf: Optional[torch.Tensor],
                            coef: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the 3D kernel (``_star_stencil`` at D=3)."""
     _check(3, u, gf, coef, h2)
@@ -149,12 +167,14 @@ def _check(D, u, gf, coef, h2) -> None:
         )
     P, n = u.shape[0], u.shape[1]
     want = {"gf": (P, 2 * D, n ** (D - 1)), "coef": (P, 2 * D), "h2": (P, D)}
-    for name, t in (("gf", gf), ("coef", coef), ("h2", h2)):
+    named = [(k, t) for k, t in (("u", u), ("gf", gf), ("coef", coef), ("h2", h2))
+             if t is not None]
+    for name, t in named[1:]:
         if tuple(t.shape) != want[name]:
             raise ValueError(
                 f"{name} must be {want[name]}, got {tuple(t.shape)}"
             )
-    for name, t in (("u", u), ("gf", gf), ("coef", coef), ("h2", h2)):
+    for name, t in named:
         if t.dtype not in _NAMES or t.dtype != u.dtype:
             raise TypeError(
                 f"{name}: dtype {t.dtype}; all inputs must be one of "
@@ -171,7 +191,7 @@ def _run(D, u, gf, coef, h2) -> torch.Tensor:
     if u.device.type != "cuda":
         raise ValueError(f"no ghost-stencil kernel for device {u.device}")
     for name, t in (("u", u), ("gf", gf), ("coef", coef), ("h2", h2)):
-        if not t.is_contiguous():
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n = u.shape[1]
     if n > _MAX_N[D]:
@@ -179,8 +199,9 @@ def _run(D, u, gf, coef, h2) -> torch.Tensor:
     if (D, u.dtype) not in _fns:
         build(D)
     out = torch.empty_like(u)
+    gf_ptr = 0 if gf is None else gf.data_ptr()
     width = build(D).pps_ghost_stencil_vector_width(
-        u.data_ptr(), gf.data_ptr(), out.data_ptr(), n, u.element_size())
+        u.data_ptr(), gf_ptr, out.data_ptr(), n, u.element_size())
     if u.device.index == torch.cuda.current_device():
         err = _launch(D, u, gf, coef, h2, out)
     else:
@@ -190,26 +211,128 @@ def _run(D, u, gf, coef, h2) -> torch.Tensor:
         msg = build(D).pps_cuda_error_string(err).decode()
         raise RuntimeError(f"{D}D ghost_stencil launch failed: {msg} ({err})")
     _COUNTS[D][_NAMES[u.dtype]] += 1
+    if gf is None:
+        launches_nogf[D][_NAMES[u.dtype]] += 1
     widths[D][width] += 1
     last_width[D] = width
     return out
 
 
-def ghost_stencil(u: torch.Tensor, gf: torch.Tensor, coef: torch.Tensor,
+def ghost_stencil(u: torch.Tensor, gf: Optional[torch.Tensor], coef: torch.Tensor,
                   h2: torch.Tensor) -> torch.Tensor:
-    """2D ``A_local u`` with explicit ghost faces (see the module doc)."""
+    """2D ``A_local u`` with explicit ghost faces, or none with ``gf=None``
+    (see the module doc)."""
     return _run(2, u, gf, coef, h2)
 
 
-def ghost_stencil_3d(u: torch.Tensor, gf: torch.Tensor, coef: torch.Tensor,
+def ghost_stencil_3d(u: torch.Tensor, gf: Optional[torch.Tensor], coef: torch.Tensor,
                      h2: torch.Tensor) -> torch.Tensor:
-    """3D ``A_local u`` with explicit ghost faces (see the module doc)."""
+    """3D ``A_local u`` with explicit ghost faces, or none with ``gf=None``
+    (see the module doc)."""
     return _run(3, u, gf, coef, h2)
 
 
 def _launch(D, u, gf, coef, h2, out) -> int:
     """Launch on the current stream of the current device (u's)."""
     stream = torch.cuda.current_stream().cuda_stream
-    return _fns[D, u.dtype](u.data_ptr(), gf.data_ptr(), coef.data_ptr(),
+    gf_ptr = None if gf is None else gf.data_ptr()
+    return _fns[D, u.dtype](u.data_ptr(), gf_ptr, coef.data_ptr(),
                             h2.data_ptr(), out.data_ptr(), u.shape[0],
                             u.shape[1], stream)
+
+
+
+# -- the face term of the split stencil: csrc/ghost_faces.cu -------------------
+
+#: per D: launches of the face-term kernel per dtype name
+launches_faces = {2: {"float32": 0, "float64": 0}, 3: {"float32": 0, "float64": 0}}
+_faces_fns = {}  # (D, dtype) -> ctypes function
+
+
+def build_faces() -> ctypes.CDLL:
+    """Compile (at first use) and load the face-term kernels' library
+    (``csrc/ghost_faces.cu``, 2D and 3D)."""
+    lib = cuda_build.load_library("ghost_faces", ["ghost_faces.cu"])
+    if (2, torch.float32) not in _faces_fns:
+        for D in (2, 3):
+            for dt, suffix in _SUFFIX.items():
+                fn = getattr(lib, f"pps_ghost_faces_{D}d_{suffix}")
+                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                                       ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                _faces_fns[D, dt] = fn
+        lib.pps_ghost_faces_error_string.argtypes = [ctypes.c_int]
+        lib.pps_ghost_faces_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def add_ghost_faces_plain(out: torch.Tensor, gf: torch.Tensor,
+                          h2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the face-term kernel (the reference's
+    ``_face_pad_sum``): the sides' terms ``h2[a] * gf[side]`` summed per
+    boundary cell in side order, then ``out += 2 * sum``, in place."""
+    D = _check_faces(out, gf, h2)
+    P, n = out.shape[0], out.shape[-1]
+    face = (P,) + (n,) * (D - 1)
+    col = (P,) + (1,) * (D - 1)
+    add = torch.zeros_like(out)
+    for a in range(D):
+        ax = D - a  # array axis of spatial axis a (x fastest)
+        h2a = h2[:, a].reshape(col)
+        add.select(ax, 0).addcmul_(h2a, gf[:, 2 * a].reshape(face))
+        add.select(ax, n - 1).addcmul_(h2a, gf[:, 2 * a + 1].reshape(face))
+    return out.add_(add, alpha=2.0)
+
+
+def _check_faces(out, gf, h2) -> int:
+    D = out.dim() - 1
+    if D not in (2, 3) or len(set(out.shape[1:])) != 1:
+        raise ValueError(f"out must be [P, n, n] or [P, n, n, n], got {tuple(out.shape)}")
+    P, n = out.shape[0], out.shape[1]
+    for name, t, want in (("gf", gf, (P, 2 * D, n ** (D - 1))), ("h2", h2, (P, D))):
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+        if t.dtype != out.dtype or out.dtype not in _NAMES:
+            raise TypeError(f"{name}: dtype {t.dtype}; out {out.dtype}; one of "
+                            "float32 / float64")
+        if t.device != out.device:
+            raise ValueError(f"{name} is on {t.device}, out on {out.device}")
+    return D
+
+
+def add_ghost_faces(out: torch.Tensor, gf: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """``out += 2 * h2[a] * gf[side]`` on each side's boundary cells, in
+    place (a neighbour outside the patch, ghost ``coef * u_b + 2 * gf``,
+    adds ``2 * h2 * gf`` to its boundary cell's term): completes the no-gf
+    stencil.  ``out`` ``[P, n, ..]``, ``gf`` ``[P, 2D, n**(D-1)]``, ``h2``
+    ``[P, D]``, one dtype and device; returns ``out``.  On a CUDA tensor it
+    launches the face-term kernel (``csrc/ghost_faces.cu``; counted in
+    ``launches_faces``), on a CPU tensor it runs
+    :func:`add_ghost_faces_plain`."""
+    D = _check_faces(out, gf, h2)
+    if out.device.type == "cpu":
+        return add_ghost_faces_plain(out, gf, h2)
+    if out.device.type != "cuda":
+        raise ValueError(f"no face-term kernel for device {out.device}")
+    for name, t in (("out", out), ("gf", gf), ("h2", h2)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if out.shape[1] > _MAX_N[D]:
+        raise ValueError(f"n={out.shape[1]} exceeds the {D}D kernel's largest n")
+    lib = build_faces()
+
+    def launch():
+        return _faces_fns[D, out.dtype](out.data_ptr(), gf.data_ptr(), h2.data_ptr(),
+                                        out.shape[0], out.shape[1],
+                                        torch.cuda.current_stream().cuda_stream)
+
+    if out.device.index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(out.device):
+            err = launch()
+    if err != 0:
+        msg = lib.pps_ghost_faces_error_string(err).decode()
+        raise RuntimeError(f"{D}D ghost_faces launch failed: {msg} ({err})")
+    launches_faces[D][_NAMES[out.dtype]] += 1
+    return out

@@ -493,6 +493,7 @@ class Level:
         ref_remap = np.full(max(t.num_ifaces, 1), -1, dtype=np.int64)
         ref_remap[ref_ids] = np.arange(len(ref_ids))
         self._nref = len(ref_ids)
+        self._gf_ref_ids = ref_ids  # interface of each compact ref row
         self._gf_ref_pipe = None
         if self._nref:
             keep = ref_remap[t.contrib_iface] >= 0

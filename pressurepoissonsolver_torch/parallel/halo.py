@@ -29,9 +29,14 @@ same per-offset exchange for parent/child pairs on different ranks.  The
 host tables (``Exchange.send_tbl``, ``offsets``, ``widths``,
 ``comm_rows``, the owned-gamma layout) equal the reference's; the
 communication volume is bounded by ``partition.cut_faces`` in the tests.
-The reference overlaps the exchange with the interior stencil through the
-dependency structure of one XLA program; here the exchange runs before
-the kernel, on the current stream.
+``ShardedLevel.apply`` overlaps the exchange with the stencil as the
+reference does: with more than one rank it starts the exchange, runs the
+kernel's no-gf mode on its rows while the exchange is in flight, then
+finishes the exchange and adds the face term (the reference gets the same
+schedule from an ``optimization_barrier`` between the exchange-independent
+base and the face correction).  The spans ``pps.halo.exchange_start`` and
+``pps.halo.exchange_finish`` mark the two ends of the exchange in a
+``torch.profiler`` trace.
 """
 
 from __future__ import annotations
@@ -40,12 +45,15 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..domain import parent_slots
+from ..ops.ghost_stencil import add_ghost_faces
 from ..ops.level_ops import (_STENCIL, Level, _build_contrib_pipeline,
                              _build_solver_tables, _fold_faces_flat,
                              _spectral_apply, extract_faces, np_dtype)
-from .sharding import Comm, row_block
+from .rank_block import RankBlock
+from .sharding import Comm
 
 
 class Exchange:
@@ -58,7 +66,8 @@ class Exchange:
     receiver-buffer position of a sent row.  ``offsets``, ``send_tbl``
     (per offset ``[k, Rd]``, padded with the zero row's index), ``widths``
     and ``comm_rows`` (the true, unpadded row count) are the reference's
-    tables.  Each batch is one ``comm.exchange``."""
+    tables.  Each batch is one ``Comm.exchange_start`` /
+    ``exchange_finish``."""
 
     def __init__(self, comm: Comm, n_local_rows: int,
                  sends: Dict[Tuple[int, int], List[int]]):
@@ -92,18 +101,28 @@ class Exchange:
         """Receiver-buffer position of sender ``q``'s local ``row`` on ``r``."""
         return self._pos[(r, q, row)]
 
-    def run(self, local: torch.Tensor) -> torch.Tensor:
-        """Exchange and return the combined buffer ``[local | recv_d0 | ...
-        | zero row]`` (shape ``[buf_rows + 1, ...]``); every rank of the
-        group must call it."""
-        zero = local.new_zeros((1,) + tuple(local.shape[1:]))
-        parts = [local]
+    def start(self, local: torch.Tensor):
+        """Post every offset's exchange of ``local``'s send rows; what
+        :meth:`finish` takes.  Every rank of the group must call both."""
+        pending = []
         if self.offsets:
+            zero = local.new_zeros((1,) + tuple(local.shape[1:]))
             local_pad = torch.cat([local, zero], dim=0)
-            for d, idx in zip(self.offsets, self._send_idx):
-                parts.append(self.comm.exchange(local_pad.index_select(0, idx), d))
-        parts.append(zero)
-        return torch.cat(parts, dim=0)
+            pending = [self.comm.exchange_start(local_pad.index_select(0, idx), d)
+                       for d, idx in zip(self.offsets, self._send_idx)]
+        return local, pending
+
+    def finish(self, started) -> torch.Tensor:
+        """The combined buffer ``[local | recv_d0 | ... | zero row]`` (shape
+        ``[buf_rows + 1, ...]``) of an exchange :meth:`start` posted."""
+        local, pending = started
+        zero = local.new_zeros((1,) + tuple(local.shape[1:]))
+        return torch.cat([local] + [self.comm.exchange_finish(p) for p in pending]
+                         + [zero], dim=0)
+
+    def run(self, local: torch.Tensor) -> torch.Tensor:
+        """Exchange and return the combined buffer (:meth:`finish`)."""
+        return self.finish(self.start(local))
 
 
 def _shard_of(P: int, ndev: int) -> np.ndarray:
@@ -111,7 +130,7 @@ def _shard_of(P: int, ndev: int) -> np.ndarray:
     return np.arange(P) // (P // ndev)
 
 
-class ShardedLevel:
+class ShardedLevel(RankBlock):
     """Level ops over a 1D mesh with explicit cut-face halo exchange.
 
     Drop-in for :class:`~pressurepoissonsolver_torch.ops.level_ops.Level`
@@ -126,23 +145,14 @@ class ShardedLevel:
     lower-side ownership, ``SchurInfo.h:141-150``)."""
 
     def __init__(self, level: Level, mesh, device=None):
-        device = level.device if device is None else torch.device(device)
-        self.base = level
-        self.mesh = mesh
-        self.comm = comm = Comm(mesh, device)
-        self.ndev = ndev = comm.size
-        self.me = me = comm.rank
+        super().__init__(level, mesh, device)
+        comm, ndev, me = self.comm, self.ndev, self.me
         lvl, t = level, level.tables
-        D, n, m, S2 = lvl.D, lvl.n, lvl.m, 2 * lvl.D
-        Pg = lvl.P
-        self.D, self.n, self.m, self.P = D, n, m, Pg
-        self.dtype, self.device = lvl.dtype, device
-        self.pl = lvl.pl
-        self.Pl = Pl = Pg // ndev
+        D, n, m, S2 = self.D, self.n, self.m, 2 * self.D
+        Pg, Pl = self.P, self.Pl
         shard_of = _shard_of(Pg, ndev)
-        self._rows = row_block(Pg, mesh)
         # face rows per patch (higher-order closures source inner faces too)
-        self.face_depth = fd = t.face_depth
+        fd = self.face_depth
         S2f = S2 * fd
 
         # ---- contribution bookkeeping (case-sorted, as the reference) -----
@@ -194,7 +204,7 @@ class ShardedLevel:
         owned = [[i for i in need[r] if owner[i] == r] for r in range(ndev)]
         self._owned_ids = owned
         self.NOg = max((len(o) for o in owned), default=0)
-        NOg = max(self.NOg, 1)
+        NOg = self._gamma_rows = max(self.NOg, 1)
         own_pos = np.full((ndev, NOg), max(NIg, 1), dtype=np.int32)  # pad row
         gslot: Dict[int, int] = {}
         for r in range(ndev):
@@ -328,13 +338,6 @@ class ShardedLevel:
         self._gfw_own_me = torch.as_tensor(gfw_own[me].astype(npdt), device=self.device)
         self._gfw_mix_me = torch.as_tensor(gfw_mix[me].astype(npdt), device=self.device)
 
-        # ---- this rank's rows of the stencil, fold and solve data ----------
-        rows = self._rows
-        self.h2inv, self.ghost_coef, self.ghost_coef_eff, self._cellvol = (
-            x[rows].to(device, copy=True)
-            for x in (lvl.h2inv, lvl.ghost_coef, lvl.ghost_coef_eff, lvl._cellvol))
-        self._st = _build_solver_tables(lvl.pl, self.dtype,
-                                        np.arange(Pg, dtype=np.int64)[rows], self.device)
 
     # -- this rank's pieces ----------------------------------------------------
 
@@ -352,16 +355,19 @@ class ShardedLevel:
         """``(w_mix * mix, own)`` of the direct pipeline, both ``[Pl, 2D,
         m]``: direct sides read the neighbour face row straight from the
         exchange buffer; refinement sides run the compact pipeline."""
-        D, m, Pl = self.D, self.m, self.Pl
-        S2 = 2 * D
-        faces = extract_faces(u, D, self.n, self.face_depth)
-        buf = self.exchange.run(faces.reshape(-1, m))
-        own = faces.reshape(Pl, S2, self.face_depth, m)[:, :, 0]
+        faces = extract_faces(u, self.D, self.n, self.face_depth)
+        buf = self.exchange.run(faces.reshape(-1, self.m))
+        own = faces.reshape(self.Pl, 2 * self.D, self.face_depth, self.m)[:, :, 0]
+        return self._mix_scaled(buf), own
+
+    def _mix_scaled(self, buf: torch.Tensor) -> torch.Tensor:
+        """``w_mix * mix`` ``[Pl, 2D, m]`` from the cut-face exchange
+        buffer."""
         srcs = [buf]
         if self._ref_pipe is not None:
             srcs.append(self._ref_pipe.interpolate_rows(buf))
-        mix = torch.cat(srcs, dim=0).index_select(0, self._gfsrc_me).reshape(Pl, S2, m)
-        return self._gfw_mix_me.to(u.dtype) * mix, own
+        mix = torch.cat(srcs, dim=0).index_select(0, self._gfsrc_me)
+        return self._gfw_mix_me.to(buf.dtype) * mix.reshape(self.Pl, 2 * self.D, self.m)
 
     def _gf_from_gamma(self, gamma: torch.Tensor) -> torch.Tensor:
         """``[Pl, 2D, m]`` traces from this rank's owned-gamma block
@@ -369,22 +375,34 @@ class ShardedLevel:
         buf = self.ex_gamma.run(gamma)
         return buf.index_select(0, self._gifidx_me).reshape(self.Pl, 2 * self.D, self.m)
 
-    def _fold(self, fc: torch.Tensor, gf: torch.Tensor) -> torch.Tensor:
-        return _fold_faces_flat(fc, gf, self.h2inv, self.D, self.n)
-
-    def _solve(self, fc: torch.Tensor) -> torch.Tensor:
-        return _spectral_apply(self._st, fc, self.D, self.n)
-
     # -- the level ops on this rank's block -------------------------------------
 
     def apply(self, u: torch.Tensor) -> torch.Tensor:
         """Composite operator with the cut-face exchange, through the
         ghost-stencil kernel (own-face term folded into ``ghost_coef_eff``,
-        as ``Level.apply``)."""
+        as ``Level.apply``).
+
+        With more than one rank the exchange overlaps the stencil, as the
+        reference's ``_stencil_local`` (an exchange-independent base, an
+        ``optimization_barrier``, the face correction): the faces are
+        extracted, every offset's exchange is started, the kernel runs in
+        its no-gf mode (ghost ``coef_eff * u_b``) on this rank's rows while
+        the exchange is in flight, then the exchange is finished, the
+        contribution pipeline runs and ``2 h^-2 w_mix mix`` is added on the
+        boundary cells.  One rank keeps the single fused launch: there is
+        nothing to overlap."""
         u = u.contiguous()
-        mix_scaled, _ = self._gf_direct_parts(u)
-        return _STENCIL[self.D](u, mix_scaled, self.ghost_coef_eff.to(u.dtype),
-                                self.h2inv.to(u.dtype))
+        coef, h2 = self.ghost_coef_eff.to(u.dtype), self.h2inv.to(u.dtype)
+        if self.ndev == 1:
+            mix_scaled, _ = self._gf_direct_parts(u)
+            return _STENCIL[self.D](u, mix_scaled, coef, h2)
+        faces = extract_faces(u, self.D, self.n, self.face_depth)
+        with record_function("pps.halo.exchange_start"):
+            started = self.exchange.start(faces.reshape(-1, self.m))
+        out = _STENCIL[self.D](u, None, coef, h2)
+        with record_function("pps.halo.exchange_finish"):
+            buf = self.exchange.finish(started)
+        return add_ghost_faces(out, self._mix_scaled(buf), h2)
 
     def smooth(self, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """One block-Jacobi sweep of spectral patch solves."""
@@ -392,15 +410,7 @@ class ShardedLevel:
         gf = self._gfw_own_me.to(u.dtype) * own + mix_scaled
         return self._solve(self._fold(f, gf))
 
-    def smooth_zero(self, f: torch.Tensor) -> torch.Tensor:
-        """``smooth(f, 0)``: no traces, no exchange, the local solves."""
-        return self._solve(f)
-
     # -- the Schur path on the owner-sharded interface vector -----------------
-
-    def gamma_zeros(self, dtype=None) -> torch.Tensor:
-        return torch.zeros((max(self.NOg, 1), self.m), dtype=dtype or self.dtype,
-                           device=self.device)
 
     def gamma_global(self, gamma: torch.Tensor) -> np.ndarray:
         """Every rank's owned block -> the single-device ``[NIf, m]``
@@ -417,47 +427,9 @@ class ShardedLevel:
         """Trace interpolation into this rank's owned-gamma block."""
         return self._interp_local(u).index_select(0, self._own_pos_me)
 
-    def patch_solve(self, f: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
-        """Patch solves with the owner-sharded interface values ``gamma``."""
-        return self._solve(self._fold(f, self._gf_from_gamma(gamma.to(f.dtype))))
-
     def fold_gamma(self, f: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
         """Ghost injection ``f - G gamma``."""
         return self._fold(f, self._gf_from_gamma(gamma.to(f.dtype)))
-
-    def schur_S(self, gamma: torch.Tensor) -> torch.Tensor:
-        """``S gamma = interp(patch_solve(0, gamma))``: one gamma exchange
-        and one cut-face exchange."""
-        zf = torch.zeros((self.Pl,) + self.pl.ns_shape, dtype=gamma.dtype,
-                         device=gamma.device)
-        return self.interpolate(self.patch_solve(zf, gamma))
-
-    # -- fields -------------------------------------------------------------------
-
-    def zeros(self) -> torch.Tensor:
-        return torch.zeros((self.Pl,) + self.pl.ns_shape, dtype=self.dtype,
-                           device=self.device)
-
-    def integrate(self, u: torch.Tensor) -> torch.Tensor:
-        """Volume integral over every rank (an all-reduce), in f64."""
-        sums = u.reshape(self.Pl, -1).sum(dim=1)
-        return self.comm.all_reduce((sums * self._cellvol).sum())
-
-    @property
-    def volume(self) -> float:
-        return self.base.volume
-
-    @property
-    def num_ifaces(self) -> int:
-        return self.base.num_ifaces
-
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The global ``[P, ...]`` field from every rank's block."""
-        return self.comm.all_gather(x)
-
-    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's block of a global ``[P, ...]`` field."""
-        return x[self._rows]
 
     def active_smoother(self, active: np.ndarray, build_solver: bool = True):
         """The FAC active-set smoother of this level (``build_solver`` is

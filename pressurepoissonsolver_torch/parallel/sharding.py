@@ -25,11 +25,12 @@ identically zero through every linear operation.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from ..domain import PatchLevel
 
@@ -87,15 +88,39 @@ def make_mesh(n_devices: Optional[int] = None, *, backend: Optional[str] = None)
     return DeviceMesh(device_type, list(range(world)), mesh_dim_names=(AXIS,))
 
 
+class _Pending:
+    """An exchange in flight (:meth:`Comm.exchange_start`): its requests,
+    its send and receive buffers (held until it finishes), the key of its
+    pinned buffers when staged, and the device the received rows go to."""
+
+    __slots__ = ("reqs", "recv", "send", "key", "device")
+
+    def __init__(self, reqs, recv, send, key, device):
+        self.reqs, self.recv, self.send, self.key, self.device = (
+            reqs, recv, send, key, device)
+
+
 class Comm:
     """The collectives of a sharded solve over ``mesh``'s group, for tensors
     on ``device``.
 
     ``host_staged`` is decided here, once: with the gloo backend and a CUDA
     device, every collective copies its tensors to the host and back
-    (gloo's point-to-point and all-gather take CPU tensors only; the
-    exchange reuses pinned host buffers per dtype and shape); NCCL and CPU
-    tensors under gloo take the tensors as they are."""
+    (gloo's point-to-point and all-gather take CPU tensors only); NCCL and
+    CPU tensors under gloo take the tensors as they are.
+
+    The exchange is split (:meth:`exchange_start`, :meth:`exchange_finish`)
+    so that a caller can queue work on the current stream while it is in
+    flight.  Under NCCL the point-to-point ops run on NCCL's stream, which
+    waits on the current stream when they are posted.  When staged (one
+    pinned send and one pinned receive buffer per dtype, shape and rank
+    offset), the send rows are copied to the host on the current stream at
+    the start, before the caller queues anything behind it; the copy of the
+    received rows back to the card runs on a side stream ordered by a CUDA
+    event, so that it does not queue behind the caller's work: the current
+    stream waits on that event at the finish, and a receive buffer is not
+    posted again before the copy out of it has ended.  The span
+    ``pps.halo.exchange_wait`` covers the waits alone."""
 
     def __init__(self, mesh, device):
         self.mesh = mesh
@@ -106,7 +131,10 @@ class Comm:
         self.backend = dist.get_backend(self.group)
         self.device = torch.device(device)
         self.host_staged = self.backend == "gloo" and self.device.type == "cuda"
-        self._pinned: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+        # per (dtype, shape, offset): pinned send and receive buffers and
+        # the event of the last copy out of the receive buffer
+        self._pinned: Dict[tuple, list] = {}
+        self._side = (torch.cuda.Stream(self.device) if self.host_staged else None)
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks (a new tensor on ``t``'s device)."""
@@ -121,31 +149,58 @@ class Comm:
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` (same shape on each) concatenated along the
         leading axis in rank order."""
+        if self.backend == "nccl":
+            out = t.new_empty((self.size * t.shape[0],) + tuple(t.shape[1:]))
+            dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
+            return out
         src = t.detach().to("cpu") if self.host_staged else t.contiguous()
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
         return torch.cat(parts, dim=0).to(t.device)
 
-    def exchange(self, send: torch.Tensor, d: int) -> torch.Tensor:
-        """Send ``send`` to rank ``(me + d) % k`` and return the same-shaped
-        tensor received from ``(me - d) % k``, as one
-        ``batch_isend_irecv``."""
+    def exchange_start(self, send: torch.Tensor, d: int) -> _Pending:
+        """Post the send of ``send`` to rank ``(me + d) % k`` and the
+        receive of the same-shaped tensor from ``(me - d) % k`` (one
+        ``batch_isend_irecv``); :meth:`exchange_finish` returns what
+        arrived.  Every rank of the group must call both, in the same
+        order."""
         me, k = self.rank, self.size
+        key = None
         if self.host_staged:
-            key = (send.dtype,) + tuple(send.shape)
+            key = (send.dtype, tuple(send.shape), d)
             if key not in self._pinned:
-                self._pinned[key] = tuple(
+                self._pinned[key] = [
                     torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
-                    for _ in range(2))
-            send_h, recv_h = self._pinned[key]
-            send_h.copy_(send)
+                    for _ in range(2)] + [None]
+            send_h, recv_h, copied = self._pinned[key]
+            if copied is not None:
+                copied.synchronize()  # the last copy out of recv_h has ended
+            send_h.copy_(send)  # on the current stream, before the caller's work
         else:
             send_h, recv_h = send.contiguous(), torch.empty_like(send)
         ops = [dist.P2POp(dist.isend, send_h, self.ranks[(me + d) % k], self.group),
                dist.P2POp(dist.irecv, recv_h, self.ranks[(me - d) % k], self.group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return recv_h.to(send.device, copy=True) if self.host_staged else recv_h
+        return _Pending(dist.batch_isend_irecv(ops), recv_h, send_h, key, send.device)
+
+    def exchange_finish(self, pending: _Pending) -> torch.Tensor:
+        """Wait for an exchange :meth:`exchange_start` posted; the received
+        tensor, on the sender's device, ready for the current stream."""
+        with record_function("pps.halo.exchange_wait"):
+            for req in pending.reqs:
+                req.wait()
+        if not self.host_staged:
+            return pending.recv
+        side, cur = self._side, torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(side):
+            recv = torch.empty(pending.recv.shape, dtype=pending.recv.dtype,
+                               device=pending.device)
+            recv.copy_(pending.recv, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        self._pinned[pending.key][2] = done
+        cur.wait_event(done)
+        recv.record_stream(cur)
+        return recv
 
 
 def pad_level(pl: PatchLevel, multiple: int) -> PatchLevel:

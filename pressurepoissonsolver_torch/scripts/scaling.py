@@ -13,8 +13,10 @@ under gloo (the default, ``cuda``, raises without a card); ``k = 1`` is
 the plain single-device solver, as in the reference.  Several ranks on one card, or
 on the CPU, share that device: such a run checks the sharded path and its
 exchange volume and makes no scaling claim, as the reference says of its
-virtual CPU devices.  ``--comm pjit`` (the reference's XLA-partitioned
-engine) is not ported and exits.
+virtual CPU devices.  ``--comm`` names the engines, each timed in turn:
+``halo`` (the cut-face exchange) and ``pjit`` (each op all-gathers its
+operand, ``parallel.gathered``); both by default, as the reference's.
+At one device there is one record (``"comm": "single"``), as there.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def parse_args(argv=None):
     ap.add_argument("--divide", type=int, default=1)
     ap.add_argument("-n", type=int, default=16)
     ap.add_argument("--dtype", type=str, default="float32")
-    ap.add_argument("--comm", type=str, nargs="+", default=["halo"])
+    ap.add_argument("--comm", type=str, nargs="+", default=["pjit", "halo"],
+                    choices=["pjit", "halo"])
     ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                     help="where the ranks run")
     ap.add_argument("--solve", action="store_true",
@@ -49,8 +52,6 @@ def parse_args(argv=None):
                     "DOF/device is constant); reports weak efficiency vs "
                     "the first configuration and per-device comm rows")
     args = ap.parse_args(argv)
-    if "pjit" in args.comm:
-        ap.error("--comm pjit is not ported yet; use --comm halo")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
     return args
@@ -99,10 +100,15 @@ def _rank(rank, ndev, store_path, backend, args, tree, base_time, out_path):
 
         mesh = make_mesh(ndev) if ndev > 1 else None
         dtype = torch.float32 if args.dtype == "float32" else torch.float64
-        for comm in args.comm:
+        for comm in (args.comm if ndev > 1 else args.comm[:1]):
             h = DomainHierarchy(tree, n=args.n, num_shards=ndev)
             opts = SolveOptions(dtype=dtype, precond_dtype=dtype, comm=comm, tol=1e-8)
+            cuda = device.type == "cuda"
+            mem0 = torch.cuda.memory_allocated(device) if cuda else 0
             solver = PoissonSolver(h, opts, mesh=mesh, device=device)
+            # this rank's card memory after setup (the solver's tensors)
+            setup_mib = ((torch.cuda.memory_allocated(device) - mem0) / 2**20
+                         if cuda else None)
             fin = h.finest
             dof = fin.real_patches * fin.cells_per_patch
             nnz = (2 * fin.D + 1) * dof
@@ -133,8 +139,9 @@ def _rank(rank, ndev, store_path, backend, args, tree, base_time, out_path):
                    "dof": dof, "dof_per_device": dof // ndev,
                    "apply_ms": round(t * 1e3, 4), "nnz_per_s": round(nnz / t, 1),
                    "dtype": args.dtype, "platform": device.type,
-                   "backend": backend if ndev > 1 else None}
-            if mesh is not None:
+                   "backend": backend if ndev > 1 else None,
+                   "setup_mib": None if setup_mib is None else round(setup_mib, 2)}
+            if mesh is not None and comm == "halo":
                 rec["cut_face_rows"] = solver._op.comm_rows
                 rec["cut_face_rows_per_device"] = round(solver._op.comm_rows / ndev, 1)
             if args.weak:

@@ -21,12 +21,13 @@ Port of ``pressurepoissonsolver_tpu.solver`` for one device:
 
 With ``mesh`` (``parallel.sharding.make_mesh``) the solves run
 patch-sharded, one rank per device, through the cut-face halo engine
-(``comm="halo"``, the reference's default whenever a mesh is passed): every
-rank runs the same calls on the same global inputs, keeps its block of
-``P/k`` rows (``_device_put``) and returns its block of the solution
+(``comm="halo"``, the reference's default whenever a mesh is passed) or
+the gathered engine (``comm="pjit"``, the counterpart of the reference's
+XLA-partitioned engine, ``parallel.gathered``): every rank runs the same
+calls on the same global inputs, keeps its block of ``P/k`` rows
+(``_device_put``) and returns its block of the solution
 (``parallel.sharding.gather_patches`` gives the global field); every dot,
 norm and integral is summed over the ranks through one reduction hook.
-The reference's ``comm="pjit"`` engine is not ported.
 """
 
 from __future__ import annotations
@@ -68,8 +69,10 @@ class SolveOptions:
     # only; the reference's higher-order StencilHelper2d closures)
     iface_scheme: str = "bilinear"
     # multi-device communication schedule (only with a mesh): "halo" — the
-    # explicit cut-face exchange (parallel.halo.ShardedLevel); "auto" —
-    # halo; "pjit" (the reference's XLA-partitioned engine) is not ported
+    # explicit cut-face exchange (parallel.halo.ShardedLevel); "pjit" —
+    # each op all-gathers the operand of its global gather
+    # (parallel.gathered.GatheredLevel, the counterpart of the reference's
+    # XLA-partitioned engine); "auto" — halo
     comm: str = "auto"
 
 
@@ -103,8 +106,6 @@ class PoissonSolver:
             raise ValueError(f"comm={o.comm!r}: one of ('auto', 'halo', 'pjit')")
         if o.comm == "auto":
             o.comm = "halo"
-        if mesh is not None and o.comm == "pjit":
-            raise NotImplementedError("comm='pjit' is not ported yet")
         for name, val, ok in (
             ("krylov", o.krylov, ("bicgstab", "cg", "gmres")),
             ("inner_krylov", o.inner_krylov, ("bicgstab", "cg", "richardson")),
@@ -122,7 +123,8 @@ class PoissonSolver:
             if o.inner_krylov == "cg":
                 o.inner_krylov = "bicgstab"
         # with a mesh the global levels stay on the host: a rank's device
-        # holds only its rows and tables (parallel.halo.ShardedLevel)
+        # holds only its rows and tables (parallel.halo.ShardedLevel,
+        # parallel.gathered.GatheredLevel)
         self._host = self.device if mesh is None else torch.device("cpu")
         self.fine_level = Level(
             hierarchy.finest, dtype=o.dtype, device=self._host,
@@ -143,7 +145,7 @@ class PoissonSolver:
             same = o.precond_dtype == o.dtype
             self.gmg = build_gmg(
                 hierarchy, o.gmg, dtype=o.precond_dtype, device=self.device,
-                fine=self._op if same else None, mesh=mesh,
+                fine=self._op if same else None, mesh=mesh, comm=o.comm,
             )
         self._fine_low = None
         self._schur_M: dict = {}  # solve_schur's preconditioner -> M
@@ -159,13 +161,13 @@ class PoissonSolver:
         return self._op.gather(x)
 
     def _engine(self, level: Level):
-        """``level`` itself, or with a mesh its cut-face halo engine on this
-        rank's device."""
+        """``level`` itself, or with a mesh its sharded engine (``comm``) on
+        this rank's device."""
         if self.mesh is None:
             return level
-        from .parallel.halo import ShardedLevel
+        from .parallel.rank_block import engine_classes
 
-        return ShardedLevel(level, self.mesh, self.device)
+        return engine_classes(self.opts.comm)[0](level, self.mesh, self.device)
 
     def _preconditioner(self) -> Optional[Callable]:
         if self.opts.preconditioner == "schwarz":
@@ -371,7 +373,7 @@ class PoissonSolver:
         if self.gmg is None:
             self.gmg = build_gmg(self.hierarchy, self.opts.gmg,
                                  dtype=self.opts.precond_dtype, device=self.device,
-                                 mesh=self.mesh)
+                                 mesh=self.mesh, comm=self.opts.comm)
         lvl = self._op
         gmg = self.gmg
         pdtype = self.opts.precond_dtype

@@ -321,4 +321,166 @@ def solve_battery(mesh, tmp, n=8):
     return out
 
 
-BATTERIES = {"level": level_battery, "solve": solve_battery}
+def _owned_block(sl, g):
+    """This rank's block of the single-device interface vector ``g`` in
+    the gathered engine's layout (rows ``me*NIb ..``, zero past ``NIf``)."""
+    k, NIb = sl.ndev, sl.NIb
+    full = np.zeros((k * NIb,) + g.shape[1:])
+    full[: len(g)] = g
+    return full[sl.me * NIb:(sl.me + 1) * NIb]
+
+
+def _count_nogf(calls):
+    """Wrap the stencil of each dimension so that each call appends whether
+    it ran in the no-gf mode; the originals, to restore."""
+    from pressurepoissonsolver_torch.ops import level_ops
+
+    orig = dict(level_ops._STENCIL)
+
+    def wrap(fn):
+        def call(u, gf, coef, h2):
+            calls.append(gf is None)
+            return fn(u, gf, coef, h2)
+        return call
+
+    level_ops._STENCIL.update({d: wrap(fn) for d, fn in orig.items()})
+    return orig
+
+
+def gathered_battery(mesh, tmp, n=8):
+    """The gathered engine's (``comm="pjit"``) level, Schur and transfer
+    ops at the world's size in f64 and f32, and the halo engine's
+    overlapped apply, each gathered to the global layout."""
+    from pressurepoissonsolver_torch.domain import DomainHierarchy
+    from pressurepoissonsolver_torch.gmg import Transfer
+    from pressurepoissonsolver_torch.ops import level_ops
+    from pressurepoissonsolver_torch.ops.level_ops import Level
+    from pressurepoissonsolver_torch.parallel import halo
+    from pressurepoissonsolver_torch.parallel.gathered import (GatheredLevel,
+                                                               GatheredTransfer)
+    from pressurepoissonsolver_torch.parallel.sharding import shard_patch_array
+
+    k = mesh.size()
+    cpu = torch.device("cpu")
+    out = {}
+
+    def loc(x, dtype):
+        return shard_patch_array(torch.as_tensor(x, dtype=dtype), mesh).clone()
+
+    h = DomainHierarchy(trees()["2d"], n=n, num_shards=k, use_native=False)
+    for dtype in (torch.float64, torch.float32):
+        lvl = Level(h[0], dtype=dtype, device=cpu)
+        coarse = Level(h[1], dtype=dtype, device=cpu)
+        gl, gc = GatheredLevel(lvl, mesh), GatheredLevel(coarse, mesh)
+        P = lvl.P
+        u, f = field(11, (P, n, n)), field(1, (P, n, n))
+        g = torch.as_tensor(_owned_block(gl, field(7, (lvl.num_ifaces, lvl.m))),
+                            dtype=dtype)
+        res = {"apply": _np(gl.gather(gl.apply(loc(u, dtype)))),
+               "smooth": _np(gl.gather(gl.smooth(loc(f, dtype), loc(u, dtype)))),
+               "smooth_zero": _np(gl.gather(gl.smooth_zero(loc(f, dtype)))),
+               "interpolate": gl.gamma_global(gl.interpolate(loc(u, dtype))),
+               "patch_solve": _np(gl.gather(gl.patch_solve(loc(f, dtype), g))),
+               "fold_gamma": _np(gl.gather(gl.fold_gamma(loc(f, dtype), g))),
+               "schur_S": gl.gamma_global(gl.schur_S(g)),
+               "integrate": float(gl.integrate(loc(u, dtype))),
+               "bytes": (tensor_bytes(gl), tensor_bytes(lvl))}
+        uf, uc = field(3, (P, n, n)), field(4, (coarse.P, n, n))
+        for mode in ("constant", "linear"):
+            gt = GatheredTransfer(Transfer(lvl, coarse, prolong_mode=mode), gl, gc)
+            res[f"restrict_{mode}"] = _np(gc.gather(gt.restrict(loc(uf, dtype))))
+            res[f"prolong_{mode}"] = _np(gl.gather(
+                gt.prolong_add(loc(uc, dtype), loc(uf, dtype))))
+        # the halo engine's apply: no-gf stencil while the exchange is in
+        # flight, then the face term
+        calls = []
+        orig = _count_nogf(calls)
+        try:
+            sl = halo.ShardedLevel(lvl, mesh)
+            res["halo_apply"] = _np(sl.gather(sl.apply(loc(u, dtype))))
+        finally:
+            level_ops._STENCIL.update(orig)
+        res["halo_nogf"] = calls
+        # zero data on the padded patches stays exactly zero there
+        real = (np.arange(P) < h.finest.real_patches).reshape(-1, 1, 1)
+        u0, f0 = (loc(np.where(real, x, 0.0), dtype) for x in (u, f))
+        res["dummy"] = _np(gl.gather(torch.stack([
+            gl.apply(u0), gl.smooth(f0, u0), gl.smooth_zero(f0),
+            gl.patch_solve(f0, gl.gamma_zeros(dtype)),
+            sl.apply(u0)], dim=1)))[h.finest.real_patches:]
+        out[str(dtype).replace("torch.", "")] = res
+
+    h3 = DomainHierarchy(trees()["3d"], n=4, num_shards=k)
+    lvl3 = Level(h3[0], dtype=torch.float64, device=cpu)
+    u3 = field(6, (lvl3.P, 4, 4, 4))
+    g3, s3 = GatheredLevel(lvl3, mesh), halo.ShardedLevel(lvl3, mesh)
+    out["3d"] = {"apply": _np(g3.gather(g3.apply(loc(u3, torch.float64)))),
+                 "halo_apply": _np(s3.gather(s3.apply(loc(u3, torch.float64))))}
+    return out
+
+
+def gathered_solve_battery(mesh, tmp, n=8):
+    """``PoissonSolver(comm="pjit")``'s public solves, the three FAC
+    active-set cycles (masked, subset, single-device) and the CLI's
+    ``--comm pjit`` at the world's size; fields gathered to the global
+    layout."""
+    from pressurepoissonsolver_torch import cli
+    from pressurepoissonsolver_torch.domain import DomainHierarchy
+    from pressurepoissonsolver_torch.gmg import CycleOpts, build_gmg
+    from pressurepoissonsolver_torch.parallel.gathered import MaskedSmoother
+    from pressurepoissonsolver_torch.parallel.halo import ShardedActiveSmoother
+    from pressurepoissonsolver_torch.parallel.sharding import (gather_patches,
+                                                               shard_patch_array)
+    from pressurepoissonsolver_torch.problems import get_problem, init_problem
+
+    k = mesh.size()
+    out = {}
+    h = DomainHierarchy(trees()["2d"], n=n, num_shards=k)
+    f, exact = init_problem(h.finest, get_problem("trig", 2))
+    r = _solver(mesh, h, tol=1e-11, comm="pjit", gmg=SMALL_GMG).solve(f)
+    out["solve"] = {"x": _np(gather_patches(r.x, mesh)), "iterations": r.iterations,
+                    "rel": float(r.residual_norm / r.r0_norm)}
+    s = _solver(mesh, h, tol=1e-10, dtype=torch.float64, precond_dtype=torch.float32,
+                comm="pjit", gmg=dict(pre_sweeps=2, post_sweeps=1,
+                                      fac_smoothing="active", coarse_direct_max_dof=64))
+    out["masked_levels"] = sum(isinstance(a, MaskedSmoother) for a in s.gmg._asmooth)
+    u, info = s.solve_refined(f, tol=1e-10)
+    out["refined"] = {"x": _np(gather_patches(u, mesh)),
+                      "info": {kk: v for kk, v in info.items() if kk != "outer_history"},
+                      "report": s.report(u, f, exact)}
+    for prec in ("gmg", "blockjacobi"):
+        u, res = s.solve_schur(f, tol=1e-10, max_iter=60, preconditioner=prec)
+        out[f"schur_{prec}"] = {"x": _np(gather_patches(u, mesh)),
+                                "iterations": res.iterations,
+                                "report": s.report(u, f, exact)}
+
+    # one V(2,1) FAC cycle with active-set smoothing through each engine, on
+    # a tree whose coarse levels have proper active sets
+    hd = DomainHierarchy(trees()["2d-deep"], n=n, num_shards=k)
+    opts = CycleOpts(pre_sweeps=2, fac_smoothing="active", coarse_direct_max_dof=64)
+    fd = field(5, (hd.finest.num_patches, n, n))
+    fd[hd.finest.real_patches:] = 0.0
+    fd = shard_patch_array(torch.as_tensor(fd), mesh).clone()
+    out["cycles"] = {}
+    for comm, kind in (("pjit", MaskedSmoother), ("halo", ShardedActiveSmoother)):
+        g = build_gmg(hd, opts, dtype=torch.float64, device="cpu", mesh=mesh, comm=comm)
+        out["cycles"][comm] = {
+            "x": _np(gather_patches(g.apply(fd), mesh)),
+            "kinds": [type(a).__name__ for a in g._asmooth if a is not None],
+            "of_kind": sum(isinstance(a, kind) for a in g._asmooth)}
+
+    js = os.path.join(tmp, "cli.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(2, CLI_ARGV + ["--shards", str(k), "--comm", "pjit",
+                                     "--out-json", js], device="cpu")
+    out["cli"] = {"rc": rc, "stdout": buf.getvalue()}
+    dist.barrier()
+    if mesh.get_local_rank("p") == 0:
+        with open(js) as fh:
+            out["cli"]["json"] = json.load(fh)
+    return out
+
+
+BATTERIES = {"level": level_battery, "solve": solve_battery,
+             "gathered": gathered_battery, "gathered_solve": gathered_solve_battery}

@@ -1,7 +1,7 @@
 """The port on a CUDA card: the 2D and 3D ghost-stencil kernels against
 their plain versions, the composite apply, the active-set residual apply and
 the Schur path's ``apply_with_interface`` and per-patch BiCGStab through the
-kernels against the CPU, small 2D and 3D solves (``solve_refined`` and
+kernels against the CPU, the kernels' no-gf mode and the face-term kernel, small 2D and 3D solves (``solve_refined`` and
 ``solve_schur``), and the measurement surface: the bench scripts at a small
 size, ``time_op``'s held device time and its fallback, a trace and the op
 report.
@@ -93,6 +93,62 @@ def test_kernel_matches_plain(cuda, dt, shape):
     if shape in ((1048, 64), (8, 128)):
         assert gs.last_width[2] > 1
     assert _rel(gs.ghost_stencil_plain(*args), out) <= RTOL[dt]
+
+
+# the per-rank shapes of the sharded solves that split their applies: the
+# 2D bench at world 4 (262 and 16 patches per rank, n=64), the multihost
+# job at world 8 (9 patches, n=8), the small 3D mesh at world 4 (20 and 2
+# patches, n=8)
+PATH_SHAPES = [(2, (262, 64)), (2, (16, 64)), (2, (9, 8)), (3, (20, 8)), (3, (2, 8))]
+# the no-gf mode at the bench shapes, off the vector path and at those
+NOGF_SHAPES = [(2, (1048, 64)), (2, (37, 7)), (3, (624, 32)), (3, (37, 7))] + PATH_SHAPES
+
+
+@pytest.mark.parametrize("D, shape", NOGF_SHAPES)
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_no_gf_kernel_matches_plain(cuda, dt, D, shape):
+    """``gf=None``: the kernel reads no face entry (ghost ``coef * u_b``),
+    equals its plain version, is counted with the others and in
+    ``launches_nogf``, and with the face term added equals the launch with
+    the faces."""
+    P, n = shape
+    u, gf, coef, h2 = _stencil_args(D, P, n, dt, cuda, 8)
+    kernel = gs.ghost_stencil if D == 2 else gs.ghost_stencil_3d
+    plain = gs.ghost_stencil_plain if D == 2 else gs.ghost_stencil_3d_plain
+    name = str(DTYPES[dt]).replace("torch.", "")
+    counts = gs.launches if D == 2 else gs.launches_3d
+    before, nogf = counts[name], gs.launches_nogf[D][name]
+    base = _launch_takes(D, _width(n, dt), lambda: kernel(u, None, coef, h2))
+    assert (counts[name], gs.launches_nogf[D][name]) == (before + 1, nogf + 1)
+    assert _rel(plain(u, None, coef, h2), base) <= RTOL[dt]
+    full = kernel(u, gf, coef, h2)
+    assert gs.launches_nogf[D][name] == nogf + 1
+    assert _rel(full, gs.add_ghost_faces(base, gf, h2)) <= RTOL[dt]
+
+
+# the face-term kernel at the bench shapes, odd n, the smallest patches and
+# the path's per-rank shapes
+FACE_SHAPES = [(2, (1048, 64)), (2, (37, 7)), (2, (3, 1)), (2, (5, 2)),
+               (3, (624, 32)), (3, (37, 7)), (3, (3, 1)), (3, (5, 2))] + PATH_SHAPES
+
+
+@pytest.mark.parametrize("D, shape", FACE_SHAPES)
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_face_term_kernel_matches_plain(cuda, dt, D, shape):
+    """``add_ghost_faces`` on the card: one launch of the face-term kernel,
+    in place, equal to its plain version, every interior cell untouched."""
+    P, n = shape
+    u, gf, _, h2 = _stencil_args(D, P, n, dt, cuda, 9)
+    name = str(DTYPES[dt]).replace("torch.", "")
+    before = gs.launches_faces[D][name]
+    out = u.clone()
+    got = gs.add_ghost_faces(out, gf, h2)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert gs.launches_faces[D][name] == before + 1
+    assert _rel(gs.add_ghost_faces_plain(u.clone(), gf, h2), got) <= RTOL[dt]
+    inner = (slice(None),) + (slice(1, n - 1),) * D
+    assert torch.equal(got[inner], u[inner])
 
 
 @pytest.mark.parametrize("D, shape", [(2, (1048, 64)), (3, (624, 32)), (3, (37, 7))])
@@ -658,3 +714,49 @@ def test_sharded_world1_solve_on_card_matches_plain(mesh1):
     assert abs(i2["inner_iterations"] - i1["inner_iterations"]) <= 1
     assert r2["residual"] <= 1e-10 and l2["float32"] > 0 and l2["float64"] > 0
     assert _rel(u1, u2) <= 1e-9
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_gathered_world1_apply_on_card_matches_level(mesh1, dt):
+    """The gathered engine's (``comm="pjit"``) apply, smooth and
+    interpolate on a one-rank NCCL mesh equal the level's, the apply
+    through the 2D kernel with the faces."""
+    from pressurepoissonsolver_torch.parallel.gathered import GatheredLevel
+
+    h = DomainHierarchy(refined_tree(2, 4, 2), n=8, num_shards=1)
+    rng = np.random.default_rng(6)
+    for pl in h.levels[:2]:
+        lvl = Level(pl, DTYPES[dt], device="cuda")
+        gl = GatheredLevel(Level(pl, DTYPES[dt], device="cpu"), mesh1, "cuda")
+        u, f = (torch.as_tensor(rng.standard_normal((pl.num_patches, 8, 8)),
+                                dtype=DTYPES[dt], device="cuda") for _ in range(2))
+        nogf = dict(gs.launches_nogf[2])
+        got = _launch_takes(2, _width(8, dt), lambda: gl.apply(u))
+        assert gs.launches_nogf[2] == nogf
+        assert _rel(lvl.apply(u), got) <= RTOL[dt]
+        assert _rel(lvl.smooth(f, u), gl.smooth(f, u)) <= RTOL[dt]
+        assert _rel(lvl.interpolate(u), gl.interpolate(u)[: lvl.num_ifaces]) <= RTOL[dt]
+
+
+def test_pjit_world1_solve_on_card_matches_plain(mesh1):
+    """``solve_refined`` and ``solve_schur(gmg)`` through the gathered
+    engine (``comm="pjit"``, masked FAC sweeps) on a one-rank NCCL mesh
+    take the plain solver's counts to the same solution."""
+    h = DomainHierarchy(refined_tree(2, 4, 2), n=8, num_shards=1)
+    opts = dict(tol=1e-10, precond_dtype=torch.float32,
+                gmg=CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                              coarse_direct_max_dof=64))
+    f, exact = init_problem(h.finest, get_problem("trig", 2))
+    out = []
+    for mesh, comm in ((None, "auto"), (mesh1, "pjit")):
+        gs.reset_launches()
+        s = PoissonSolver(h, SolveOptions(comm=comm, **opts), mesh=mesh, device="cuda")
+        u, info = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+        us, res = s.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
+        out.append((u, info, us, res.iterations, dict(gs.launches)))
+    (u1, i1, us1, n1, _), (u2, i2, us2, n2, l2) = out
+    assert type(s._op).__name__ == "GatheredLevel"
+    assert i2["outer_iterations"] == i1["outer_iterations"] == 3
+    assert abs(i2["inner_iterations"] - i1["inner_iterations"]) <= 1
+    assert abs(n2 - n1) <= 1 and l2["float32"] > 0 and l2["float64"] > 0
+    assert _rel(u1, u2) <= 1e-9 and _rel(us1, us2) <= 1e-9

@@ -150,9 +150,9 @@ def test_port_checkpoint_loads_into_jax(tmp_path):
 def test_port_never_imports_jax():
     """Import every module of the port and chip_smoke, run a tiny CPU
     solve, Schur solves with the GMG and block-Jacobi preconditioners and
-    with GMRES, a 3D apply, three CLI runs (one sharded over a one-rank
-    group), a tiny bench and an op report on natively built tables, and
-    check that JAX was never loaded."""
+    with GMRES, a 3D apply, four CLI runs (two sharded over a one-rank
+    group, one per engine), a tiny bench and an op report on natively
+    built tables, and check that JAX was never loaded."""
     code = """
 import sys
 import numpy as np
@@ -163,8 +163,8 @@ from pressurepoissonsolver_torch.apps import steady2d, steady3d
 from pressurepoissonsolver_torch.ops import ghost_stencil, level_ops, patch_bcgs, transforms
 from pressurepoissonsolver_torch.utils import profiling, timer, writers
 from pressurepoissonsolver_torch import bench, native
-from pressurepoissonsolver_torch.scripts import bench3d, one_card_backends, profile_ops, scaling
-from pressurepoissonsolver_torch.parallel import halo, partition, sharding
+from pressurepoissonsolver_torch.scripts import bench3d, multihost, one_card_backends, profile_ops, scaling
+from pressurepoissonsolver_torch.parallel import gathered, halo, partition, sharding
 import os
 import chip_smoke
 os.environ.update(PPS_BENCH_N="4", PPS_BENCH_DIVIDE="0", PPS_BENCH_COARSE_DOF="16",
@@ -177,6 +177,8 @@ assert cli.main(2, ["--uniform", "3", "-n", "4", "-t", "1e-8", "--schur",
                     "--matrix-type", "pbm", "--monitor"], device="cpu") == 0
 assert cli.main(2, ["--uniform", "3", "-n", "4", "-t", "1e-8", "--shards", "1"],
                 device="cpu") == 0
+assert cli.main(2, ["--uniform", "3", "-n", "4", "-t", "1e-8", "--shards", "1",
+                    "--comm", "pjit"], device="cpu") == 0
 h = domain.DomainHierarchy(geometry.refined_tree(2, 3, 1), n=4)
 s = solver.SolveOptions(tol=1e-8, precond_dtype=torch.float32,
                         gmg=gmg.CycleOpts(coarse_direct_max_dof=16, fac_smoothing="active"))

@@ -193,10 +193,22 @@ def test_sharded_cli_matches_reference(world, reference):
 
 
 def test_comm_pjit_is_not_ported():
+    """``comm="pjit"`` is ported now (``parallel.gathered``): on a one-rank
+    mesh it gives the plain solver's iterates; an unknown engine raises."""
     th = tdomain.DomainHierarchy(tgeo.refined_tree(2, 3, 1), n=8)
-    with pytest.raises(NotImplementedError, match="pjit"):
-        tsolver.PoissonSolver(th, tsolver.SolveOptions(comm="pjit"), mesh=object(),
-                              device="cpu")
+    f, _ = tprob.init_problem(th.finest, tprob.get_problem("trig", 2))
+    opts = dict(tol=1e-11, gmg=tgmg.CycleOpts(**SMALL_GMG))
+    plain = tsolver.PoissonSolver(th, tsolver.SolveOptions(**opts), device="cpu")
+    mesh = tsharding.make_mesh(1, backend="gloo")
+    try:
+        s = tsolver.PoissonSolver(th, tsolver.SolveOptions(comm="pjit", **opts),
+                                  mesh=mesh, device="cpu")
+        assert type(s._op).__name__ == "GatheredLevel"
+        r1, r2 = plain.solve(f), s.solve(f)
+        assert r1.iterations == r2.iterations
+        assert float((r1.x - r2.x).abs().max()) <= 1e-12 * float(r1.x.abs().max())
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError):
         tsolver.PoissonSolver(th, tsolver.SolveOptions(comm="mpi"), device="cpu")
 
@@ -218,7 +230,7 @@ def test_cli_shards_one_starts_and_ends_its_group(tmp_path):
 
 @pytest.mark.parametrize("argv, msg", [
     (["--shards", "2"], "world has 1 rank"),
-    (["--shards", "1", "--comm", "pjit"], "pjit is not ported"),
+    (["--shards", "2", "--comm", "pjit"], "world has 1 rank"),
     (["--shards", "1", "--schur", "--matrix-type", "pbm"], "pbm is single-device"),
     (["--shards", "1", "--schur", "--matrix-type", "crs"], "single-device only"),
 ], ids=["world", "pjit", "pbm", "crs-schur"])
@@ -271,14 +283,17 @@ def test_sharded_entry_points_refuse_without_a_card(name, call):
 
 def test_scaling_script_runs_a_spawned_world(capsys):
     """``scripts.scaling`` spawns its world of two gloo ranks and prints
-    the reference's keys; ``--comm pjit`` exits."""
+    the reference's keys for each engine, both by default (pjit, then
+    halo); an unknown engine exits."""
     recs = scaling.main(["--devices", "2", "--divide", "0", "-n", "2", "--solve",
                          "--device", "cpu"])
-    assert len(recs) == 1
-    rec = recs[0]
-    assert (rec["devices"], rec["comm"], rec["backend"], rec["platform"]) == (
-        2, "halo", "gloo", "cpu")
-    assert rec["cut_face_rows"] > 0 and rec["iterations"] >= 1 and rec["apply_ms"] > 0
-    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == rec
+    assert [r["comm"] for r in recs] == ["pjit", "halo"]
+    for rec in recs:
+        assert (rec["devices"], rec["backend"], rec["platform"]) == (2, "gloo", "cpu")
+        assert rec["iterations"] >= 1 and rec["apply_ms"] > 0
+    assert recs[0]["iterations"] == recs[1]["iterations"]
+    assert recs[1]["cut_face_rows"] > 0 and "cut_face_rows" not in recs[0]
+    lines = capsys.readouterr().out.splitlines()
+    assert [json.loads(x) for x in lines[-2:]] == recs
     with pytest.raises(SystemExit):
-        scaling.main(["--comm", "pjit"])
+        scaling.main(["--comm", "mpi"])

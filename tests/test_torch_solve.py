@@ -130,13 +130,14 @@ def test_bicgstab_breakdown_guard():
 
 
 def test_unported_solver_options_raise():
-    """The reference's ``comm="pjit"`` mesh engine is the one option not
-    ported; unknown option values raise; CG falls back to BiCGStab under
-    the quadratic closures, as in the reference."""
+    """Every option of the reference is ported (``comm="pjit"`` without a
+    mesh is the plain solver, as there); unknown option values raise; CG
+    falls back to BiCGStab under the quadratic closures, as in the
+    reference."""
     _, th = hierarchies()
-    with pytest.raises(NotImplementedError):
-        tsolver.PoissonSolver(th, tsolver.SolveOptions(comm="pjit"), mesh=object(),
-                              device="cpu")
+    s = tsolver.PoissonSolver(th, tsolver.SolveOptions(
+        comm="pjit", gmg=tgmg.CycleOpts(coarse_direct_max_dof=64)), device="cpu")
+    assert s._op is s.fine_level
     for kw in ({"krylov": "minres"}, {"inner_krylov": "gmres"},
                {"iface_scheme": "cubic"}, {"preconditioner": "ilu"},
                {"comm": "mpi"}):
