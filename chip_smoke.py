@@ -79,7 +79,10 @@ Phases, any failure of which raises and exits non-zero:
    mesh (halo) on every rank, held to the same counts and errors, rank 0's
    gathered fields to phase 3's, aligned by patch id, the padded patches
    exactly 0, ``0 < comm_rows <= cut faces``, the halo engine's no-gf
-   and face-term launches counted (one of each per split apply); one halo
+   and face-term launches counted (one of each per split apply); the
+   production configuration ``examples/ir_sharded_2d.ini`` through
+   ``cli.main`` with ``--shards 4`` (its cycle on the Kronecker forms on
+   every rank), held to the JAX CLI's counts and error; one halo
    apply profiled on rank 0: its base kernel must be launched while the
    exchange is outstanding (after every offset is posted, before the
    first wait); the kernel's device interval against the exchange's
@@ -92,10 +95,26 @@ Phases, any failure of which raises and exits non-zero:
    face-term kernel against their plain versions, and the split launch
    against the fused one, at every per-rank shape that (c) and (e) gave
    them (2D n=64 and n=8, 3D n=8), in f32 and f64;
-8. print the kernel table (its launches include phase 7's; each stencil
-   entry also has the no-gf mode's times, bound and launches; the
-   face-term kernel has entries of its own), the card line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+8. the f32 Kronecker forms of the spectral patch solve and the grid
+   transfers (``PPS_KRON_MAX_N``, default 16, read when the tables are
+   built): (a) through ``cli.main`` (counts set to 0 just before, read just
+   after), the production configuration ``examples/ir_sharded_2d.ini``
+   (n=16, 262,144 DOF) and the same with ``--divide 2`` (4,194,304 DOF),
+   each on one device and with ``--shards 1``, and the 3D CLI at its
+   default n=16 (2,097,152 DOF), each with the knob at its default and at
+   0, held to the JAX CLI's counts and error for that setting; then both
+   settings set up again, to assert that the cycle took the Kronecker
+   forms everywhere (default) or nowhere (0), their solves timed in turns
+   and one of each profiled (walls, launches per solve, stencil
+   launches); (b) the spectral patch solve,
+   ``restrict`` and ``prolong_add`` on both forms at n = 8, 16, 32 (about
+   4M DOF in 2D, 2M in 3D), held to each other, with device ms cold and
+   warm and bounds;
+9. print the kernel table (its launches include phases 7 and 8; each
+   stencil entry also has the no-gf mode's times, bound and launches; the
+   face-term kernel has entries of its own, with the sector bound beside
+   the element bound), the card line, and last the result line ``{"ok":
+   true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -218,6 +237,38 @@ CLI_SMALL = {
     "neumann-sides": (["--neumann-sides", "x_lo,y_hi"], (6,), 3.3503959269e-3),
     "bcgs": (["--patch_solver", "bcgs"], (6,), 3.5642034555e-3),
 }
+
+# phase 8, the f32 Kronecker forms of the spectral patch solve and the grid
+# transfers (PPS_KRON_MAX_N, default 16): the production configuration
+# examples/ir_sharded_2d.ini (n=16, --uniform 6: 1,024 patches, 262,144 DOF;
+# f32 IR with BiCGStab; --comm halo), the same with "--divide 2" (16,384
+# patches, 4,194,304 DOF), and the 3D CLI at its default n=16 (512 patches,
+# 2,097,152 DOF): per knob setting ("default": unset; "0": the forms off),
+# the JAX reference's CLI on the CPU (jax_enable_x64) with the same argv and
+# "--shards 0" (the ini sets 8): (outer, inner) and relative error
+PRODUCTION_INI = os.path.join(ROOT, "examples", "ir_sharded_2d.ini")
+CLI_KRON = {
+    "production": (2, ["--config", PRODUCTION_INI], {
+        "default": ((2, 7), 1.4278066468455637e-05),
+        "0": ((2, 7), 1.4278066669890718e-05)}),
+    "production-divide2": (2, ["--config", PRODUCTION_INI, "--divide", "2"], {
+        "default": ((2, 7), 8.923628515902486e-07),
+        "0": ((2, 7), 8.923624640511542e-07)}),
+    "3d-n16": (3, ["--uniform", "4", "-n", "16", "--solver", "ir", "--inner-solver",
+                   "bicgstab", "-t", "1e-10"], {
+        "default": ((2, 7), 4.747903762859404e-05),
+        "0": ((2, 7), 4.747903717611914e-05)}),
+}
+# the knob's value per setting (None: unset)
+KRON_KNOBS = {"default": None, "0": "0"}
+# the engines of each run: one device ("--shards 0" overrides the ini's 8)
+# and, in 2D, a one-rank NCCL group ("--shards 1")
+KRON_ENGINES = {2: {"single": ["--shards", "0"], "shards1": ["--shards", "1"]},
+                3: {"single": []}}
+# op times, Kronecker against per-axis form: per dimension, n -> the levels
+# of the uniform tree of about 4M DOF in 2D (4,194,304) and 2M in 3D
+# (2,097,152; the next 3D tree holds 16.8M)
+KRON_OP_TREES = {2: {8: 9, 16: 8, 32: 7}, 3: {8: 5, 16: 4, 32: 3}}
 
 # H100 SXM: peak rates outside the tensor cores (NVIDIA's data sheet: 67
 # TFLOP/s float32, 34 TFLOP/s float64); the memory rate per card is
@@ -864,9 +915,10 @@ def cli_small(torch, port, cli, gs, card, tmp):
     assert abs(again["error"] - first["error"]) <= 1e-12 * first["error"], line
 
 
-def profile_solve(torch, card, label, solve) -> None:
-    """Device busy share and kernel-time breakdown of one solve
-    (torch.profiler)."""
+def profile_solve(torch, card, label, solve, top=12):
+    """Device busy share and kernel-time breakdown (the ``top`` kernels,
+    then the stencil's) of one solve (torch.profiler); ``(wall ms, busy
+    ms, kernel launches)``."""
     from torch.profiler import ProfilerActivity, profile
 
     from pressurepoissonsolver_torch.utils.profiling import kernel_times
@@ -885,15 +937,21 @@ def profile_solve(torch, card, label, solve) -> None:
           f"({100 - 100 * busy / wall_us:.1f}% idle), "
           f"{sum(k[1] for k in kern)} kernel launches", flush=True)
     ranked = sorted(kern, reverse=True)
-    for us, cnt, key in ranked[:12] + [k for k in ranked[12:] if "ghost_stencil" in k[2]]:
+    for us, cnt, key in ranked[:top] + [k for k in ranked[top:] if "ghost_stencil" in k[2]]:
         print(f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:100]}", flush=True)
+    return wall_us / 1e3, busy / 1e3, sum(k[1] for k in kern)
 
 
 @contextlib.contextmanager
 def environ(**kw):
-    """``os.environ`` with ``kw`` set, restored afterwards."""
+    """``os.environ`` with ``kw`` set (a ``None`` value unset), restored
+    afterwards."""
     old = {k: os.environ.get(k) for k in kw}
-    os.environ.update(kw)
+    for k, v in kw.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -1256,6 +1314,21 @@ def faces_bound(D, out, gf, h2, bw):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def faces_sector_bytes(out, gf, h2):
+    """The bytes one face-term call moves counted in the card's 32-byte
+    memory sectors: every sector of ``out`` that holds a boundary cell read
+    and written once (an inner row's x-face cells each cost a sector of
+    their own), gf and h2 read once.  The sector bound is these bytes over
+    the memory rate."""
+    P, n, D = out.shape[0], out.shape[1], out.dim() - 1
+    idx = np.indices((n,) * D).reshape(D, -1)
+    cells = np.flatnonzero(((idx == 0) | (idx == n - 1)).any(axis=0))
+    offs = (np.arange(P)[:, None] * n ** D + cells) * out.element_size()
+    sectors = (out.data_ptr() % 32 + offs.ravel()) // 32  # ascending
+    count = 1 + int(np.count_nonzero(np.diff(sectors)))
+    return 2 * 32 * count + (gf.numel() + h2.numel()) * out.element_size()
+
+
 def check_faces(torch, gs, timer, card, bw, D, base, gf, h2, rtol):
     """The face-term kernel (``add_ghost_faces`` on the card) against its
     plain version on the no-gf stencil's output at the bench shape; device
@@ -1280,12 +1353,16 @@ def check_faces(torch, gs, timer, card, bw, D, base, gf, h2, rtol):
     out = base.clone()
     warm_ms = timer.cuda_median_ms(lambda: gs.add_ghost_faces(out, gf, h2), reps=50,
                                    hold=True)
+    sector_ms = 1e3 * faces_sector_bytes(base, gf, h2) / bw
     print(f"{line}; device ms cold: kernel {ms:.5f} ({100 * bound_ms / ms:.1f}% of its "
-          f"bound {bound_ms:.5f} ms by {bound_by}) plain {plain_ms:.5f}; warm kernel "
-          f"{warm_ms:.5f}", flush=True)
+          f"bound {bound_ms:.5f} ms by {bound_by}; {100 * sector_ms / ms:.1f}% of its "
+          f"sector bound {sector_ms:.5f} ms) plain {plain_ms:.5f}; warm kernel "
+          f"{warm_ms:.5f} ({100 * sector_ms / warm_ms:.1f}% of the sector bound)",
+          flush=True)
     # no single PyTorch call computes the face term
     return {"max_abs_err": err, "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "sector_bound_ms": sector_ms,
+            "library_ms": None}
 
 
 def split_shapes(solver):
@@ -1446,6 +1523,7 @@ def sharded_rank(rank, world, tmp):
     import torch.distributed as dist
 
     sys.path.insert(0, ROOT)
+    from pressurepoissonsolver_torch import cli
     from pressurepoissonsolver_torch.domain import DomainHierarchy
     from pressurepoissonsolver_torch.geometry import refined_tree
     from pressurepoissonsolver_torch.gmg import CycleOpts
@@ -1454,6 +1532,7 @@ def sharded_rank(rank, world, tmp):
     from pressurepoissonsolver_torch.parallel.sharding import gather_patches, make_mesh
     from pressurepoissonsolver_torch.problems import get_problem, init_problem
     from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
+    from pressurepoissonsolver_torch.utils.timer import Timer
 
     port = types.SimpleNamespace(
         DomainHierarchy=DomainHierarchy, refined_tree=refined_tree,
@@ -1578,6 +1657,28 @@ def sharded_rank(rank, world, tmp):
             f"{info['inner_iterations']}, error {rep['error']:.10e}, wall "
             f"{walls[0]:.3f} s, 3D launches {out['small3d']['launches']} (no-gf "
             f"{out['small3d']['nogf']})")
+
+        # the production configuration through the CLI (the halo engine of
+        # its ini; its Kronecker prolongation through ShardedTransfer), then
+        # set up again for the forms its cycle built
+        js = os.path.join(tmp, "production.json")
+        argv = CLI_KRON["production"][1] + ["--shards", str(world)]
+        gs.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(2, argv + ["--out-json", js], device="cuda:0")
+        torch.cuda.synchronize()
+        prod = out["production"] = {"rc": rc, "wall": time.perf_counter() - t0, **counts(2)}
+        _, args = cli.parse_args(2, argv)
+        prod["forms"] = kron_forms(cli.setup(2, args, device="cuda:0", timer=Timer(),
+                                             mesh=mesh).solver.gmg)
+        if rank == 0:
+            with open(js) as fh:
+                prod["cli"] = json.load(fh)
+        say(f"production configuration (--shards {world}): rc {rc}, wall "
+            f"{prod['wall']:.3f} s, Kronecker tables and transfers {prod['forms']}, "
+            f"stencil launches {prod['launches']} (no-gf {prod['nogf']})")
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
@@ -1656,10 +1757,26 @@ def sharded_world4(torch, hier_ids, u_ir, u_schur, card, tmp):
             s3["nogf"].values()), s3
         add(3, s3)
         assert s3["dummy"][0] > 0 and s3["dummy"][1] == 0.0, s3
+        prod = o["production"]
+        kt, nt, kx, nx = prod["forms"]
+        assert prod["rc"] == 0 and nt and nx and (kt, kx) == (nt, nx), (o["rank"], prod)
+        assert prod["widths"]["1"] == 0 and prod["launches"]["float32"] > 0, prod
+        add(2, prod)
     for comm in ("halo", "pjit"):
         e = r0[comm]
         assert e["ir"]["diff"] <= 1e-8 and e["schur"]["diff"] <= 1e-8, (comm, e)
         assert e["dummy_2d"][1:] == [0.0, 0.0], (comm, e["dummy_2d"])
+    prod, (ref, error) = r0["production"]["cli"], CLI_KRON["production"][2]["default"]
+    got = _counts(prod)
+    line = (f"production configuration at world {SHARDED_WORLD} (halo, gloo, one card) "
+            f"[{card}]: iterations {got} (reference {ref}) residual {prod['residual']:.3e} "
+            f"error {prod['error']:.6e} (reference {error:.6e}); linear solve "
+            f"{prod['linear_solve_s']:.3f} s, cli.main walls per rank "
+            f"{[round(o['production']['wall'], 3) for o in outs]} s; Kronecker tables and "
+            f"transfers per rank {[o['production']['forms'] for o in outs]}")
+    print(line, flush=True)
+    assert got[0] == ref[0] and abs(got[1] - ref[1]) <= 1, line
+    assert prod["residual"] <= 1e-10 and abs(prod["error"] - error) <= 0.01 * error, line
     ov = r0["halo"]["overlap"]
     line = (f"sharded world {SHARDED_WORLD} (gloo, one card) [{card}]: counts and errors "
             f"as phase 3 on every rank with both engines; rank 0: max|u - u_phase3| / "
@@ -1787,6 +1904,218 @@ def sharded_phase(torch, port, cli, gs, timer, card, bw, tmp, u_ir, u_schur, hie
     return launches, nogf, table, faces_table
 
 
+# -- phase 8: the f32 Kronecker forms (PPS_KRON_MAX_N) -------------------------
+
+
+def kron_forms(gmg):
+    """``(spectral tables on the Kronecker form, spectral tables, transfers
+    on it, transfers)`` of a multigrid cycle of any engine: the tables of
+    its levels and active-set smoothers, and its transfers."""
+    tables = [s._st for s in [*gmg.levels, *gmg._asmooth]
+              if s is not None and getattr(s, "_st", None) is not None]
+    return (sum(st.kron is not None for st in tables), len(tables),
+            sum(t._Wp is not None for t in gmg.transfers), len(gmg.transfers))
+
+
+def kron_solves(torch, cli, timer, card, D, argv, label, pairs=4):
+    """``argv`` set up twice through ``cli.setup``, with the knob at its
+    default and at 0 (with ``--shards`` in one one-rank group of its own,
+    ended after): per setting the forms its cycle built
+    (:func:`kron_forms`), the walls of ``2 * pairs`` solves taken in turns
+    (default, 0, 0, default, ...), and one profiled solve
+    (:func:`profile_solve`)."""
+    import torch.distributed as dist
+
+    from pressurepoissonsolver_torch.parallel.sharding import make_mesh
+
+    _, args = cli.parse_args(D, argv)
+    own = bool(args.shards) and not dist.is_initialized()
+    mesh = make_mesh(args.shards) if args.shards else None
+    try:
+        runs = {}
+        for knob, value in KRON_KNOBS.items():
+            with environ(PPS_KRON_MAX_N=value):
+                runs[knob] = cli.setup(D, args, device="cuda:0" if mesh else "cuda",
+                                       timer=timer.Timer(), mesh=mesh)
+        out = {knob: {"forms": kron_forms(run.solver.gmg), "walls": []}
+               for knob, run in runs.items()}
+        for knob in runs:  # warm-up
+            cli.solve(runs[knob], args, timer.Timer("cuda"))
+        for knob in ["default", "0", "0", "default"] * (pairs // 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.solve(runs[knob], args, timer.Timer("cuda"))
+            torch.cuda.synchronize()
+            out[knob]["walls"].append(time.perf_counter() - t0)
+        for knob, run in runs.items():
+            out[knob]["profile"] = profile_solve(
+                torch, card, f"{label} PPS_KRON_MAX_N={knob} profile",
+                lambda: cli.solve(run, args, timer.Timer("cuda")), top=3)
+        del runs
+    finally:
+        if own:
+            dist.destroy_process_group()
+    return out
+
+
+def kron_cli(torch, cli, gs, timer, card, tmp):
+    """Phase 8 (a): every run of ``CLI_KRON`` with each engine of
+    ``KRON_ENGINES`` and each knob setting: ``cli.main`` (the launch counts
+    set to 0 just before it and read just after), held to the JAX CLI's
+    counts and error; then both settings set up again, the cycle entirely
+    on the Kronecker form with the default knob and not at all with 0, and
+    their solves timed in turns and profiled (:func:`kron_solves`).  The
+    stencil launches of the ``cli.main`` runs per dimension and dtype."""
+    t0 = time.perf_counter()
+    js = os.path.join(tmp, "kron.json")
+    total = {D: {"float32": 0, "float64": 0} for D in (2, 3)}
+    for label, (D, flags, refs) in CLI_KRON.items():
+        for engine, extra in KRON_ENGINES[D].items():
+            name = f"{label} {engine}"
+            main = {}
+            for knob, (ref, error) in refs.items():
+                with environ(PPS_KRON_MAX_N=KRON_KNOBS[knob]):
+                    res = cli_run(torch, cli, gs, D, flags + extra + ["--out-json", js])
+                check_cli_run(f"{name} PPS_KRON_MAX_N={knob}", *res, ref, False, error,
+                              1e-10, card)
+                for dt, c in res[2].items():
+                    total[D][dt] += c
+                main[knob] = (res[0]["linear_solve_s"], res[2])
+            runs = kron_solves(torch, cli, timer, card, D, flags + extra, name)
+            d, z = runs["default"], runs["0"]
+            line = (f"Kronecker forms, {name} [{card}], default / PPS_KRON_MAX_N=0: "
+                    f"Kronecker tables and transfers (on the form, of) {d['forms']} / "
+                    f"{z['forms']}; cli.main linear solve s {main['default'][0]:.6f} / "
+                    f"{main['0'][0]:.6f}; solve walls s in turns "
+                    f"{[round(w, 6) for w in d['walls']]} / "
+                    f"{[round(w, 6) for w in z['walls']]} (median "
+                    f"{statistics.median(d['walls']):.6f} / "
+                    f"{statistics.median(z['walls']):.6f}); profiled solve wall ms "
+                    f"{d['profile'][0]:.3f} / {z['profile'][0]:.3f}, device busy ms "
+                    f"{d['profile'][1]:.3f} / {z['profile'][1]:.3f}, launches per solve "
+                    f"{d['profile'][2]} / {z['profile'][2]}; stencil launches of cli.main "
+                    f"{main['default'][1]} / {main['0'][1]}")
+            print(line, flush=True)
+            kt, nt, kx, nx = d["forms"]
+            assert nt and nx and (kt, kx) == (nt, nx), line
+            assert z["forms"] == (0, nt, 0, nx), line
+    print(f"Kronecker CLI runs {time.perf_counter() - t0:.1f} s; stencil launches {total}",
+          flush=True)
+    return total
+
+
+def kron_op_flops(op, form, D, n):
+    """Flops per patch row of an op (the matmuls, and the divide or add
+    per cell): the Kronecker form's grow as n^2 per cell (2D), the
+    per-axis form's as n."""
+    cells = n ** D
+    if op == "spectral":  # forward and inverse transforms
+        mm = 2 * (2 * n ** 4 if D == 2 else 2 * n ** 4 + 2 * n ** 5) if form == "kron" \
+            else 2 * D * 2 * n ** (D + 1)
+    else:  # one orthant's transfer matrices
+        mm = (2 * n ** 4 if D == 2 else 2 * n ** 4 + 2 * n ** 5) if form == "kron" \
+            else D * 2 * n ** (D + 1)
+    return mm + cells
+
+
+def kron_op_times(torch, port, card, bw):
+    """Phase 8 (b): the spectral patch solve of the finest level and its
+    ``restrict`` and ``prolong_add`` (constant) on the Kronecker form (the
+    knob raised to n at n=32) against the per-axis form (knob 0), f32, on
+    uniform trees of ``KRON_OP_TREES``: the two forms agree within 1e-5 of
+    max|out|; device ms cold (inputs rotated beyond the L2) and warm, in
+    turns (Kronecker, per-axis, per-axis, Kronecker; the mean of each
+    form's two), and the bound: the larger of
+    the bytes (the fields in and out, the tables, the matrices) over the
+    memory rate and the flops over 67 TFLOP/s.  The rows."""
+    from pressurepoissonsolver_torch.geometry import uniform_tree
+    from pressurepoissonsolver_torch.gmg import Transfer
+    from pressurepoissonsolver_torch.ops.level_ops import (Level, _build_solver_tables,
+                                                          _spectral_apply)
+    from pressurepoissonsolver_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 2)
+    rows = []
+
+    def nbytes(*objs):
+        ts = [t for o in objs for t in (o if isinstance(o, (list, tuple)) else [o])
+              for t in (t if isinstance(t, tuple) else (t,))]
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    for D, per in KRON_OP_TREES.items():
+        for n, L in per.items():
+            h = port.DomainHierarchy(uniform_tree(D, L), n=n)
+            fine, coarse = (Level(h[i], torch.float32, device="cuda") for i in (0, 1))
+            x = profiling.random_field(fine, rng)
+            uc = profiling.random_field(coarse, rng)
+            field = x.numel() * 4
+            ops = {}
+            for form, knob in (("kron", str(max(n, 16))), ("axis", "0")):
+                with environ(PPS_KRON_MAX_N=knob):
+                    st = _build_solver_tables(h[0], torch.float32,
+                                              np.arange(fine.P, dtype=np.int64), "cuda")
+                    t = Transfer(fine, coarse)
+                assert (st.kron is not None) == (t._Wp is not None) == (form == "kron")
+                mats = (st.kron or list(st.tmats.values()), t._Wr or t._wrstr,
+                        t._Wp or t._wprol)
+                ops[form] = {
+                    "spectral": (lambda v, st=st: _spectral_apply(st, v, D, n),
+                                 3 * field + nbytes(mats[0]), fine.P),
+                    "restrict": (t.restrict, field + uc.numel() * 4 + nbytes(mats[1]),
+                                 fine.P),
+                    "prolong": (lambda v, t=t: t.prolong_add(uc, v),
+                                2 * field + uc.numel() * 4 + nbytes(mats[2]), fine.P)}
+            B = profiling.rotation_buffers("cuda", field)
+            for op in ("spectral", "restrict", "prolong"):
+                ref = ops["axis"][op][0](x)
+                got = ops["kron"][op][0](x)
+                err = float((got - ref).abs().max() / ref.abs().max())
+                res = {f: {"ms": [], "warm_ms": []} for f in ops}
+                for form in ("kron", "axis", "axis", "kron"):
+                    fn = ops[form][op][0]
+                    ms, how = profiling.measure(fn, x, reps=50, in_graph=True, hbm_rotate=B)
+                    warm, how_w = profiling.measure(fn, x, reps=50, in_graph=True)
+                    res[form]["ms"].append(ms * 1e3)
+                    res[form]["warm_ms"].append(warm * 1e3)
+                    res[form]["timing"] = how if how == how_w else f"{how} / {how_w}"
+                for form, (fn, nb, P) in ((f, ops[f][op]) for f in ops):
+                    flops = P * kron_op_flops(op, form, D, n)
+                    t_b, t_o = nb / bw, flops / PEAK_FLOPS["float32"]
+                    r = res[form]
+                    rows.append({
+                        "D": D, "n": n, "P": P, "dof": x.numel(), "op": op, "form": form,
+                        "ms": statistics.mean(r["ms"]), "warm_ms": statistics.mean(r["warm_ms"]),
+                        "timing": r["timing"], "bound_ms": 1e3 * max(t_b, t_o),
+                        "bound_by": "bytes" if t_b >= t_o else "operations",
+                        "mbytes": nb / 1e6, "gflop": flops / 1e9, "max_rel_diff": err})
+                k, a = rows[-2], rows[-1]
+                line = (f"Kronecker op {op} {D}D n={n} P={k['P']} ({k['dof']} DOF) [{card}]: "
+                        f"device ms cold / warm: Kronecker {k['ms']:.5f} / {k['warm_ms']:.5f} "
+                        f"(bound {k['bound_ms']:.5f} by {k['bound_by']}), per-axis "
+                        f"{a['ms']:.5f} / {a['warm_ms']:.5f} (bound {a['bound_ms']:.5f} by "
+                        f"{a['bound_by']}); "
+                        f"max|kron - axis| / max|axis| = {err:.3e} ({k['timing']})")
+                print(line, flush=True)
+                assert err <= 1e-5, line
+                assert all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in (k, a)), line
+            del fine, coarse, x, uc, ops
+    print(json.dumps({"kron_op_times": rows}), flush=True)
+    print(f"Kronecker op times {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def kron_phase(torch, port, cli, gs, timer, card, bw, tmp):
+    """Phase 8: (a) the CLI runs of ``CLI_KRON`` with both knob settings
+    (:func:`kron_cli`), (b) the op times of both forms
+    (:func:`kron_op_times`).  The stencil launches of (a)."""
+    t0 = time.perf_counter()
+    launches = kron_cli(torch, cli, gs, timer, card, tmp)
+    kron_op_times(torch, port, card, bw)
+    print(f"Kronecker phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def build_kernels(gs, cuda_build) -> None:
     """Phase 2: one nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -1884,7 +2213,12 @@ def main() -> None:
             for name, cnt in sharded[D].items():
                 launches[D][name] += cnt
 
-    # phase 8
+        # phase 8: the Kronecker forms, the CLI runs driven as in phase 5
+        for D, per in kron_phase(torch, port, cli, gs, timer, card, bw, tmp).items():
+            for name, cnt in per.items():
+                launches[D][name] += cnt
+
+    # phase 9
     kernels = [
         {
             "name": f"ghost_stencil_{D}d_{name}",

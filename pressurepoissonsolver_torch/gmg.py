@@ -4,7 +4,8 @@ Port of ``pressurepoissonsolver_tpu.gmg`` (the reference's ``GMG::*``
 layer, SURVEY.md §2.7).  Transfers between a fine and a coarse
 :class:`~pressurepoissonsolver_torch.ops.level_ops.Level` are row gathers
 driven by host-precomputed parent-slot tables followed by small per-axis
-matmuls:
+matmuls (in f32 at ``n <= kron_max_n()``, the reference's Kronecker form:
+one ``[n^2, n^2]`` matmul per orthant in 2D, a z matmul and one in 3D):
 
 * Restriction (``GMG::AvgRstr``, ``GMG/AvgRstr.h:53-113``): each fine patch
   average-pools 2^D cells into one and adds the result into its orthant
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from .domain import DomainHierarchy, parent_slots
-from .ops.level_ops import ActiveSmoother, Level, axis_matmul, np_dtype
+from .ops.level_ops import ActiveSmoother, Level, axis_matmul, kron_max_n, np_dtype
 
 
 @dataclass
@@ -115,6 +116,26 @@ def _linear_prolong_matrix(n: int, half: int) -> np.ndarray:
     return W
 
 
+def _orthant_kron(mats, o: int, D: int, device):
+    """Orthant ``o``'s transfer in Kronecker form from the per-axis
+    matrices ``mats[half]``: ``kron(M_y, M_x)^T`` as f32 (3D: with the z
+    matrix ``M_z``), the reference's ``gmg.Transfer._Wr``/``_Wp``."""
+    def up(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+    kr = up(np.kron(mats[(o >> 1) & 1], mats[o & 1]).T)
+    return kr if D == 2 else (kr, up(mats[(o >> 2) & 1]))
+
+
+def kron_to(mats, device):
+    """A transfer's Kronecker matrices (``None``, or per orthant a matrix
+    or a pair) on ``device``."""
+    if mats is None:
+        return None
+    return [m.to(device) if torch.is_tensor(m) else tuple(w.to(device) for w in m)
+            for m in mats]
+
+
 class Transfer:
     """Fine<->coarse transfer tables between two levels.
 
@@ -142,6 +163,16 @@ class Transfer:
                    else _constant_prolong_matrix)
         self._wprol = [up(prolong(n, h).astype(npdt)) for h in range(2)]
         self._wrstr = [up(_restrict_matrix(n, h).astype(npdt)) for h in range(2)]
+        # f32 at n <= kron_max_n(): per orthant o, the (y, x) pair as one
+        # Kronecker matrix (3D: with the z matrix beside it), f64 products
+        # cast last, in full FP32 like the per-axis form
+        self._use_kron = fine.dtype == torch.float32 and n <= kron_max_n()
+        self._Wr = self._Wp = None
+        if self._use_kron:
+            rmats = [_restrict_matrix(n, h) for h in range(2)]
+            pmats = [prolong(n, h) for h in range(2)]
+            self._Wr = [_orthant_kron(rmats, o, D, dev) for o in range(1 << D)]
+            self._Wp = [_orthant_kron(pmats, o, D, dev) for o in range(1 << D)]
         pslots = parent_slots(fine.pl, coarse.pl)
         passthrough = fine.pl.orth_on_parent < 0
         orth = fine.pl.orth_on_parent
@@ -195,10 +226,18 @@ class Transfer:
         inv[order] = np.arange(len(order))
         self._prolong_inv = up(inv)
 
-    def _orthant_apply(self, blk_flat: torch.Tensor, o: int, axis_mats) -> torch.Tensor:
-        """Apply the orthant-``o`` per-axis transfer matrices to flat
-        ``[R, n^D]`` rows."""
+    def _orthant_apply(self, blk_flat: torch.Tensor, o: int, axis_mats,
+                       kron_mats=None) -> torch.Tensor:
+        """Apply the orthant-``o`` transfer matrices to flat ``[R, n^D]``
+        rows: the Kronecker ones (``self._Wr``/``_Wp`` or a sharded
+        engine's copies on its device) when given, else the per-axis ones."""
         D, n = self.D, self.n
+        if kron_mats is not None:
+            if D == 2:
+                return torch.matmul(blk_flat, kron_mats[o].to(blk_flat.dtype))
+            Wyx, Mz = (w.to(blk_flat.dtype) for w in kron_mats[o])
+            y = torch.matmul(Mz, blk_flat.reshape(-1, n, n * n))
+            return torch.matmul(y, Wyx).reshape(blk_flat.shape[0], -1)
         blk = blk_flat.reshape((-1,) + (n,) * D)
         for a in range(D):
             M = axis_mats[(o >> a) & 1].to(blk.dtype)
@@ -215,7 +254,8 @@ class Transfer:
             [fine_u.reshape(Pf, cells), fine_u.new_zeros(1, cells)], dim=0)
         assembled = None
         for o, cols in enumerate(self._r_cols):
-            block = self._orthant_apply(fine_flat.index_select(0, cols), o, self._wrstr)
+            block = self._orthant_apply(fine_flat.index_select(0, cols), o,
+                                        self._wrstr, self._Wr)
             assembled = block if assembled is None else assembled + block
         if self._r_inv is not None:
             assembled = torch.cat(
@@ -231,7 +271,7 @@ class Transfer:
         cells = self._cells
         cflat = coarse_u.reshape(coarse_u.shape[0], cells)
         parts = [
-            self._orthant_apply(cflat.index_select(0, psel), o, self._wprol)
+            self._orthant_apply(cflat.index_select(0, psel), o, self._wprol, self._Wp)
             for o, psel in self._groups
         ]
         if self._pt_parent is not None:

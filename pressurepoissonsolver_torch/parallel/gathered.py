@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..domain import parent_slots
+from ..gmg import kron_to
 from ..ops.level_ops import _STENCIL, Level, _build_contrib_pipeline, extract_faces
 from .rank_block import RankBlock
 
@@ -233,6 +234,7 @@ class GatheredTransfer:
         dev = fine.device
         self._wprol = [w.to(dev) for w in transfer._wprol]
         self._wrstr = [w.to(dev) for w in transfer._wrstr]
+        self._Wp, self._Wr = kron_to(transfer._Wp, dev), kron_to(transfer._Wr, dev)
         Pf, Pc = fine.P, coarse.P
         pslots = parent_slots(fine.pl, coarse.pl)
         passthrough = fine.pl.orth_on_parent < 0
@@ -286,7 +288,7 @@ class GatheredTransfer:
         assembled = None
         for o, cols in enumerate(self._r_cols):
             block = self.t._orthant_apply(fine_flat.index_select(0, cols), o,
-                                          self._wrstr)
+                                          self._wrstr, self._Wr)
             assembled = block if assembled is None else assembled + block
         out = assembled + fine_flat.index_select(0, self._pt_slot)
         return out.reshape((-1,) + tuple(fine_u.shape[1:]))
@@ -296,7 +298,7 @@ class GatheredTransfer:
         added into ``fine_u``."""
         cells = self._cells
         cflat = self.coarse.gather(coarse_u.reshape(coarse_u.shape[0], cells))
-        parts = [self.t._orthant_apply(cflat.index_select(0, psel), o, self._wprol)
+        parts = [self.t._orthant_apply(cflat.index_select(0, psel), o, self._wprol, self._Wp)
                  for o, psel in self._groups]
         if self._pt_parent is not None:
             parts.append(cflat.index_select(0, self._pt_parent))

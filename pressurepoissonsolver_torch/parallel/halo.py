@@ -48,6 +48,7 @@ import torch
 from torch.profiler import record_function
 
 from ..domain import parent_slots
+from ..gmg import kron_to
 from ..ops.ghost_stencil import add_ghost_faces
 from ..ops.level_ops import (_STENCIL, Level, _build_contrib_pipeline,
                              _build_solver_tables, _fold_faces_flat,
@@ -533,6 +534,7 @@ class ShardedTransfer:
         self.prolong_mode = transfer.prolong_mode
         dev = fine.device
         self._wprol = [w.to(dev) for w in transfer._wprol]
+        self._Wp = kron_to(transfer._Wp, dev)
 
         def up(x):
             return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
@@ -641,7 +643,7 @@ class ShardedTransfer:
         parts = [buf.new_zeros(1, cells)]
         for o, src in self._pseg:
             rows = buf.index_select(0, src)
-            parts.append(rows if o is None else t._orthant_apply(rows, o, self._wprol))
+            parts.append(rows if o is None else t._orthant_apply(rows, o, self._wprol, self._Wp))
         if len(parts) == 1:
             return fine_u
         routed = torch.cat(parts, dim=0).index_select(0, self._pinv)

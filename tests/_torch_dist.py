@@ -482,5 +482,75 @@ def gathered_solve_battery(mesh, tmp, n=8):
     return out
 
 
+def reads_kron(fn, mats) -> bool:
+    """Whether ``fn()`` reads the Kronecker matrices ``mats`` (per group or
+    orthant a tensor or a tuple of them): NaN written into them reaches
+    its result.  The matrices are spoilt after."""
+    for m in mats:
+        for w in (m if isinstance(m, tuple) else (m,)):
+            w.fill_(float("nan"))
+    return bool(torch.isnan(fn()).any())
+
+
+def kron_inputs(fine, coarse):
+    """The seeded f32 inputs of :func:`kron_battery` for one mesh: the
+    fine level's right-hand side and field, and the coarse field."""
+    n, D = fine.n, fine.D
+    return tuple(field(seed, (lvl.P,) + (n,) * D).astype(np.float32)
+                 for seed, lvl in ((21, fine), (22, fine), (23, coarse)))
+
+
+def kron_hierarchy(key, k):
+    """The all-Neumann-wall hierarchy of :func:`kron_battery` (several BC
+    groups per rank, a pinned one on the coarsest level): 2D at n=8, 3D at
+    n=4, padded for ``k`` ranks."""
+    from pressurepoissonsolver_torch.domain import DomainHierarchy
+
+    tree, n = {"2d": (trees()["2d"], 8), "3d": (trees()["3d"], 4)}[key]
+    return DomainHierarchy(tree, n=n, neumann=True, num_shards=k, use_native=False)
+
+
+def kron_battery(mesh, tmp):
+    """The halo engine's f32 ops that take the Kronecker form at n <= 16:
+    the rank solves (``smooth_zero`` of the finest level and of an
+    active-set smoother on the next) and both prolongations (the wrapped
+    transfer's Kronecker matrices) beside the restriction (slice adds);
+    per mesh, whether each built its Kronecker tables, and every result
+    gathered to the global layout."""
+    from pressurepoissonsolver_torch.gmg import Transfer, _fac_active_mask
+    from pressurepoissonsolver_torch.ops.level_ops import Level
+    from pressurepoissonsolver_torch.parallel import halo
+    from pressurepoissonsolver_torch.parallel.sharding import shard_patch_array
+
+    out = {}
+    for key in ("2d", "3d"):
+        h = kron_hierarchy(key, mesh.size())
+        fine, coarse = (Level(h[i], dtype=torch.float32, device="cpu") for i in (0, 1))
+        sf, sc = halo.ShardedLevel(fine, mesh), halo.ShardedLevel(coarse, mesh)
+        f, uf, uc = (shard_patch_array(x, mesh).clone() for x in kron_inputs(fine, coarse))
+        sm = halo.ShardedActiveSmoother(sc, _fac_active_mask(Transfer(fine, coarse), 1))
+        res = {"solve": _np(sf.gather(sf.smooth_zero(f))),
+               "active_solve": _np(sc.gather(sm.smooth_zero(uc)))}
+        for mode in ("constant", "linear"):
+            st = halo.ShardedTransfer(Transfer(fine, coarse, prolong_mode=mode), sf, sc)
+            res[f"prolong_{mode}"] = _np(sf.gather(st.prolong_add(uc, uf)))
+            res[f"restrict_{mode}"] = _np(sc.gather(st.restrict(uf)))
+            # every rank runs the exchange of the poisoned call
+            reads = st._Wp is not None and reads_kron(lambda: st.prolong_add(uc, uf), st._Wp)
+            res[mode] = None if all(o is None for o, _ in st._pseg) else reads
+        # whether each op read its Kronecker matrices (None: no active
+        # patch, or no child of an orthant, on this rank)
+        res["kron"] = {
+            "level": sf._st.kron is not None and reads_kron(lambda: sf.smooth_zero(f),
+                                                            sf._st.kron),
+            "active": None if sm._st is None else (
+                sm._st.kron is not None and reads_kron(lambda: sm.smooth_zero(uc),
+                                                       sm._st.kron)),
+            **{mode: res.pop(mode) for mode in ("constant", "linear")}}
+        out[key] = res
+    return out
+
+
 BATTERIES = {"level": level_battery, "solve": solve_battery,
-             "gathered": gathered_battery, "gathered_solve": gathered_solve_battery}
+             "gathered": gathered_battery, "gathered_solve": gathered_solve_battery,
+             "kron": kron_battery}

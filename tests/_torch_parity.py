@@ -20,8 +20,8 @@ D, N, BASE, CORNER = 2, 8, 4, 2
 MESH = {2: (BASE, CORNER, N), 3: (3, 2, 4)}
 DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64, torch.float64)}
 # tolerances relative to max|ref|: f64 ops agree to round-off; f32 ops
-# may take another summation order (and, on the reference side at n <= 16,
-# the Kronecker spectral/transfer forms where the port takes per-axis ones)
+# may take another summation order (both packages take the Kronecker
+# spectral and transfer forms at n <= 16, PPS_KRON_MAX_N)
 RTOL = {"f32": 1e-5, "f64": 1e-12}
 
 

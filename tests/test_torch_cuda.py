@@ -760,3 +760,55 @@ def test_pjit_world1_solve_on_card_matches_plain(mesh1):
     assert abs(i2["inner_iterations"] - i1["inner_iterations"]) <= 1
     assert abs(n2 - n1) <= 1 and l2["float32"] > 0 and l2["float64"] > 0
     assert _rel(u1, u2) <= 1e-9 and _rel(us1, us2) <= 1e-9
+
+
+# -- the f32 Kronecker forms (PPS_KRON_MAX_N) at the CLI's default n=16 -------
+
+KRON_MESHES = {2: (4, 2), 3: (2, 1)}
+
+
+def _kron_and_axis(monkeypatch, build):
+    """``build()`` with the Kronecker forms (the default knob), then
+    without them (``PPS_KRON_MAX_N=0``)."""
+    monkeypatch.delenv("PPS_KRON_MAX_N", raising=False)
+    kron = build()
+    monkeypatch.setenv("PPS_KRON_MAX_N", "0")
+    return kron, build()
+
+
+@pytest.mark.parametrize("neumann", [False, True])
+@pytest.mark.parametrize("D", [2, 3])
+def test_kron_spectral_solve_on_card_matches_per_axis(cuda, monkeypatch, D, neumann):
+    """The Kronecker patch solves of a level and of an active-set subset on
+    CUDA tensors at n=16, f32, against the per-axis form."""
+    h = DomainHierarchy(refined_tree(D, *KRON_MESHES[D]), n=16, neumann=neumann)
+
+    def build():
+        lvl = Level(h.finest, dtype=torch.float32, device=cuda)
+        return lvl, ActiveSmoother(lvl, np.arange(lvl.P) % 3 == 0)
+
+    (lk, ak), (la, aa) = _kron_and_axis(monkeypatch, build)
+    assert lk._st.kron is not None and ak._st.kron is not None and la._st.kron is None
+    f = torch.as_tensor(np.random.default_rng(D).standard_normal((lk.P,) + (16,) * D),
+                        dtype=torch.float32, device=cuda)
+    assert _rel(la.smooth_zero(f), lk.smooth_zero(f)) <= RTOL["f32"]
+    assert _rel(aa.smooth_zero(f), ak.smooth_zero(f)) <= RTOL["f32"]
+
+
+@pytest.mark.parametrize("mode", ["constant", "linear"])
+@pytest.mark.parametrize("D", [2, 3])
+def test_kron_transfers_on_card_match_per_axis(cuda, monkeypatch, D, mode):
+    """``restrict`` and ``prolong_add`` between the two finest levels on
+    CUDA tensors at n=16, f32 (full FP32, TF32 off), Kronecker against
+    per-axis."""
+    from pressurepoissonsolver_torch.gmg import Transfer
+
+    h = DomainHierarchy(refined_tree(D, *KRON_MESHES[D]), n=16)
+    fine, coarse = (Level(h[i], dtype=torch.float32, device=cuda) for i in (0, 1))
+    tk, ta = _kron_and_axis(monkeypatch, lambda: Transfer(fine, coarse, prolong_mode=mode))
+    assert tk._Wp is not None and ta._Wp is None
+    rng = np.random.default_rng(10 + D)
+    uf, uc = (torch.as_tensor(rng.standard_normal((lvl.P,) + (16,) * D),
+                              dtype=torch.float32, device=cuda) for lvl in (fine, coarse))
+    assert _rel(ta.restrict(uf), tk.restrict(uf)) <= RTOL["f32"]
+    assert _rel(ta.prolong_add(uc, uf), tk.prolong_add(uc, uf)) <= RTOL["f32"]

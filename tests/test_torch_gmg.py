@@ -3,8 +3,9 @@ hierarchy: level stack and FAC active sets, restriction and prolongation
 on every level pair, the dense coarse inverse, and whole V(2,1)
 applications with active-set and with full smoothing.
 
-Tolerances relative to max|ref|: f64 <= 1e-12; f32 <= 1e-5 (the JAX f32
-transfers and spectral solves take Kronecker forms at n <= 16)."""
+Tolerances relative to max|ref|: f64 <= 1e-12; f32 <= 1e-5 (both packages'
+f32 transfers and spectral solves take Kronecker forms at n <= 16, their
+sums in another order)."""
 
 import functools
 

@@ -6,8 +6,9 @@ the dense 3D coarse inverse, and whole V(1,1) applications with full and
 with active-set smoothing.  ``coarse_direct_max_dof=64`` makes every level
 a visited level and the one-patch bottom a dense solve.
 
-Tolerances relative to max|ref|: f64 <= 1e-12; f32 <= 1e-5 (the JAX f32
-transfers and spectral solves take Kronecker forms at n <= 16)."""
+Tolerances relative to max|ref|: f64 <= 1e-12; f32 <= 1e-5 (both packages'
+f32 transfers and spectral solves take Kronecker forms at n <= 16, their
+sums in another order)."""
 
 import functools
 

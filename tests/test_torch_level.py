@@ -3,9 +3,9 @@ the n=8 test hierarchy, in f32 and f64: face extraction, the direct gf
 pipeline, the composite apply, the smoother sweeps, the spectral solve and
 the FAC active-set smoother.
 
-Tolerances relative to max|ref|: f64 <= 1e-12; f32 <= 1e-5 — the JAX f32
-side takes the Kronecker spectral form at n <= 16, the port the per-axis
-form, so the f32 sums run in another order.  The reference ops run under
+Tolerances relative to max|ref|: f64 <= 1e-12; f32 <= 1e-5 — both f32
+sides take the Kronecker spectral form at n <= 16, but the f32 sums may
+run in another order.  The reference ops run under
 ``jax.jit`` (one compile per op, not one per eager primitive)."""
 
 import functools

@@ -4,9 +4,9 @@ and f64: the level tables and denominators, face extraction, the direct
 gf pipeline, the composite apply, the face fold, the smoother sweeps, the
 spectral solve with its DC pin, and the FAC active-set smoother.
 
-Tolerances relative to max|ref|: f64 <= 1e-12; f32 <= 1e-5 — the JAX f32
-side takes the Kronecker spectral form at n <= 16, the port the per-axis
-form, so the f32 sums run in another order."""
+Tolerances relative to max|ref|: f64 <= 1e-12; f32 <= 1e-5 — both f32
+sides take the Kronecker spectral form at n <= 16, but the f32 sums may
+run in another order."""
 
 import functools
 

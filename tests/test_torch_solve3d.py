@@ -7,10 +7,11 @@ iterative refinement around f32 BiCGStab, V(1,1) with full FAC smoothing,
 the 3D bench's generated tree, ``refined_tree(3, 3, 2)`` at n=8 (78
 patches, 39,936 DOF; the 8-patch level is the dense coarse solve).
 Measured with the reference: 2 outer / 7 inner iterations, residual
-1.02e-11, error 5.739378412e-4.  The JAX f32 side takes its Kronecker
-spectral and transfer forms at n <= 16 and the port its per-axis forms, so
-the f32 inner solves differ in rounding: inner iterations may differ by
-one, and the f64 solutions agree to 1e-9 relative, not to round-off."""
+1.02e-11, error 5.739378412e-4.  Both packages take their Kronecker
+spectral and transfer forms at n <= 16, but their f32 sums run in another
+order, so the f32 inner solves differ in rounding: inner iterations may
+differ by one, and the f64 solutions agree to 1e-9 relative, not to
+round-off."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -6,8 +6,8 @@ the iteration counts of the IR solves that select each.
 
 Meshes: the n=8 2D test mesh (``refined_tree(2, 4, 2)``, 6 levels) with
 Dirichlet, all-Neumann and mixed walls, and the n=4 3D one.  Tolerances
-relative to max|ref|: f64 1e-12, f32 1e-5 (the reference's f32 transfers
-take Kronecker forms at n <= 16)."""
+relative to max|ref|: f64 1e-12, f32 1e-5 (both packages' f32 transfers
+take Kronecker forms at n <= 16, their sums in another order)."""
 
 import functools
 
