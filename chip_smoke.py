@@ -110,11 +110,24 @@ Phases, any failure of which raises and exits non-zero:
    ``restrict`` and ``prolong_add`` on both forms at n = 8, 16, 32 (about
    4M DOF in 2D, 2M in 3D), held to each other, with device ms cold and
    warm and bounds;
-9. print the kernel table (its launches include phases 7 and 8; each
-   stencil entry also has the no-gf mode's times, bound and launches; the
-   face-term kernel has entries of its own, with the sector bound beside
-   the element bound), the card line, and last the result line ``{"ok":
-   true, "device": {...}}``.
+9. (a) the solve loops from captured CUDA graphs: single-device solves
+   run their BiCGStab, CG and Richardson loops from graphs by default (so
+   do phases 3-8); five solves (the 2D bench IR and Schur solves, the 3D
+   bench IR solve, the CLI's default solve on the 2D bench mesh, the
+   production configuration) are run with capture on and off in turns
+   (``solver._graphs``), every one with the launch counts set to 0 just
+   before it and read just after: the counts, the iterates (bit for bit)
+   and the stencil launch counts must agree; the median walls, the
+   capture seconds, the card MiB after capture and one profiled solve per
+   mode (host launch calls, a graph's replay counted as one, kernels run,
+   idle share; the stencil kernels the captured solve's trace shows must
+   equal its launch counts, so that the replay accounting is checked
+   against what ran on the card), and for the two CLI cells the first
+   solve of a fresh set-up per mode; (b) print the kernel table (its launches include
+   phases 7, 8 and 9 (a); each stencil entry also has the no-gf mode's
+   times, bound and launches; the face-term kernel has entries of its
+   own, with the sector bound beside the element bound), the card line,
+   and last the result line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -2116,6 +2129,318 @@ def kron_phase(torch, port, cli, gs, timer, card, bw, tmp):
     return launches
 
 
+# -- phase 9: the solve loops from captured CUDA graphs ------------------------
+
+# solves per mode and cell after the warm-up, taken in turns (captured,
+# eager, eager, captured, captured, eager)
+GRAPH_TURNS = 3
+# the host calls that put work on the card, as the profiler names them
+# (a graph's replay is one cudaGraphLaunch)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                "cudaGraphLaunch")
+
+
+def traced_stencils(kern, D) -> dict:
+    """The ``D``-dimensional stencil kernels among the profiler's device
+    rows ``kern`` (``kernel_times``), per dtype name: the rows named by the
+    kernel's ``__global__`` (``ghost_stencil_2d_kernel<float, ...>``),
+    whether launched from the host or from a graph."""
+    out = {"float32": 0, "float64": 0}
+    for _, count, name in kern:
+        if f"ghost_stencil_{D}d_kernel<" in name:
+            out["float64" if "_kernel<double" in name else "float32"] += count
+    return out
+
+
+def graph_kernel_names(graph) -> list:
+    """The mangled names of the kernel nodes of a captured
+    ``torch.cuda.CUDAGraph`` (one made with ``keep_graph=True``, as
+    ``utils.graphs.capture`` makes it), child graphs included, read from
+    the graph itself through the driver API."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = ([("func", ctypes.c_void_p)]
+                    + [(f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz", "smem")]
+                    + [(f, ctypes.c_void_p) for f in ("params", "extra", "kern", "ctx")])
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        rc = getattr(cu, fn)(*args)
+        assert rc == 0, f"{fn} returned CUresult {rc}"
+
+    def walk(g):
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", g, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        call("cuGraphGetNodes", g, nodes, ctypes.byref(n))
+        names = []
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+            if kind.value == 4:  # CU_GRAPH_NODE_TYPE_GRAPH
+                child = ctypes.c_void_p()
+                call("cuGraphChildGraphNodeGetGraph", ctypes.c_void_p(node),
+                     ctypes.byref(child))
+                names += walk(child)
+            elif kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+                p = KernelNodeParams()
+                call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(p))
+                name = ctypes.c_char_p()
+                if p.func:
+                    call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(p.func))
+                else:
+                    call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(p.kern))
+                names.append(name.value.decode())
+        return names
+
+    return walk(ctypes.c_void_p(graph.raw_cuda_graph()))
+
+
+def graph_stencils(graph, D) -> dict:
+    """The ``D``-dimensional stencil kernel nodes of a captured graph
+    (``graph_kernel_names``) per dtype name: what one replay launches."""
+    out = {"float32": 0, "float64": 0}
+    for name in graph_kernel_names(graph):
+        if f"ghost_stencil_{D}d_kernelI" in name:
+            out["float64" if f"ghost_stencil_{D}d_kernelId" in name else "float32"] += 1
+    return out
+
+
+def profile_launches(torch, gs, solve, D):
+    """One solve under ``torch.profiler``, with the launch counts set to 0
+    just before it and read just after: ``(wall ms, device busy ms,
+    kernels run on the card, host launch calls per LAUNCH_CALLS name,
+    stencil kernels in the trace per dtype name, the launch counters)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pressurepoissonsolver_torch.utils.profiling import kernel_times
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gs.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counters = gs.counters()
+    kern = kernel_times(prof)
+    calls = {}
+    for e in prof.key_averages():
+        if e.key in LAUNCH_CALLS:
+            calls[e.key] = calls.get(e.key, 0) + int(e.count)
+    return (wall_ms, sum(k[0] for k in kern) / 1e3, sum(k[1] for k in kern), calls,
+            traced_stencils(kern, D), counters)
+
+
+def graph_cell(torch, gs, card, label, solver, solve, D, cold=None):
+    """One cell of phase 9: ``solve()`` (``(u, counts)``) on ``solver``
+    with its loops captured and eager: a captured first solve (the capture
+    in its wall), an eager one, then ``GRAPH_TURNS`` of each in turns, then
+    one profiled solve per mode, every one with the launch counts set to 0
+    just before it and read just after; the counts, the iterate (bit for
+    bit) and every stencil launch counter must agree between the modes and
+    across repeats, the captured graph must hold as many stencil kernel
+    nodes as the replay accounting adds per replay, and no profiled trace
+    more stencil kernels than counted.  ``cold``: the walls of the first
+    solve of a fresh solver per mode, when the caller took them.  The row,
+    with ``read_launches``: the stencil launches per dtype name summed
+    over every counter read here."""
+    rec = {True: {"walls": [], "runs": []}, False: {"walls": [], "runs": []}}
+    mib0 = torch.cuda.memory_allocated() / 2**20
+    first = None
+    for mode in [True, False] + [True, False, False, True, True, False][:2 * GRAPH_TURNS]:
+        solver._graphs = mode
+        gs.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, counts = solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if first is None:
+            first = wall
+            mib = (torch.cuda.memory_allocated() / 2**20,
+                   torch.cuda.memory_reserved() / 2**20)
+        else:
+            rec[mode]["walls"].append(wall)
+        rec[mode]["runs"].append((counts, gs.counters()))
+        rec[mode]["u"] = u
+    runs = rec[True]["runs"] + rec[False]["runs"]
+    same = all(r == runs[0] for r in runs)
+    equal = torch.equal(rec[True]["u"], rec[False]["u"])
+    diff = float((rec[True]["u"] - rec[False]["u"]).abs().max()
+                 / rec[False]["u"].abs().max())
+    counts, counters = runs[0]
+    stencil = dict(counters[D - 2])
+    prof = {}
+    for mode in (True, False):
+        solver._graphs = mode
+        prof[mode] = profile_launches(torch, gs, solve, D)
+    solver._graphs = True
+    read = [r[1] for r in runs] + [prof[m][5] for m in prof]
+    traced = {m: prof[m][4] for m in prof}
+    entry = next(iter(solver._captured.values()))
+    nodes = graph_stencils(entry.graph, D)
+    per_step = dict(entry.launches[D - 2])
+    profiled_same = all(prof[m][5] == counters for m in prof)
+    read_launches = {dt: sum(c[D - 2][dt] for c in read) for dt in stencil}
+    cap_s = sum(e.capture_s for e in solver._captured.values())
+    med = {m: statistics.median(rec[m]["walls"]) for m in rec}
+    row = {"cell": label, "counts": list(counts), "bit_equal": equal,
+           "max_rel_diff": diff, "stencil_launches": stencil,
+           "graphs": len(solver._captured), "capture_s": cap_s,
+           "first_captured_s": first, "median_s": {"captured": med[True], "eager": med[False]},
+           "walls_s": {"captured": rec[True]["walls"], "eager": rec[False]["walls"]},
+           "mib_after_capture": mib[0], "mib_reserved_after_capture": mib[1],
+           "mib_before": mib0, "traced_stencils": {"captured": traced[True],
+                                                   "eager": traced[False]},
+           "graph_stencil_nodes": nodes, "accounted_per_replay": per_step,
+           "read_launches": read_launches}
+    if cold:
+        row["cold_s"] = cold
+    for m, name in ((True, "captured"), (False, "eager")):
+        wall, busy, kernels, calls = prof[m][:4]
+        row[f"profile_{name}"] = {"wall_ms": wall, "busy_ms": busy,
+                                  "idle_share": 1 - busy / wall, "kernels": kernels,
+                                  "host_launch_calls": sum(calls.values()),
+                                  "graph_launches": calls.get("cudaGraphLaunch", 0),
+                                  "calls": calls}
+    pc, pe = row["profile_captured"], row["profile_eager"]
+    line = (f"graphs {label} [{card}]: counts {counts} in every solve of both modes "
+            f"({same}); iterates bit-equal {equal} (max rel diff {diff:.3e}); stencil "
+            f"launches per solve {stencil} in both; median wall s captured / eager "
+            f"{med[True]:.6f} / {med[False]:.6f} ({[round(w, 6) for w in rec[True]['walls']]}"
+            f" / {[round(w, 6) for w in rec[False]['walls']]}); first captured solve "
+            f"{first:.6f} s, capture {cap_s:.3f} s in {len(solver._captured)} graph(s); "
+            f"card MiB after capture {mib[0]:.0f} allocated, {mib[1]:.0f} reserved "
+            f"({mib0:.0f} before); profiled captured / eager: wall ms {pc['wall_ms']:.3f} / "
+            f"{pe['wall_ms']:.3f}, busy ms {pc['busy_ms']:.3f} / {pe['busy_ms']:.3f}, idle "
+            f"{100 * pc['idle_share']:.1f}% / {100 * pe['idle_share']:.1f}%, host launch "
+            f"calls {pc['host_launch_calls']} ({pc['graph_launches']} graph launches) / "
+            f"{pe['host_launch_calls']}, kernels run {pc['kernels']} / {pe['kernels']}; "
+            f"launch counters of the profiled solves as the turns' {profiled_same}, stencil "
+            f"kernels in their traces captured / eager {traced[True]} / {traced[False]}; "
+            f"stencil kernel nodes of the graph {nodes}, accounted per replay {per_step}")
+    if cold:
+        line += f"; cold first solve s captured / eager {cold['captured']:.6f} / {cold['eager']:.6f}"
+    print(line, flush=True)
+    assert same and equal and profiled_same, line
+    assert sum(stencil.values()) > 0 and len(solver._captured) == 1, line
+    # the replay accounting against the graph the card replays: each replay
+    # runs every node, so the accounting is exact when the step's recorded
+    # launches are the graph's stencil nodes.  The profiler's traces are a
+    # lower bound only: they lose a record now and then, in either mode
+    # (one of 80 launched in an eager trace), never add one
+    assert nodes == per_step and sum(nodes.values()) > 0, line
+    assert all(t[dt] <= stencil[dt] for t in traced.values() for dt in stencil), line
+    return row
+
+
+def graph_reads(torch, card, entry, f):
+    """The cost of the captured loop's one host read per step: 7 replays
+    of the bench IR's captured inner step (from the first outer round's
+    state) with the guard read after each, and without, 4 of each in
+    turns; the launch counters are not touched (no solve runs)."""
+    walls = {}
+    for mode in ("read", "noread") * 4:
+        entry.b.copy_(f)
+        entry._write(entry.loop.init(entry.b, 1e-4, 60))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(7):
+            entry.graph.replay()
+            if mode == "read":
+                bool(entry.state.go.item())
+        torch.cuda.synchronize()
+        walls.setdefault(mode, []).append(time.perf_counter() - t0)
+    rd, nr = statistics.median(walls["read"]), statistics.median(walls["noread"])
+    print(f"graphs 7 captured steps [{card}]: median of 4 with a read per step "
+          f"{rd:.6f} s {[round(w, 6) for w in walls['read']]}, without {nr:.6f} s "
+          f"{[round(w, 6) for w in walls['noread']]}", flush=True)
+
+
+def graph_phase(torch, port, cli, gs, timer, card, head):
+    """Phase 9 (a): the five cells' solves with their loops captured and
+    eager (:func:`graph_cell`): the 2D bench IR and Schur solves, the 3D
+    bench IR solve, the CLI's default solve on the 2D bench mesh and the
+    production configuration (``--shards 0``, one device); for the two
+    CLI cells also the wall of the first solve of a fresh set-up per mode
+    (the CLI's cold ``linear_solve_s``).  The rows and the stencil launches
+    per dimension and dtype."""
+    t0 = time.perf_counter()
+    rows = []
+    launches = {D: {"float32": 0, "float64": 0} for D in (2, 3)}
+
+    def add(D, row, extra=()):
+        rows.append(row)
+        for dt, c in row["read_launches"].items():
+            launches[D][dt] += c + sum(e[dt] for e in extra)
+
+    solver, f, exact, _ = setup_bench(
+        torch, port, card, 2, 5, 2, 64,
+        port.CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                       coarse_direct_max_dof=4096))
+
+    def ir():
+        u, info = solver.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+        return u, (info["outer_iterations"], info["inner_iterations"])
+
+    add(2, graph_cell(torch, gs, card, "bench-2d-adaptive-ir", solver, ir, 2))
+    graph_reads(torch, card, next(iter(solver._captured.values())), f)
+    solver._captured.clear()
+
+    def schur():
+        u, res = solver.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
+        return u, (res.iterations,)
+
+    add(2, graph_cell(torch, gs, card, "bench-2d-schur-gmg", solver, schur, 2))
+    del solver, f, exact
+
+    solver, f, exact, _ = setup_bench(torch, port, card, 3, 3, 2, 32, port.CycleOpts())
+
+    def ir3():
+        u, info = solver.solve_refined(f, tol=1e-10)
+        return u, (info["outer_iterations"], info["inner_iterations"])
+
+    add(3, graph_cell(torch, gs, card, "bench-3d-fac-ir", solver, ir3, 3))
+    del solver, f, exact
+
+    for label, argv in (("cli-2d-default", head[2]),
+                        ("cli-2d-production-n16", ["--config", PRODUCTION_INI,
+                                                   "--shards", "0"])):
+        _, args = cli.parse_args(2, argv)
+        cold, runs, extra = {}, {}, []
+        for mode in (False, True):
+            run = cli.setup(2, args, device="cuda", timer=timer.Timer())
+            run.solver._graphs = mode
+            gs.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cli.solve(run, args, timer.Timer("cuda"))
+            torch.cuda.synchronize()
+            cold["captured" if mode else "eager"] = time.perf_counter() - t1
+            extra.append(gs.counters()[0])
+            runs[mode] = run
+        del runs[False]
+        run = runs[True]
+        run.solver._captured.clear()
+
+        def cli_solve():
+            u, res, _, _ = cli.solve(run, args, timer.Timer("cuda"))
+            counts = ((res["outer_iterations"], res["inner_iterations"])
+                      if isinstance(res, dict) else (res.iterations,))
+            return u, counts
+
+        add(2, graph_cell(torch, gs, card, label, run.solver, cli_solve, 2, cold=cold),
+            extra)
+        del run, runs
+    print(json.dumps({"graph_solves": rows}), flush=True)
+    print(f"graphs phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def build_kernels(gs, cuda_build) -> None:
     """Phase 2: one nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
@@ -2218,7 +2543,13 @@ def main() -> None:
             for name, cnt in per.items():
                 launches[D][name] += cnt
 
-    # phase 9
+        # phase 9 (a): the solve loops captured against eager, each solve
+        # driven with the launch counts set to 0 just before it
+        for D, per in graph_phase(torch, port, cli, gs, timer, card, head).items():
+            for name, cnt in per.items():
+                launches[D][name] += cnt
+
+    # phase 9 (b)
     kernels = [
         {
             "name": f"ghost_stencil_{D}d_{name}",

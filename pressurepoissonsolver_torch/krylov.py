@@ -5,11 +5,18 @@ the monitored forms that record a residual-norm history.
 
 Port of ``pressurepoissonsolver_tpu.krylov``: the same recurrences,
 breakdown guards, stop rules and iteration counts.  The reference runs
-each loop inside one ``lax.while_loop``; here the loops are Python.
-BiCGStab, CG and Richardson read one scalar back to the host per
-iteration (the stop test) and keep every other scalar of the recurrence
-on the device; GMRES reads the new Hessenberg column per Arnoldi step and
-runs the Givens rotations and the small triangular solve on the host.
+each loop inside one ``lax.while_loop``.  Here BiCGStab, CG and Richardson
+are each three parts, :class:`KrylovLoop`: an init, a guarded step that
+does device work only (the iteration, the step count ``k + 1`` and the
+stop test ``(k < max_iter) & (||r|| / ||r0|| > tol)`` on the device, in
+the working dtype) and a result.  :func:`run_loop` drives them: it reads
+the guard to the host once per step and runs the step while it holds, so
+a step past the stop is never computed.  The step runs eagerly (on the
+CPU, and from these functions), or as a CUDA graph captured once per
+solver and key and replayed (``utils.graphs.CapturedLoop``, which
+``solver.PoissonSolver`` uses on one CUDA device).  GMRES reads the new
+Hessenberg column per Arnoldi step and runs the Givens rotations and the
+small triangular solve on the host.
 
 The monitored forms (``residual_history``, ``cg_history``,
 ``gmres(history=True)``) stop at convergence.  The reference's
@@ -66,6 +73,76 @@ class BiCGStabState(NamedTuple):
     rhat: torch.Tensor
 
 
+class KrylovLoop(NamedTuple):
+    """A Krylov method as the three parts of a guarded loop, the
+    counterpart of the reference's ``lax.while_loop`` (cond, body, init):
+
+    * ``init(b, tol, max_iter, x0=None)``: the state, a NamedTuple of
+      tensors ending in the step limit ``max_iter``, the step count ``k``
+      (both int64) and the guard ``go`` (bool), all 0-d and on ``b``'s
+      device; ``tol`` becomes a 0-d tensor of ``b``'s dtype;
+    * ``step(state)``: one guarded step, device work only: the iteration,
+      ``k + 1`` and the guard re-tested on the new state;
+    * ``result(state, iterations)``: the :class:`KrylovResult`.
+
+    The state holds everything a solve changes, so that a step captured
+    over static copies of it (``utils.graphs.CapturedLoop``) serves every
+    right-hand side, ``tol`` and ``max_iter``."""
+
+    init: Callable
+    step: Callable
+    result: Callable
+
+
+def _scalar(v, b: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-d tensor of ``b``'s dtype on its device."""
+    return torch.full((), v, dtype=b.dtype, device=b.device)
+
+
+def _count(b: torch.Tensor, v: int = 0) -> torch.Tensor:
+    return torch.full((), v, dtype=torch.int64, device=b.device)
+
+
+def _guard(k: torch.Tensor, max_iter: torch.Tensor, ratio: torch.Tensor,
+           tol: torch.Tensor) -> torch.Tensor:
+    """Whether another step runs: ``k < max_iter`` and ``ratio > tol``,
+    compared in the working dtype (a zero initial residual gives ``nan >
+    tol`` = False)."""
+    return (k < max_iter) & (ratio > tol)
+
+
+def run_loop(state, advance: Callable):
+    """Run guarded steps while ``state.go`` holds, reading it to the host
+    once per step (the loop's only host read); ``advance(state)`` is the
+    state after one step, computed eagerly or by replaying a captured step
+    over static buffers.  ``(state, steps)``."""
+    steps = 0
+    while bool(state.go.item()):
+        state = advance(state)
+        steps += 1
+    return state, steps
+
+
+def solve_loop(loop: KrylovLoop, b: torch.Tensor, tol, max_iter: int,
+               x0=None) -> KrylovResult:
+    """``loop`` run eagerly on ``b`` to its stop."""
+    state, steps = run_loop(loop.init(b, tol, max_iter, x0), loop.step)
+    return loop.result(state, steps)
+
+
+class _BiCGStab(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rho: torch.Tensor
+    rhat: torch.Tensor
+    r0_norm: torch.Tensor
+    tol: torch.Tensor
+    max_iter: torch.Tensor
+    k: torch.Tensor
+    go: torch.Tensor
+
+
 def bicgstab_init(A: Op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                   allreduce: Reduce = None):
     """Initial state and ``||r0||``."""
@@ -96,6 +173,30 @@ def bicgstab_step(A: Op, M: Optional[Op], st: BiCGStabState,
     return BiCGStabState(x=x, r=r, p=p, rho=rho_new, rhat=rhat)
 
 
+def bicgstab_loop(A: Op, M: Optional[Op] = None, allreduce: Reduce = None) -> KrylovLoop:
+    """Right-preconditioned BiCGStab (``BiCGStab.h:45-106``) as the parts
+    of a guarded loop (see :class:`KrylovLoop`)."""
+
+    def init(b, tol, max_iter, x0=None):
+        st, r0_norm = bicgstab_init(A, b, x0, allreduce)
+        tol, max_iter, k = _scalar(tol, b), _count(b, max_iter), _count(b)
+        return _BiCGStab(*st, r0_norm, tol, max_iter, k,
+                         _guard(k, max_iter, _norm(st.r, allreduce) / r0_norm, tol))
+
+    def step(s):
+        st = bicgstab_step(A, M, BiCGStabState(*s[:5]), allreduce)
+        k = s.k + 1
+        return _BiCGStab(*st, s.r0_norm, s.tol, s.max_iter, k,
+                         _guard(k, s.max_iter, _norm(st.r, allreduce) / s.r0_norm,
+                                s.tol))
+
+    def result(s, iterations):
+        return KrylovResult(x=s.x, iterations=iterations,
+                            residual_norm=_norm(s.r, allreduce), r0_norm=s.r0_norm)
+
+    return KrylovLoop(init, step, result)
+
+
 def bicgstab(
     A: Op,
     b: torch.Tensor,
@@ -111,15 +212,7 @@ def bicgstab(
     zero initial residual gives ``nan > tol`` = False and stops at once.
     ``allreduce`` (every solver here takes it) sums each dot over the
     ranks of a sharded solve."""
-    st, r0_norm = bicgstab_init(A, b, x0, allreduce)
-    k = 0
-    while k < max_iter:
-        if not bool((_norm(st.r, allreduce) / r0_norm > tol).item()):
-            break
-        st = bicgstab_step(A, M, st, allreduce)
-        k += 1
-    return KrylovResult(x=st.x, iterations=k, residual_norm=_norm(st.r, allreduce),
-                        r0_norm=r0_norm)
+    return solve_loop(bicgstab_loop(A, M, allreduce), b, tol, max_iter, x0)
 
 
 def _host_scalar(t: torch.Tensor):
@@ -165,6 +258,59 @@ def _weighted_dot(weight: Optional[torch.Tensor], dtype: torch.dtype,
     return lambda a, c: _dot(a * w, c, allreduce)
 
 
+class _CG(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    r0: torch.Tensor  # <r0, r0>_w
+    thr: torch.Tensor  # tol^2 in the working dtype
+    max_iter: torch.Tensor
+    k: torch.Tensor
+    go: torch.Tensor
+
+
+def cg_loop(A: Op, M: Optional[Op] = None, weight: Optional[torch.Tensor] = None,
+            allreduce: Reduce = None) -> KrylovLoop:
+    """Preconditioned CG (see :func:`cg`; ``weight`` in the working dtype)
+    as the parts of a guarded loop (see :class:`KrylovLoop`)."""
+    wdot = _weighted_dot(weight, None if weight is None else weight.dtype, allreduce)
+
+    def init(b, tol, max_iter, x0=None):
+        if x0 is None:
+            x, r = torch.zeros_like(b), b  # b - A(0) = b
+        else:
+            x, r = x0, b - A(x0)
+        r0 = wdot(r, r)
+        tol_t = _scalar(tol, b)
+        thr = tol_t * tol_t
+        z = r if M is None else M(r)
+        rz = wdot(r, z)
+        max_iter, k = _count(b, max_iter), _count(b)
+        return _CG(x, r, z, rz, r0, thr, max_iter, k,
+                   _guard(k, max_iter, wdot(r, r) / r0, thr))
+
+    def step(s):
+        x, r, p, rz = s[:4]
+        ap = A(p)
+        alpha = rz / wdot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = r if M is None else M(r)
+        rz_new = wdot(r, z)
+        p = z + (rz_new / rz) * p
+        k = s.k + 1
+        return _CG(x, r, p, rz_new, s.r0, s.thr, s.max_iter, k,
+                   _guard(k, s.max_iter, wdot(r, r) / s.r0, s.thr))
+
+    def result(s, iterations):
+        return KrylovResult(x=s.x, iterations=iterations,
+                            residual_norm=torch.sqrt(wdot(s.r, s.r)),
+                            r0_norm=torch.sqrt(s.r0))
+
+    return KrylovLoop(init, step, result)
+
+
 def cg(
     A: Op,
     b: torch.Tensor,
@@ -187,32 +333,8 @@ def cg(
     The stop test ``<r, r>_w / <r0, r0>_w > tol^2`` runs in the working
     dtype, ``tol^2`` squared in it, as in the reference; no breakdown
     guard, as in the reference."""
-    wdot = _weighted_dot(weight, b.dtype, allreduce)
-    if x0 is None:
-        x, r = torch.zeros_like(b), b  # b - A(0) = b
-    else:
-        x, r = x0, b - A(x0)
-    r0 = wdot(r, r)
-    tol_t = torch.tensor(tol, dtype=b.dtype, device=b.device)
-    thr = tol_t * tol_t
-    z = r if M is None else M(r)
-    p = z
-    rz = wdot(r, z)
-    k = 0
-    while k < max_iter:
-        if not bool((wdot(r, r) / r0 > thr).item()):
-            break
-        ap = A(p)
-        alpha = rz / wdot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = r if M is None else M(r)
-        rz_new = wdot(r, z)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-        k += 1
-    return KrylovResult(x=x, iterations=k, residual_norm=torch.sqrt(wdot(r, r)),
-                        r0_norm=torch.sqrt(r0))
+    w = None if weight is None else weight.to(b.dtype)
+    return solve_loop(cg_loop(A, M, w, allreduce), b, tol, max_iter, x0)
 
 
 def cg_history(
@@ -255,6 +377,46 @@ def cg_history(
                          r0_norm=r0_norm), np.asarray(hist))
 
 
+class _Richardson(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    b: torch.Tensor
+    r0_norm: torch.Tensor
+    tol: torch.Tensor
+    max_iter: torch.Tensor
+    k: torch.Tensor
+    go: torch.Tensor
+
+
+def richardson_loop(A: Op, M: Optional[Op] = None, allreduce: Reduce = None) -> KrylovLoop:
+    """Preconditioned Richardson iteration (see :func:`richardson`) as the
+    parts of a guarded loop (see :class:`KrylovLoop`)."""
+
+    def init(b, tol, max_iter, x0=None):
+        if x0 is None:
+            x, r = torch.zeros_like(b), b
+        else:
+            x, r = x0, b - A(x0)
+        r0_norm = _norm(r, allreduce)
+        tol, max_iter, k = _scalar(tol, b), _count(b, max_iter), _count(b)
+        return _Richardson(x, r, b, r0_norm, tol, max_iter, k,
+                           _guard(k, max_iter, _norm(r, allreduce) / r0_norm, tol))
+
+    def step(s):
+        x = s.x + (s.r if M is None else M(s.r))
+        r = s.b - A(x)
+        k = s.k + 1
+        return _Richardson(x, r, s.b, s.r0_norm, s.tol, s.max_iter, k,
+                           _guard(k, s.max_iter, _norm(r, allreduce) / s.r0_norm,
+                                  s.tol))
+
+    def result(s, iterations):
+        return KrylovResult(x=s.x, iterations=iterations,
+                            residual_norm=_norm(s.r, allreduce), r0_norm=s.r0_norm)
+
+    return KrylovLoop(init, step, result)
+
+
 def richardson(
     A: Op,
     b: torch.Tensor,
@@ -268,20 +430,7 @@ def richardson(
     multigrid preconditioner, plain multigrid iteration.  Each step costs
     one preconditioner and one operator apply, half a BiCGStab iteration.
     Stops once ``||r|| / ||r0|| <= tol`` (in the working dtype)."""
-    if x0 is None:
-        x, r = torch.zeros_like(b), b
-    else:
-        x, r = x0, b - A(x0)
-    r0_norm = _norm(r, allreduce)
-    k = 0
-    while k < max_iter:
-        if not bool((_norm(r, allreduce) / r0_norm > tol).item()):
-            break
-        x = x + (r if M is None else M(r))
-        r = b - A(x)
-        k += 1
-    return KrylovResult(x=x, iterations=k, residual_norm=_norm(r, allreduce),
-                        r0_norm=r0_norm)
+    return solve_loop(richardson_loop(A, M, allreduce), b, tol, max_iter, x0)
 
 
 def gmres(

@@ -76,11 +76,36 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns = {}  # (D, dtype) -> ctypes function
 
 
+def _counters() -> tuple:
+    """Every additive launch counter (``last_width`` is not one)."""
+    return (*_COUNTS.values(), *widths.values(), *launches_nogf.values(),
+            *launches_faces.values())
+
+
 def reset_launches() -> None:
-    for counts in (*_COUNTS.values(), *widths.values(), *launches_nogf.values(),
-                   *launches_faces.values()):
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
+
+
+# The counters are host integers, bumped where a wrapper launches.  A CUDA
+# graph replays its kernels without the wrappers, so a captured step is
+# accounted for by hand (``utils.graphs``): the difference of two
+# ``counters()`` around its capture is the step's launches, taken back once
+# (the capture ran nothing) and added once per replay with ``add_launches``.
+# ``last_width`` keeps the capture's widths.
+
+def counters() -> list:
+    """A copy of every launch counter (``last_width`` is not one)."""
+    return [dict(c) for c in _counters()]
+
+
+def add_launches(delta: list, sign: int = 1) -> None:
+    """Add ``sign`` times the launches ``delta`` (the difference of two
+    :func:`counters`) to the counters."""
+    for c, d in zip(_counters(), delta):
+        for k, v in d.items():
+            c[k] += sign * v
 
 
 def build(D: int = 2) -> ctypes.CDLL:

@@ -9,15 +9,31 @@ Port of ``pressurepoissonsolver_tpu.solver`` for one device:
   GMG --solver thunderegg``) or by one sweep of patch solves (Schwarz).
 * ``solve_refined``: f64 iterative refinement around f32 inner solves
   (GMG-preconditioned BiCGStab, CG or Richardson).  The reference runs the
-  whole outer loop in one jitted ``lax.while_loop``; here it is host Python
-  with the same best-iterate, stagnation and breakdown rules, reading one
-  scalar per outer round.
+  whole outer loop in one jitted ``lax.while_loop``; here the outer round
+  is host Python with the same best-iterate, stagnation and breakdown
+  rules, reading one scalar per round, around the inner loop.
 * ``solve_schur``: eliminate the patch interiors, solve the interface
   system ``(I - S) gamma = interp(solve(f, 0))`` with BiCGStab or GMRES,
   then recover ``u`` by one more round of patch solves (reference
   ``--schur``).
 * ``solve_monitored``: the composite or the Schur solve with a
   per-iteration relative-residual history (the CLI's ``--monitor``).
+
+On one CUDA device the BiCGStab, CG and Richardson loops of ``solve``,
+``solve_refined`` and ``solve_schur`` run from CUDA graphs, as the
+reference runs them from compiled programs: each loop's step (the
+preconditioner, the operator applies, the dots and axpys, the step count
+and the stop test) is captured and kept (``utils.graphs.CapturedLoop``),
+one graph per entry point and method: ``solve`` per ``krylov``,
+``solve_refined`` per ``inner_krylov``, ``solve_schur`` per
+``preconditioner``.  The right-hand side, ``tol`` and the step limit are
+copied into the graph's buffers, so they need no new capture; the outer
+IR loop stays on the host, so ``max_outer`` is no part of the graph.  The
+step is captured at the first solve of its key, whose wall holds the
+capture.  The host replays the step and reads the guard once per step.
+GMRES, the monitored forms, the sharded engines and the batched patch
+BiCGStab (``patch_solver="bcgs"``, a host read per patch iteration) run
+eagerly; everywhere else the same loop parts run eagerly too.
 
 With ``mesh`` (``parallel.sharding.make_mesh``) the solves run
 patch-sharded, one rank per device, through the cut-face halo engine
@@ -41,11 +57,12 @@ import torch
 
 from .domain import DomainHierarchy
 from .gmg import CycleOpts, build_gmg
-from .krylov import (KrylovResult, _norm, bicgstab, cg, cg_history, gmres,
-                     residual_history, richardson)
+from .krylov import (KrylovLoop, KrylovResult, _norm, bicgstab_loop, cg_history,
+                     cg_loop, gmres, residual_history, richardson_loop, solve_loop)
 from .matrix import schur_block_jacobi
 from .ops.level_ops import Level
 from .precond import poly_cheb, schwarz
+from .utils.graphs import CapturedLoop
 
 
 @dataclass
@@ -149,6 +166,12 @@ class PoissonSolver:
             )
         self._fine_low = None
         self._schur_M: dict = {}  # solve_schur's preconditioner -> M
+        # on one CUDA device every loop runs from its captured step
+        # (``_run_loop``); a solver's only switch, kept private so that
+        # tests can run the eager loop beside the captured one
+        self._graphs = (self.device.type == "cuda" and mesh is None
+                        and o.patch_solver == "dft")
+        self._captured: dict = {}  # key -> CapturedLoop
 
     # -- operators ----------------------------------------------------------
 
@@ -206,6 +229,18 @@ class PoissonSolver:
 
     # -- solves -------------------------------------------------------------
 
+    def _run_loop(self, key: tuple, make: Callable[[], KrylovLoop], b: torch.Tensor,
+                  tol: float, max_iter: int) -> KrylovResult:
+        """The Krylov loop ``make()`` on ``b`` to its stop: with
+        ``_graphs``, from its step captured at the first solve of ``key``
+        (the graph and its capture seconds kept in ``_captured[key]``), else
+        eagerly."""
+        if not self._graphs:
+            return solve_loop(make(), b, tol, max_iter)
+        if key not in self._captured:
+            self._captured[key] = CapturedLoop(make(), b, tol, max_iter)
+        return self._captured[key].run(b, tol, max_iter)
+
     def solve(
         self,
         f,
@@ -216,13 +251,19 @@ class PoissonSolver:
         or GMRES: ``opts.krylov``) on ``A u = f``."""
         tol = self.opts.tol if tol is None else tol
         max_iter = self.opts.max_iter if max_iter is None else max_iter
-        A, b, M = self._op.apply, self._as_field(f), self._preconditioner()
-        if self.opts.krylov == "cg":
-            return cg(A, b, M=M, tol=tol, max_iter=max_iter,
-                      weight=self._volume_weight(self.opts.dtype),
-                      allreduce=self._allreduce)
-        method = gmres if self.opts.krylov == "gmres" else bicgstab
-        return method(A, b, M=M, tol=tol, max_iter=max_iter, allreduce=self._allreduce)
+        A, b, red = self._op.apply, self._as_field(f), self._allreduce
+        krylov = self.opts.krylov
+        if krylov == "gmres":
+            return gmres(A, b, M=self._preconditioner(), tol=tol, max_iter=max_iter,
+                         allreduce=red)
+
+        def make():
+            M = self._preconditioner()
+            if krylov == "cg":
+                return cg_loop(A, M, self._volume_weight(self.opts.dtype), red)
+            return bicgstab_loop(A, M, red)
+
+        return self._run_loop(("solve", krylov), make, b, tol, max_iter)
 
     def solve_monitored(
         self,
@@ -292,7 +333,8 @@ class PoissonSolver:
         reference runs the whole loop on the device and, with
         ``sync=False``, leaves its counts there; this loop reads the
         relative residual on the host every round to decide whether to
-        stop, so the counts are host integers whatever ``sync`` says.
+        stop (its one read per round besides the inner loop's guard), so
+        the counts are host integers whatever ``sync`` says.
 
         The inner operator is the cycle's finest level when it has the
         preconditioner dtype, else a bilinear level of that dtype: with the
@@ -315,16 +357,13 @@ class PoissonSolver:
         M = self.gmg.apply if self.gmg is not None else None
         apply64 = self._op.apply
         inner = self.opts.inner_krylov
-        w_in = self._volume_weight(pdtype) if inner == "cg" else None
         red = self._allreduce
 
-        def inner_solve(r_low):
+        def make():
             if inner == "cg":
-                return cg(low.apply, r_low, M=M, tol=inner_tol,
-                          max_iter=inner_max_iter, weight=w_in, allreduce=red)
-            method = richardson if inner == "richardson" else bicgstab
-            return method(low.apply, r_low, M=M, tol=inner_tol, max_iter=inner_max_iter,
-                          allreduce=red)
+                return cg_loop(low.apply, M, self._volume_weight(pdtype), red)
+            method = richardson_loop if inner == "richardson" else bicgstab_loop
+            return method(low.apply, M, red)
 
         f = self._as_field(f)
         fnorm = _norm(f, red)
@@ -336,7 +375,8 @@ class PoissonSolver:
         k = inner_total = 0
         hist = [1.0]
         while True:
-            e_res = inner_solve(r.to(pdtype))
+            e_res = self._run_loop(("refined", inner), make, r.to(pdtype), inner_tol,
+                                   inner_max_iter)
             e = torch.where(torch.isfinite(e_res.x), e_res.x,
                             torch.zeros_like(e_res.x))
             u_new = u + e.to(f.dtype)
@@ -405,13 +445,19 @@ class PoissonSolver:
         kept.  Returns ``(u, KrylovResult)``."""
         tol = self.opts.tol if tol is None else tol
         max_iter = self.opts.max_iter if max_iter is None else max_iter
-        lvl = self._op
+        lvl, red = self._op, self._allreduce
         M = self._schur_preconditioner(preconditioner)
-        method = gmres if self.opts.krylov == "gmres" else bicgstab
         f = self._as_field(f)
         b = lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
-        res = method(lambda g: g - lvl.schur_S(g), b, M=M, tol=tol, max_iter=max_iter,
-                     allreduce=self._allreduce)
+
+        def A(g):
+            return g - lvl.schur_S(g)
+
+        if self.opts.krylov == "gmres":
+            res = gmres(A, b, M=M, tol=tol, max_iter=max_iter, allreduce=red)
+        else:
+            res = self._run_loop(("schur", preconditioner), lambda: bicgstab_loop(A, M, red),
+                                 b, tol, max_iter)
         return lvl.patch_solve(f, res.x), res
 
     def _schur_preconditioner(self, preconditioner: Optional[str]) -> Optional[Callable]:

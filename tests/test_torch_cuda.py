@@ -4,7 +4,10 @@ the Schur path's ``apply_with_interface`` and per-patch BiCGStab through the
 kernels against the CPU, the kernels' no-gf mode and the face-term kernel, small 2D and 3D solves (``solve_refined`` and
 ``solve_schur``), and the measurement surface: the bench scripts at a small
 size, ``time_op``'s held device time and its fallback, a trace and the op
-report.
+report; and the solve loops run from captured CUDA graphs against the
+eager loops (counts, bit-equal iterates, launch counts, the graph's
+stencil nodes against the replay accounting, a false guard, a new
+``tol``, unaliased results, a capture that cannot be made).
 
 Every test here needs a card and skips without one (the CUDA kernel has no
 CPU mode).  This file imports no JAX, so it runs on a machine without it;
@@ -812,3 +815,164 @@ def test_kron_transfers_on_card_match_per_axis(cuda, monkeypatch, D, mode):
                               dtype=torch.float32, device=cuda) for lvl in (fine, coarse))
     assert _rel(ta.restrict(uf), tk.restrict(uf)) <= RTOL["f32"]
     assert _rel(ta.prolong_add(uc, uf), tk.prolong_add(uc, uf)) <= RTOL["f32"]
+
+
+# --- the solve loops from captured CUDA graphs --------------------------------
+
+# (solver options, entry point) of the captured solves, on the small 2D mesh
+GRAPH_SOLVES = {
+    "solve-bicgstab": ({}, "solve"),
+    "solve-cg": ({"krylov": "cg"}, "solve"),
+    "refined-bicgstab": ({"precond_dtype": torch.float32}, "refined"),
+    "refined-cg": ({"precond_dtype": torch.float32, "inner_krylov": "cg"}, "refined"),
+    "refined-richardson": ({"precond_dtype": torch.float32,
+                            "inner_krylov": "richardson"}, "refined"),
+    "schur-gmg": ({"precond_dtype": torch.float32}, "schur"),
+}
+GRAPH_GMG = CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                      coarse_direct_max_dof=64)
+
+
+def _graph_solver(cuda, D=2, **opts):
+    h = _hierarchy() if D == 2 else _hierarchy_3d(8)
+    s = PoissonSolver(h, SolveOptions(tol=1e-10, gmg=GRAPH_GMG, **opts), device=cuda)
+    f, exact = init_problem(h.finest, get_problem("trig", D))
+    return s, torch.as_tensor(f, device=cuda), torch.as_tensor(exact, device=cuda)
+
+
+def _graph_run(s, f, how, **kw):
+    """``(u, counts)`` of one solve."""
+    if how == "solve":
+        res = s.solve(f, **kw)
+        return res.x, (res.iterations,)
+    if how == "refined":
+        u, info = s.solve_refined(f, tol=kw.get("tol", 1e-10), inner_tol=1e-4)
+        return u, (info["outer_iterations"], info["inner_iterations"])
+    u, res = s.solve_schur(f, tol=kw.get("tol", 1e-10), max_iter=60, preconditioner="gmg")
+    return u, (res.iterations,)
+
+
+@pytest.mark.parametrize("D, case", [(2, c) for c in GRAPH_SOLVES]
+                         + [(3, "refined-bicgstab"), (3, "schur-gmg")])
+def test_captured_solve_on_card_matches_eager(cuda, D, case):
+    """On one card the loops run from captured graphs by default; in turns
+    with the eager loop (captured (the capture), eager, eager, captured
+    (replays only)) they give the same counts, the same iterate bit for
+    bit and the same stencil launch counts (the replays counted per
+    step)."""
+    opts, how = GRAPH_SOLVES[case]
+    s, f, exact = _graph_solver(cuda, D, **opts)
+    assert s._graphs
+    out = {}
+    for mode in (True, False, False, True):
+        s._graphs = mode
+        gs.reset_launches()
+        u, counts = _graph_run(s, f, how)
+        torch.cuda.synchronize()
+        out.setdefault(mode, []).append((u, counts, gs.counters()))
+    assert len(s._captured) == 1
+    (ug, cg, lg), (ue, ce, le) = out[True][1], out[False][0]
+    assert cg == ce and torch.equal(ug, ue) and lg == le
+    assert torch.equal(out[True][0][0], ug) and out[True][0][2] == lg
+    assert torch.equal(out[False][1][0], ue)
+    assert sum(lg[0 if D == 2 else 1].values()) > 0
+    assert s.report(ug, f, exact)["residual"] <= 1e-9
+
+
+@pytest.mark.parametrize("D, case", [(2, c) for c in GRAPH_SOLVES]
+                         + [(3, "refined-bicgstab"), (3, "schur-gmg")])
+def test_captured_graph_holds_the_accounted_stencil_launches(cuda, D, case):
+    """The launches the replay accounting adds per replay are the stencil
+    kernel nodes of the graph the card replays, read back from the graph
+    through the driver API (``chip_smoke.graph_stencils``)."""
+    from chip_smoke import graph_kernel_names, graph_stencils
+
+    opts, how = GRAPH_SOLVES[case]
+    s, f, _ = _graph_solver(cuda, D, **opts)
+    _graph_run(s, f, how)
+    (entry,) = s._captured.values()
+    nodes = graph_stencils(entry.graph, D)
+    assert nodes == entry.launches[D - 2] and sum(nodes.values()) > 0
+    assert len(graph_kernel_names(entry.graph)) > sum(nodes.values())
+
+
+def test_captured_loop_skips_steps_once_the_guard_is_false(cuda):
+    """A false guard runs no step: the state stays as it was, bit for bit,
+    and the step count with it (a zero right-hand side stops at once, with
+    the static state untouched)."""
+    from pressurepoissonsolver_torch import krylov
+    from pressurepoissonsolver_torch.utils.graphs import CapturedLoop
+
+    s, f, _ = _graph_solver(cuda, precond_dtype=torch.float32)
+    low = s.gmg.levels[0]
+    f32 = f.to(torch.float32)
+    cap = CapturedLoop(krylov.bicgstab_loop(low.apply, s.gmg.apply), f32, 1e-4, 60)
+    res = cap.run(f32, 1e-4, 60)
+    assert 0 < res.iterations < 60
+    before = [t.clone() for t in cap.state]
+    assert not bool(cap.state.go)
+    state, steps = krylov.run_loop(cap.state, cap._replay)
+    assert steps == 0 and all(torch.equal(a, b) for a, b in zip(before, cap.state))
+    zero = cap.run(torch.zeros_like(f32), 1e-4, 60)
+    assert zero.iterations == 0 and int(cap.state.k) == 0
+    assert not bool(zero.x.abs().max())
+
+
+def test_captured_solves_give_unaliased_answers(cuda):
+    """Two solves with different right-hand sides from one captured loop:
+    two correct answers, the first not overwritten by the second."""
+    s, f, _ = _graph_solver(cuda, precond_dtype=torch.float32)
+    u1, i1 = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    keep = u1.clone()
+    u2, i2 = s.solve_refined(3 * f + 1, tol=1e-10, inner_tol=1e-4)
+    assert len(s._captured) == 1
+    assert torch.equal(u1, keep) and u1.data_ptr() != u2.data_ptr()
+    s._graphs = False
+    e1, _ = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    e2, _ = s.solve_refined(3 * f + 1, tol=1e-10, inner_tol=1e-4)
+    assert torch.equal(u1, e1) and torch.equal(u2, e2)
+
+
+@pytest.mark.parametrize("how", ["solve", "refined", "schur"])
+def test_captured_loop_with_a_new_tol_stops_where_eager_does(cuda, how):
+    """``tol`` is a buffer of the graph, not part of its key: a loosened
+    and a tightened ``tol`` after the capture stop where the eager loop
+    does, with the same iterate, and capture nothing new."""
+    s, f, _ = _graph_solver(cuda, precond_dtype=torch.float32)
+    seen = []
+    for tol in (1e-10, 1e-4, 1e-12):
+        s._graphs = True
+        ug, cg = _graph_run(s, f, how, tol=tol)
+        s._graphs = False
+        ue, ce = _graph_run(s, f, how, tol=tol)
+        assert cg == ce and torch.equal(ug, ue)
+        seen.append(cg)
+    assert len(s._captured) == 1 and seen[1] != seen[0]
+
+
+def test_captured_loop_with_a_new_step_limit_stops_where_eager_does(cuda):
+    """The step limit is a buffer of the graph too: after the capture a
+    lower ``max_iter`` stops the captured loop where it stops the eager
+    one, and a new limit captures nothing new."""
+    s, f, _ = _graph_solver(cuda, precond_dtype=torch.float32)
+    seen = []
+    for max_iter in (1000, 2, 1000):
+        s._graphs = True
+        rg = s.solve(f, max_iter=max_iter)
+        s._graphs = False
+        re_ = s.solve(f, max_iter=max_iter)
+        assert rg.iterations == re_.iterations and torch.equal(rg.x, re_.x)
+        seen.append(rg.iterations)
+    assert len(s._captured) == 1 and seen[1] == 2 and seen[0] == seen[2] > 2
+
+
+def test_capture_that_cannot_be_made_raises(cuda):
+    """The batched patch BiCGStab reads a flag per patch iteration, which a
+    capture forbids: its solver runs eagerly, and forcing a capture raises
+    instead of falling back to the eager loop."""
+    s, f, _ = _graph_solver(cuda, patch_solver="bcgs")
+    assert not s._graphs
+    s.solve(f, max_iter=3)
+    s._graphs = True
+    with pytest.raises(RuntimeError):
+        s.solve(f, max_iter=3)
