@@ -9,10 +9,10 @@ Run from the repository root, with no arguments::
 Phases, any failure of which raises and exits non-zero:
 
 1. require CUDA; turn TF32 off for matmuls and convolutions; print the
-   card's name and power limit;
+   card's name and power limit and the CUDA driver's version;
 2. build the CUDA kernels from ``pressurepoissonsolver_torch/csrc``, one
-   ``nvcc`` per source (the 2D and 3D stencils and the split stencil's
-   face term), all started together;
+   ``nvcc`` per source (the 2D and 3D stencils, the split stencil's face
+   term and the WHILE nodes' guard), all started together;
 3. 2D: hold the 2D kernel against its plain PyTorch version on the card,
    at the main path's shapes, at odd shapes and with ``u`` at an element
    offset (the one-element-per-thread path), and time both with CUDA
@@ -111,23 +111,45 @@ Phases, any failure of which raises and exits non-zero:
    4M DOF in 2D, 2M in 3D), held to each other, with device ms cold and
    warm and bounds;
 9. (a) the solve loops from captured CUDA graphs: single-device solves
-   run their BiCGStab, CG and Richardson loops from graphs by default (so
-   do phases 3-8); five solves (the 2D bench IR and Schur solves, the 3D
-   bench IR solve, the CLI's default solve on the 2D bench mesh, the
-   production configuration) are run with capture on and off in turns
-   (``solver._graphs``), every one with the launch counts set to 0 just
+   run their loops as one graph launch by default (so do phases 3-8);
+   five solves (the 2D bench IR and Schur solves, the 3D bench IR solve,
+   the CLI's default solve on the 2D bench mesh, the production
+   configuration) are run captured (the per-step replay: a host read
+   of the guard between replays) and eager in turns (``solver._graphs``), every one with the
+   launch counts set to 0 just
    before it and read just after: the counts, the iterates (bit for bit)
    and the stencil launch counts must agree; the median walls, the
    capture seconds, the card MiB after capture and one profiled solve per
-   mode (host launch calls, a graph's replay counted as one, kernels run,
-   idle share; the stencil kernels the captured solve's trace shows must
-   equal its launch counts, so that the replay accounting is checked
-   against what ran on the card), and for the two CLI cells the first
-   solve of a fresh set-up per mode; (b) print the kernel table (its launches include
-   phases 7, 8 and 9 (a); each stencil entry also has the no-gf mode's
-   times, bound and launches; the face-term kernel has entries of its
-   own, with the sector bound beside the element bound), the card line,
-   and last the result line ``{"ok": true, "device": {...}}``.
+   mode (host launch calls, kernels run, idle share; no trace may hold
+   more stencil kernels than counted, and the captured step's graph must
+   hold as many stencil kernel nodes as the accounting adds per step),
+   and for the two CLI cells the first solve of a fresh set-up per mode;
+   the cost of a host read per step against a WHILE pass (7 steps of the
+   bench IR's inner loop);
+10. (a) the solves as one graph launch with WHILE nodes
+   (``csrc/graph_loop.cu``, ``utils.graphs.GraphLoop``): the five cells of
+   9 (a) on the same set-ups, and two GMRES cells at full width (the bench
+   Schur solve with ``krylov="gmres"`` and ``apps.steady2d --solver gmres``
+   on the 2D bench mesh, held to the JAX package's counts and errors),
+   each in three modes (one graph launch, the per-step replay, eager), a
+   first solve and ``LOOP_TURNS`` solves each in turns, every one with the
+   launch counts set to 0 just before it and read just after: bit-equal
+   iterates, equal counts and stencil launches, one graph launch and one
+   host read (``krylov.reads``) per one-launch solve, none inside an IR
+   ``solve_refined(sync=False)``, and the stencil kernel nodes of each
+   WHILE body (read back through the driver API) equal to the launches the
+   accounting adds per pass; median walls, capture and build seconds, card
+   MiB after the build, graph nodes per Arnoldi step, and one profiled
+   one-launch solve per cell (busy and idle share, kernels, the stencils
+   its trace names, reported: the trace misnames some kernels that run
+   inside WHILE bodies); (b) the guard kernel
+   against its plain version (a host read per pass), timed per pass;
+11. print the kernel table (its launches include phases 7-10; each
+   stencil entry also has the no-gf mode's times, bound and launches; the
+   face-term kernel has entries of its own, with the sector bound beside
+   the element bound; the guard kernel's launches are its runs in phase
+   10), the card line, and last the result line ``{"ok": true,
+   "device": {...}}``.
 """
 
 import concurrent.futures
@@ -297,6 +319,10 @@ SOURCES = {2: "pressurepoissonsolver_torch/csrc/ghost_stencil.cu",
 # sum of ShardedLevel._stencil_local)
 FACES_SOURCE = "pressurepoissonsolver_torch/csrc/ghost_faces.cu"
 FACES_REPLACES = "pressurepoissonsolver_tpu/parallel/halo.py:626"
+# the guard kernel of the WHILE nodes: a kernel of the port with no Pallas
+# counterpart; it stands for the condition of the reference's lax.while_loop
+GUARD_SOURCE = "pressurepoissonsolver_torch/csrc/graph_loop.cu"
+GUARD_REPLACES = "pressurepoissonsolver_tpu/krylov.py:213"
 # patch shapes (P, n) off the main path, checked against the plain version;
 # n=6 in f32 and n=1 take the kernels' one-element-per-thread path
 ODD_SHAPES = {2: [(37, 12), (37, 6), (3, 1)], 3: [(37, 6), (3, 1)]}
@@ -997,7 +1023,8 @@ def bench_2d(torch, gs, card, warm_f32_ms):
     gs.reset_launches()
     out, ret = run_json(bench.main)
     torch.cuda.synchronize()
-    launches = dict(gs.launches)
+    # counters() also reads the launches its sync=False solves left on the card
+    launches = gs.counters()[0]
     line = (f"bench.py (port) [{card}]: outer {out['outer_iterations']} inner "
             f"{out['inner_iterations']} residual {out['residual']:.3e} error "
             f"{out['error']:.6e} solve_s {out['solve_s']:.6f} setup_s "
@@ -1032,7 +1059,8 @@ def bench_3d(torch, port, gs, card, tmp):
     with environ(PPS_BENCH3D_MESH=mesh):
         out, _ = run_json(bench3d.main)
     torch.cuda.synchronize()
-    launches = dict(gs.launches_3d)
+    # counters() also reads the launches its sync=False solves left on the card
+    launches = gs.counters()[1]
     line = (f"bench3d (port) [{card}]: {out['dof']} DOF, outer "
             f"{out['outer_iterations']} inner {out['inner_iterations']} residual "
             f"{out['residual']:.3e} error {out['error']:.6e} value {out['value']:.6f} s; "
@@ -2133,7 +2161,16 @@ def kron_phase(torch, port, cli, gs, timer, card, bw, tmp):
 
 # solves per mode and cell after the warm-up, taken in turns (captured,
 # eager, eager, captured, captured, eager)
-GRAPH_TURNS = 3
+GRAPH_TURNS = 2
+# phase 9's captured mode (``solver._graphs``): the captured step replayed
+# once per step, with a host read of the guard between replays (the
+# earlier design, kept for comparison); phase 10 runs the default, one launch.  A
+# profiler trace of a one-launch solve names some kernels that ran inside
+# WHILE bodies wrongly (the 2D bench IR: 132 f32 stencils traced against
+# 112 f32 and 3 f64 launched, while the graph holds exactly the counted
+# nodes), so the trace is held to the counts here, and the one-launch
+# solves to their graphs' nodes in phase 10
+CAPTURED = "steps"
 # the host calls that put work on the card, as the profiler names them
 # (a graph's replay is one cudaGraphLaunch)
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -2153,11 +2190,21 @@ def traced_stencils(kern, D) -> dict:
     return out
 
 
-def graph_kernel_names(graph) -> list:
-    """The mangled names of the kernel nodes of a captured
-    ``torch.cuda.CUDAGraph`` (one made with ``keep_graph=True``, as
-    ``utils.graphs.capture`` makes it), child graphs included, read from
-    the graph itself through the driver API."""
+# the driver's node types (CUgraphNodeType) by number
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+              6: "wait_event", 7: "event_record", 8: "ext_semaphore_signal",
+              9: "ext_semaphore_wait", 10: "mem_alloc", 11: "mem_free",
+              12: "batch_mem_op", 13: "conditional"}
+
+
+def graph_nodes(graph, bodies=None) -> tuple:
+    """The nodes of a CUDA graph, read from the graph itself through the
+    driver API: ``graph`` a captured ``torch.cuda.CUDAGraph`` (one made
+    with ``keep_graph=True``, as ``utils.graphs.capture`` makes it) or a
+    raw ``CUgraph`` pointer.  Child graphs are descended into; so are
+    conditional (WHILE) nodes when ``bodies`` maps their node pointers to
+    their body graphs (``GraphLoop.loop_nodes``), else each counts as one
+    node.  ``(kernel names, node counts by type name)``."""
     import ctypes
 
     class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
@@ -2171,20 +2218,25 @@ def graph_kernel_names(graph) -> list:
         rc = getattr(cu, fn)(*args)
         assert rc == 0, f"{fn} returned CUresult {rc}"
 
+    names, kinds = [], {}
+
     def walk(g):
         n = ctypes.c_size_t(0)
         call("cuGraphGetNodes", g, None, ctypes.byref(n))
         nodes = (ctypes.c_void_p * n.value)()
         call("cuGraphGetNodes", g, nodes, ctypes.byref(n))
-        names = []
         for node in nodes:
             kind = ctypes.c_int(-1)
             call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+            name = NODE_TYPES.get(kind.value, str(kind.value))
+            kinds[name] = kinds.get(name, 0) + 1
             if kind.value == 4:  # CU_GRAPH_NODE_TYPE_GRAPH
                 child = ctypes.c_void_p()
                 call("cuGraphChildGraphNodeGetGraph", ctypes.c_void_p(node),
                      ctypes.byref(child))
-                names += walk(child)
+                walk(child)
+            elif kind.value == 13 and bodies is not None:
+                walk(ctypes.c_void_p(bodies[node]))
             elif kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
                 p = KernelNodeParams()
                 call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(p))
@@ -2194,18 +2246,48 @@ def graph_kernel_names(graph) -> list:
                 else:
                     call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(p.kern))
                 names.append(name.value.decode())
-        return names
 
-    return walk(ctypes.c_void_p(graph.raw_cuda_graph()))
+    raw = graph if isinstance(graph, int) else graph.raw_cuda_graph()
+    walk(ctypes.c_void_p(raw))
+    return names, kinds
 
 
-def graph_stencils(graph, D) -> dict:
-    """The ``D``-dimensional stencil kernel nodes of a captured graph
-    (``graph_kernel_names``) per dtype name: what one replay launches."""
+def graph_kernel_names(graph, bodies=None) -> list:
+    """The mangled names of the kernel nodes of a graph (``graph_nodes``),
+    child graphs included, and WHILE bodies with ``bodies``."""
+    return graph_nodes(graph, bodies)[0]
+
+
+def stencil_nodes(names, D) -> dict:
+    """The ``D``-dimensional stencil kernels among mangled kernel names,
+    per dtype name."""
     out = {"float32": 0, "float64": 0}
-    for name in graph_kernel_names(graph):
+    for name in names:
         if f"ghost_stencil_{D}d_kernelI" in name:
             out["float64" if f"ghost_stencil_{D}d_kernelId" in name else "float32"] += 1
+    return out
+
+
+def graph_stencils(graph, D, bodies=None) -> dict:
+    """The ``D``-dimensional stencil kernel nodes of a graph
+    (``graph_kernel_names``; each WHILE body once with ``bodies``) per
+    dtype name: for a captured piece, what one replay launches."""
+    return stencil_nodes(graph_kernel_names(graph, bodies), D)
+
+
+def graph_levels(loop) -> dict:
+    """Per level of a composed ``utils.graphs.GraphLoop`` (``"root"`` and
+    each WHILE body by its loop slot): the stencil kernel nodes per
+    dimension and dtype name in that level's graph, child graphs included
+    and nested WHILE bodies not (each level's nodes run once per pass of
+    its loop), its node counts by type, and the guard kernel nodes."""
+    levels = {"root": loop.root, **loop.bodies}
+    out = {}
+    for level, raw in levels.items():
+        names, kinds = graph_nodes(raw)
+        out[level] = {"stencils": {D: stencil_nodes(names, D) for D in (2, 3)},
+                      "kinds": kinds,
+                      "guards": sum("pps_set_conditional" in n for n in names)}
     return out
 
 
@@ -2237,8 +2319,8 @@ def profile_launches(torch, gs, solve, D):
 
 def graph_cell(torch, gs, card, label, solver, solve, D, cold=None):
     """One cell of phase 9: ``solve()`` (``(u, counts)``) on ``solver``
-    with its loops captured and eager: a captured first solve (the capture
-    in its wall), an eager one, then ``GRAPH_TURNS`` of each in turns, then
+    with its loops captured (``CAPTURED``: the per-step replay) and eager:
+    a captured first solve (the capture in its wall), an eager one, then ``GRAPH_TURNS`` of each in turns, then
     one profiled solve per mode, every one with the launch counts set to 0
     just before it and read just after; the counts, the iterate (bit for
     bit) and every stencil launch counter must agree between the modes and
@@ -2252,7 +2334,7 @@ def graph_cell(torch, gs, card, label, solver, solve, D, cold=None):
     mib0 = torch.cuda.memory_allocated() / 2**20
     first = None
     for mode in [True, False] + [True, False, False, True, True, False][:2 * GRAPH_TURNS]:
-        solver._graphs = mode
+        solver._graphs = CAPTURED if mode else False
         gs.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2276,7 +2358,7 @@ def graph_cell(torch, gs, card, label, solver, solve, D, cold=None):
     stencil = dict(counters[D - 2])
     prof = {}
     for mode in (True, False):
-        solver._graphs = mode
+        solver._graphs = CAPTURED if mode else False
         prof[mode] = profile_launches(torch, gs, solve, D)
     solver._graphs = True
     read = [r[1] for r in runs] + [prof[m][5] for m in prof]
@@ -2338,57 +2420,369 @@ def graph_cell(torch, gs, card, label, solver, solve, D, cold=None):
     return row
 
 
-def graph_reads(torch, card, entry, f):
-    """The cost of the captured loop's one host read per step: 7 replays
-    of the bench IR's captured inner step (from the first outer round's
-    state) with the guard read after each, and without, 4 of each in
-    turns; the launch counters are not touched (no solve runs)."""
+def graph_reads(torch, card, solver, f):
+    """The cost of a host read per step against a WHILE node's pass: the
+    bench IR's inner BiCGStab captured as a loop of its own
+    (``utils.graphs.CapturedLoop``, on ``f`` in f32) and run for 7 steps
+    (``tol`` 0, ``max_iter`` 7), 4 times each in turns: its init then 7
+    replays of the step with the guard read after each, the same without
+    the reads, and one launch of the composed graph (7 WHILE passes); the
+    launch counters are set to 0 after (no solve runs)."""
+    from pressurepoissonsolver_torch.krylov import bicgstab_loop
+    from pressurepoissonsolver_torch.utils.graphs import CapturedLoop
+
+    b = f.to(torch.float32)
+    cap = CapturedLoop(bicgstab_loop(solver._fine_low.apply, solver.gmg.apply), b, 0.0, 7)
+    cap.b.copy_(b)
+    cap.graphs.launch()  # composed and instantiated before the timing
     walls = {}
-    for mode in ("read", "noread") * 4:
-        entry.b.copy_(f)
-        entry._write(entry.loop.init(entry.b, 1e-4, 60))
+    for mode in ("read", "noread", "while") * 4:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(7):
-            entry.graph.replay()
-            if mode == "read":
-                bool(entry.state.go.item())
+        if mode == "while":
+            cap.graphs.launch()
+        else:
+            cap.graphs.init.graph.replay()
+            for _ in range(7):
+                cap.graph.replay()
+                if mode == "read":
+                    bool(cap.state.go.item())
         torch.cuda.synchronize()
         walls.setdefault(mode, []).append(time.perf_counter() - t0)
-    rd, nr = statistics.median(walls["read"]), statistics.median(walls["noread"])
+    assert int(cap.state.k) == 7 and int(cap.graphs.runs[0]) == 7
+    med = {m: statistics.median(w) for m, w in walls.items()}
     print(f"graphs 7 captured steps [{card}]: median of 4 with a read per step "
-          f"{rd:.6f} s {[round(w, 6) for w in walls['read']]}, without {nr:.6f} s "
-          f"{[round(w, 6) for w in walls['noread']]}", flush=True)
+          f"{med['read']:.6f} s {[round(w, 6) for w in walls['read']]}, without "
+          f"{med['noread']:.6f} s {[round(w, 6) for w in walls['noread']]}, as one launch "
+          f"with 7 WHILE passes {med['while']:.6f} s {[round(w, 6) for w in walls['while']]}",
+          flush=True)
+    gs_reset()
+    return med
+
+
+def gs_reset():
+    """Every launch counter of the port set to 0: the stencil wrappers'
+    and ``utils.graphs.launches``."""
+    from pressurepoissonsolver_torch.ops import ghost_stencil
+    from pressurepoissonsolver_torch.utils import graphs
+
+    ghost_stencil.reset_launches()
+    graphs.reset_launches()
+
+
+# -- phase 10: the solves as one graph launch (WHILE nodes) --------------------
+
+# the modes of a solver's loops (``solver._graphs``) and their names
+LOOP_MODES = {True: "one_launch", "steps": "per_step", False: "eager"}
+# solves per mode and cell after the first, in turns
+LOOP_TURNS = 3
+LOOP_ORDER = (True, "steps", False, False, "steps", True, True, "steps", False)
+# the GMRES cells' references: the JAX package on the CPU (jax_enable_x64).
+# The bench Schur solve with krylov="gmres" (the phase-3 options,
+# solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")): iterations
+# and relative error; its interface vectors are f64 and its preconditioner
+# holds an f32 V-cycle, so the count is held within one.  The JAX CLI
+# "--mesh <2D bench mesh> -n 64 -t 1e-10 --solver gmres" (all f64): its
+# iterations, held exactly, and error.
+GMRES_SCHUR_REF = ((13,), 8.931334605e-07)
+GMRES_CLI_REF = ((10,), 8.930985482e-07)
+# the JAX references' errors are held within this share
+GMRES_ERROR_RTOL = 0.01
+# passes of the guard kernel's timing loop
+GUARD_PASSES = 1000
+
+
+def loop_entry(solver):
+    """The solver's one composed loop (its only ``_captured`` entry)."""
+    (entry,) = solver._captured.values()
+    return entry.graphs
+
+
+def loop_cell(torch, gs, card, label, solver, solve, D, sync_false=None, ref=None,
+              f64=True, error=None):
+    """One cell of phase 10: ``solve()`` (``(u, counts)``) on ``solver`` in
+    the three modes of its loops (one graph launch, the per-step replay,
+    eager), a first solve each then ``LOOP_TURNS`` each in turns, every
+    solve with every launch counter set to 0 just before it and read just
+    after, and the host reads made inside it counted (``krylov.reads``, the
+    port's read points).  Held: the counts, the iterate (bit for bit) and
+    every stencil launch counter equal across all solves; a one-launch
+    solve makes 1 graph launch and 1 host read, the others none; with
+    ``sync_false`` (an IR cell) a ``solve_refined(sync=False)`` makes no
+    host read inside and gives the same iterate, counts and launches; the
+    stencil kernel nodes of every level of the composed graph equal the
+    launches the accounting adds per pass of that level (``graph_levels``);
+    with ``ref`` ((counts, error) of the JAX reference) the counts exactly
+    (``f64``) or within one, and ``error()`` within ``GMRES_ERROR_RTOL`` of
+    the reference's.  The row, with the stencil launches, guard runs and
+    passes summed over the counters read."""
+    from pressurepoissonsolver_torch import krylov
+    from pressurepoissonsolver_torch.utils import graphs
+
+    t0 = time.perf_counter()
+    mib = (torch.cuda.memory_allocated() / 2**20, torch.cuda.memory_reserved() / 2**20)
+    rec = {m: {"walls": [], "runs": []} for m in LOOP_MODES}
+    first, u_ref = {}, None
+    read = {"stencils": {"float32": 0, "float64": 0}, "guard": 0, "passes": 0}
+
+    def counted(fn):
+        gs_reset()
+        reads = krylov.reads["host"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        u, counts = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        reads = krylov.reads["host"] - reads
+        launched, loops = gs.counters(), dict(graphs.launches)
+        for dt in read["stencils"]:
+            read["stencils"][dt] += launched[D - 2][dt]
+        read["guard"] += loops["guard"]
+        read["passes"] += loops["passes"]
+        return u, counts, launched, loops, reads, wall
+
+    for i, mode in enumerate((True, "steps", False) + LOOP_ORDER[:3 * LOOP_TURNS]):
+        solver._graphs = mode
+        u, counts, launched, loops, reads, wall = counted(solve)
+        if i < 3:
+            first[LOOP_MODES[mode]] = wall
+        else:
+            rec[mode]["walls"].append(wall)
+        rec[mode]["runs"].append((counts, launched, loops, reads))
+        if u_ref is None:
+            u_ref = u
+        assert torch.equal(u, u_ref), (label, mode)
+    solver._graphs = True
+    runs = [r for m in rec for r in rec[m]["runs"]]
+    counts, launched = runs[0][:2]
+    same = all(r[0] == counts and r[1] == launched for r in runs)
+    one = [r[2:] for r in rec[True]["runs"]]
+    one_ok = all(lp["graph"] == 1 and rd == 1 and lp["guard"] > lp["passes"] > 0
+                 for lp, rd in one)
+    others_ok = all(r[2]["graph"] == 0 and r[2]["guard"] == 0
+                    for m in ("steps", False) for r in rec[m]["runs"])
+    step_reads = rec["steps"]["runs"][0][3]
+    # one profiled one-launch solve: what the trace shows of it (reported;
+    # its kernel names inside WHILE bodies are not reliable, see CAPTURED)
+    wall_ms, busy_ms, kernels, calls, traced, prof_counts = profile_launches(
+        torch, gs, solve, D)
+    profiled = {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+                "kernels": kernels, "host_launch_calls": sum(calls.values()),
+                "graph_launches": calls.get("cudaGraphLaunch", 0),
+                "traced_stencils": traced, "counted_stencils": prof_counts[D - 2]}
+    gs_reset()
+    gl = loop_entry(solver)
+    nosync = None
+    if sync_false is not None:
+        u2, c2, l2, loops2, reads2, _ = counted(sync_false)
+        nosync = {"reads": reads2, "bit_equal": bool(torch.equal(u2, u_ref)),
+                  "counts": list(c2), "launches_equal": l2 == launched,
+                  "graph_launches": loops2["graph"]}
+    levels = graph_levels(gl)
+    want = gl.level_launches()
+    levels_ok = all(levels[lv]["stencils"] == want[lv] for lv in levels)
+    allowed = {"kernel", "memcpy", "memset", "graph", "empty", "conditional"}
+    kinds_ok = all(set(levels[lv]["kinds"]) <= allowed for lv in levels)
+    med = {LOOP_MODES[m]: statistics.median(rec[m]["walls"]) for m in rec}
+    row = {"cell": label, "counts": list(counts), "bit_equal": True, "same_counts": same,
+           "stencil_launches": launched[D - 2], "host_reads_one_launch": one[0][1],
+           "host_reads_per_step": step_reads, "graph_launches_one_launch": one[0][0]["graph"],
+           "guard_runs": one[0][0]["guard"], "while_passes": one[0][0]["passes"],
+           "median_s": med, "walls_s": {LOOP_MODES[m]: rec[m]["walls"] for m in rec},
+           "first_s": first, "capture_s": gl.capture_s, "build_s": gl.build_s,
+           "mib_after_build": mib[0], "mib_reserved_after_build": mib[1],
+           "levels": {str(lv): {"stencils": levels[lv]["stencils"][D],
+                                "accounted": want[lv][D], "kinds": levels[lv]["kinds"],
+                                "guards": levels[lv]["guards"]} for lv in levels},
+           "sync_false": nosync, "read": read, "profile_one_launch": profiled}
+    line = (f"loops {label} [{card}]: counts {counts} in every solve of the three modes "
+            f"({same}); iterates bit-equal; stencil launches per solve {launched[D - 2]}; "
+            f"median wall s one launch / per step / eager {med['one_launch']:.6f} / "
+            f"{med['per_step']:.6f} / {med['eager']:.6f} "
+            f"({[round(w, 6) for m in rec for w in rec[m]['walls']]}); first solve s "
+            f"{first['one_launch']:.6f} / {first['per_step']:.6f} / {first['eager']:.6f}; "
+            f"graph launches per one-launch solve {one[0][0]['graph']}, host reads "
+            f"{one[0][1]} (per step: {step_reads}); WHILE passes {one[0][0]['passes']}, "
+            f"guard runs {one[0][0]['guard']}; capture {gl.capture_s:.3f} s, build "
+            f"{gl.build_s:.3f} s; card MiB after the build {mib[0]:.0f} allocated, "
+            f"{mib[1]:.0f} reserved; levels (stencil nodes = accounted per pass: "
+            f"{levels_ok}; node kinds {kinds_ok}); profiled one-launch solve: wall ms "
+            f"{wall_ms:.3f}, busy ms {busy_ms:.3f}, idle {100 * profiled['idle_share']:.1f}%, "
+            f"kernels run {kernels}, host launch calls {profiled['host_launch_calls']} "
+            f"({profiled['graph_launches']} graph launches), stencil kernels in its trace "
+            f"{traced} against {prof_counts[D - 2]} counted; levels "
+            f"{ {str(lv): (levels[lv]['stencils'][D], levels[lv]['kinds']) for lv in levels} }")
+    if nosync is not None:
+        line += (f"; sync=False: host reads inside {nosync['reads']}, iterate bit-equal "
+                 f"{nosync['bit_equal']}, counts {nosync['counts']}, launches equal "
+                 f"{nosync['launches_equal']}")
+    if ref is not None:
+        err = error(u_ref)
+        row["error"], row["reference"] = err, {"counts": list(ref[0]), "error": ref[1]}
+        line += (f"; error {err:.9e} against the reference's {ref[1]:.9e}, counts "
+                 f"{counts} against {ref[0]}")
+    print(line, flush=True)
+    print(f"loops {label}: phase 10 cell {time.perf_counter() - t0:.1f} s", flush=True)
+    assert same and one_ok and others_ok and step_reads > 1, line
+    assert prof_counts[D - 2] == launched[D - 2], line
+    assert levels_ok and kinds_ok and sum(launched[D - 2].values()) > 0, line
+    if nosync is not None:
+        assert (nosync["reads"] == 0 and nosync["bit_equal"] and nosync["launches_equal"]
+                and nosync["counts"] == list(counts) and nosync["graph_launches"] == 1), line
+    if ref is not None:
+        if f64:
+            assert tuple(counts) == tuple(ref[0]), line
+        else:
+            assert all(abs(a - b) <= 1 for a, b in zip(counts, ref[0])), line
+        assert abs(row["error"] - ref[1]) <= GMRES_ERROR_RTOL * ref[1], line
+    return row
+
+
+def arnoldi_nodes(solver) -> dict:
+    """Graph nodes per Arnoldi step of a GMRES solver's composed loop: the
+    node counts by type of its Gram-Schmidt and Givens pieces
+    (``graph_nodes`` of each captured piece)."""
+    gl = loop_entry(solver)
+    out = {}
+    for fn, piece in gl.pieces.items():
+        name = getattr(fn, "__name__", "")
+        if name in ("gram_schmidt", "givens"):
+            out[name] = graph_nodes(piece.graph)[1]
+    return out
+
+
+def counter_loop(torch, passes, nodes):
+    """A loop of ``passes`` passes of a counter piece (``nodes - 1`` adds on
+    a scalar, then ``k + 1`` and ``go = k + 1 < passes``) as a
+    ``utils.graphs.GraphLoop`` on the card."""
+    from typing import NamedTuple
+
+    from pressurepoissonsolver_torch.krylov import While
+    from pressurepoissonsolver_torch.utils import graphs
+
+    class Count(NamedTuple):
+        k: object
+        x: object
+        go: object
+
+    n = torch.full((), passes, dtype=torch.int64, device="cuda")
+
+    def init(n_):
+        k = torch.zeros((), dtype=torch.int64, device="cuda")
+        return Count(k, torch.zeros((), device="cuda"), k < n_)
+
+    def step(st):
+        x = st.x
+        for _ in range(nodes - 1):
+            x = x + 1
+        k = st.k + 1
+        return Count(k, x, k < n)
+
+    return graphs.GraphLoop((n,), init, (While(lambda st: st.go, (step,)),),
+                            lambda: init(n), step, "cuda")
+
+
+def guard_timing(torch, card, bw) -> dict:
+    """The guard kernel against its plain version: a loop of
+    ``GUARD_PASSES`` passes of a counter piece (:func:`counter_loop`, one
+    add) as one graph launch (a guard node and the piece per pass) and
+    piece by piece (a replay and a host read of the flag per pass), the
+    same final state from both, timed with CUDA events, 4 turns each; ms
+    per pass, its bound (the guard reads the flag and updates its 8-byte
+    counter: 17 bytes) and the difference of the final states.  Then the
+    cost of a pass against the body's size: 100 passes of a piece of 1,
+    100 and 1,000 kernels, per pass as one launch, piece by piece with a
+    host read per pass, and the piece's graph replayed back to back with
+    no read."""
+    gl = counter_loop(torch, GUARD_PASSES, 2)
+    res = {"one": [], "plain": []}
+    final = {"one": [], "plain": []}
+
+    def timed(fn, reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    for mode in ("one", "plain", "plain", "one") * 2:
+        res[mode].append(timed(gl.launch if mode == "one" else gl.replay, GUARD_PASSES))
+        final[mode].append((int(gl.state.k), int(gl.state.go)))
+    assert int(gl.runs[0]) == GUARD_PASSES
+    err = max(abs(a[i] - b[i]) for a in final["one"] for b in final["plain"] for i in (0, 1))
+    assert final["one"][0] == (GUARD_PASSES, 0) and err == 0, final
+    sweep = {}
+    for nodes in (1, 100, 1000):
+        sl = counter_loop(torch, 100, nodes)
+        sl.launch()
+        t = {"one": [], "read": [], "noread": []}
+
+        def noread(sl=sl):
+            for _ in range(100):
+                sl.graph.replay()
+
+        for mode in ("one", "read", "noread") * 3:
+            fn = {"one": sl.launch, "read": sl.replay, "noread": noread}[mode]
+            t[mode].append(timed(fn, 100))
+        sweep[nodes] = {m: statistics.median(v) for m, v in t.items()}
+    gs_reset()
+    out = {"ms": statistics.median(res["one"]), "plain_ms": statistics.median(res["plain"]),
+           "bound_ms": 1e3 * 17 / bw, "bound_by": "bytes", "max_abs_err": float(err),
+           "ms_turns": res["one"], "plain_ms_turns": res["plain"], "body_sweep_ms": sweep}
+    print(f"guard kernel [{card}]: {GUARD_PASSES} WHILE passes of a counter piece: "
+          f"ms per pass one launch {out['ms']:.6f} ({[round(v, 6) for v in res['one']]}), "
+          f"piece by piece with a host read per pass {out['plain_ms']:.6f} "
+          f"({[round(v, 6) for v in res['plain']]}); bound {out['bound_ms']:.3e} ms by "
+          f"bytes; the same final state in both; ms per pass of a body of n kernels "
+          f"(one launch / a read per pass / replays with no read): "
+          + "; ".join(f"n={n} {v['one']:.6f} / {v['read']:.6f} / {v['noread']:.6f}"
+                      for n, v in sweep.items()), flush=True)
+    return out
 
 
 def graph_phase(torch, port, cli, gs, timer, card, head):
-    """Phase 9 (a): the five cells' solves with their loops captured and
-    eager (:func:`graph_cell`): the 2D bench IR and Schur solves, the 3D
-    bench IR solve, the CLI's default solve on the 2D bench mesh and the
-    production configuration (``--shards 0``, one device); for the two
-    CLI cells also the wall of the first solve of a fresh set-up per mode
-    (the CLI's cold ``linear_solve_s``).  The rows and the stencil launches
-    per dimension and dtype."""
+    """Phases 9 (a) and 10 on shared set-ups: per cell of phase 9 (the 2D
+    bench IR and Schur solves, the 3D bench IR solve, the CLI's default
+    solve on the 2D bench mesh and the production configuration
+    (``--shards 0``, one device)) its solves captured and eager
+    (:func:`graph_cell`; for the two CLI cells also the wall of the first
+    solve of a fresh set-up per mode), then phase 10's cell on the same
+    solver (:func:`loop_cell`); then phase 10's GMRES cells: the bench
+    Schur solve with ``krylov="gmres"`` and ``apps.steady2d --solver
+    gmres`` on the 2D bench mesh.  The stencil launches per dimension and
+    dtype, and phase 10's guard runs and passes."""
     t0 = time.perf_counter()
-    rows = []
+    rows, loop_rows = [], []
     launches = {D: {"float32": 0, "float64": 0} for D in (2, 3)}
+    guard = {"launches": 0, "passes": 0}
 
     def add(D, row, extra=()):
         rows.append(row)
         for dt, c in row["read_launches"].items():
             launches[D][dt] += c + sum(e[dt] for e in extra)
 
+    def add_loop(D, row):
+        loop_rows.append(row)
+        for dt, c in row["read"]["stencils"].items():
+            launches[D][dt] += c
+        guard["launches"] += row["read"]["guard"]
+        guard["passes"] += row["read"]["passes"]
+
     solver, f, exact, _ = setup_bench(
         torch, port, card, 2, 5, 2, 64,
         port.CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
                        coarse_direct_max_dof=4096))
 
-    def ir():
-        u, info = solver.solve_refined(f, tol=1e-10, inner_tol=1e-4)
-        return u, (info["outer_iterations"], info["inner_iterations"])
+    def ir(sync=True):
+        u, info = solver.solve_refined(f, tol=1e-10, inner_tol=1e-4, sync=sync)
+        return u, (int(info["outer_iterations"]), int(info["inner_iterations"]))
 
     add(2, graph_cell(torch, gs, card, "bench-2d-adaptive-ir", solver, ir, 2))
-    graph_reads(torch, card, next(iter(solver._captured.values())), f)
+    add_loop(2, loop_cell(torch, gs, card, "bench-2d-adaptive-ir", solver, ir, 2,
+                          sync_false=lambda: ir(sync=False)))
+    reads = graph_reads(torch, card, solver, f)
     solver._captured.clear()
 
     def schur():
@@ -2396,23 +2790,36 @@ def graph_phase(torch, port, cli, gs, timer, card, head):
         return u, (res.iterations,)
 
     add(2, graph_cell(torch, gs, card, "bench-2d-schur-gmg", solver, schur, 2))
+    add_loop(2, loop_cell(torch, gs, card, "bench-2d-schur-gmg", solver, schur, 2))
+    solver._captured.clear()
+    solver.opts.krylov = "gmres"
+
+    def error(u):
+        return solver.report(u, f, exact)["error"]
+
+    add_loop(2, loop_cell(torch, gs, card, "bench-2d-schur-gmres", solver, schur, 2,
+                          ref=GMRES_SCHUR_REF, f64=False, error=error))
+    nodes = {"bench-2d-schur-gmres": arnoldi_nodes(solver)}
     del solver, f, exact
 
     solver, f, exact, _ = setup_bench(torch, port, card, 3, 3, 2, 32, port.CycleOpts())
 
-    def ir3():
-        u, info = solver.solve_refined(f, tol=1e-10)
-        return u, (info["outer_iterations"], info["inner_iterations"])
+    def ir3(sync=True):
+        u, info = solver.solve_refined(f, tol=1e-10, sync=sync)
+        return u, (int(info["outer_iterations"]), int(info["inner_iterations"]))
 
     add(3, graph_cell(torch, gs, card, "bench-3d-fac-ir", solver, ir3, 3))
+    add_loop(3, loop_cell(torch, gs, card, "bench-3d-fac-ir", solver, ir3, 3,
+                          sync_false=lambda: ir3(sync=False)))
     del solver, f, exact
 
-    for label, argv in (("cli-2d-default", head[2]),
-                        ("cli-2d-production-n16", ["--config", PRODUCTION_INI,
-                                                   "--shards", "0"])):
+    cells = (("cli-2d-default", head[2], False),
+             ("cli-2d-production-n16", ["--config", PRODUCTION_INI, "--shards", "0"], False),
+             ("cli-2d-gmres", head[2] + ["--solver", "gmres"], True))
+    for label, argv, gmres_cell in cells:
         _, args = cli.parse_args(2, argv)
         cold, runs, extra = {}, {}, []
-        for mode in (False, True):
+        for mode in (False, True)[1 if gmres_cell else 0:]:
             run = cli.setup(2, args, device="cuda", timer=timer.Timer())
             run.solver._graphs = mode
             gs.reset_launches()
@@ -2423,39 +2830,81 @@ def graph_phase(torch, port, cli, gs, timer, card, head):
             cold["captured" if mode else "eager"] = time.perf_counter() - t1
             extra.append(gs.counters()[0])
             runs[mode] = run
-        del runs[False]
         run = runs[True]
-        run.solver._captured.clear()
+        runs.clear()
 
-        def cli_solve():
+        def cli_solve(run=run, args=args):
             u, res, _, _ = cli.solve(run, args, timer.Timer("cuda"))
             counts = ((res["outer_iterations"], res["inner_iterations"])
                       if isinstance(res, dict) else (res.iterations,))
             return u, counts
 
-        add(2, graph_cell(torch, gs, card, label, run.solver, cli_solve, 2, cold=cold),
-            extra)
-        del run, runs
+        if gmres_cell:
+            for e in extra:
+                for dt, c in e.items():
+                    launches[2][dt] += c
+
+            def cli_error(u, run=run):
+                return run.solver.report(u, run.f, run.exact)["error"]
+
+            add_loop(2, loop_cell(torch, gs, card, label, run.solver, cli_solve, 2,
+                                  ref=GMRES_CLI_REF, f64=True, error=cli_error))
+            nodes[label] = arnoldi_nodes(run.solver)
+            print(f"loops GMRES cold first solve s (capture and build in it) "
+                  f"{cold['captured']:.6f}", flush=True)
+        else:
+            run.solver._captured.clear()
+            add(2, graph_cell(torch, gs, card, label, run.solver, cli_solve, 2, cold=cold),
+                extra)
+            sync_false = None
+            if args.solver == "ir":
+                def sync_false(run=run, args=args):
+                    u, info = run.solver.solve_refined(run.f, tol=args.tolerance,
+                                                       inner_tol=args.inner_tol, sync=False)
+                    return u, (int(info["outer_iterations"]), int(info["inner_iterations"]))
+            add_loop(2, loop_cell(torch, gs, card, label, run.solver, cli_solve, 2,
+                                  sync_false=sync_false))
+        del run
+    print(f"loops GMRES graph nodes per Arnoldi step, by type: {nodes}", flush=True)
     print(json.dumps({"graph_solves": rows}), flush=True)
-    print(f"graphs phase {time.perf_counter() - t0:.1f} s", flush=True)
-    return launches
+    print(json.dumps({"loop_solves": loop_rows, "arnoldi_nodes": nodes,
+                      "graph_reads_s": reads}), flush=True)
+    print(f"graphs and loops phases {time.perf_counter() - t0:.1f} s; phase 10 guard "
+          f"runs {guard['launches']}, WHILE passes {guard['passes']}", flush=True)
+    assert guard["launches"] > guard["passes"] > 0
+    return launches, guard
 
 
 def build_kernels(gs, cuda_build) -> None:
     """Phase 2: one nvcc per kernel source, all started together."""
+    from pressurepoissonsolver_torch.utils import graphs
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
         for fut in [pool.submit(gs.build, 2), pool.submit(gs.build, 3),
-                    pool.submit(gs.build_faces)]:
+                    pool.submit(gs.build_faces), pool.submit(graphs.build)]:
             fut.result()
-    print(f"built the three kernel libraries in {time.perf_counter() - t0:.2f} s",
+    print(f"built the four kernel libraries in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for lib in ("ghost_stencil", "ghost_stencil_3d", "ghost_faces"):
+    for lib in ("ghost_stencil", "ghost_stencil_3d", "ghost_faces", "graph_loop"):
         info = cuda_build.build_info[lib]
         print(f"  {lib}: nvcc {info['seconds']:.2f} s", flush=True)
         for line in info["log"].splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip(), flush=True)
+    print(f"  graph_loop: CUDA driver / runtime version (cudaDriverGetVersion, "
+          f"cudaRuntimeGetVersion) {graphs.cuda_versions()}", flush=True)
+
+
+def driver_version() -> int:
+    """The CUDA driver's version (``cuDriverGetVersion``, which
+    ``cudaDriverGetVersion`` returns)."""
+    import ctypes
+
+    v = ctypes.c_int(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(v))
+    assert rc == 0, f"cuDriverGetVersion returned {rc}"
+    return v.value
 
 
 def main() -> None:
@@ -2486,7 +2935,8 @@ def main() -> None:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
     card = profiling.card_line()
     bw = profiling._device_bw("cuda")
-    print(f"card: {card}; memory rate {bw:.4g} B/s", flush=True)
+    print(f"card: {card}; memory rate {bw:.4g} B/s; CUDA driver version "
+          f"{driver_version()} (cuDriverGetVersion)", flush=True)
 
     # phase 2
     build_kernels(gs, cuda_build)
@@ -2543,13 +2993,17 @@ def main() -> None:
             for name, cnt in per.items():
                 launches[D][name] += cnt
 
-        # phase 9 (a): the solve loops captured against eager, each solve
-        # driven with the launch counts set to 0 just before it
-        for D, per in graph_phase(torch, port, cli, gs, timer, card, head).items():
+        # phases 9 (a) and 10: the solve loops captured against eager, then
+        # as one graph launch against the per-step replay and eager, each
+        # solve driven with the launch counts set to 0 just before it
+        per_phase, guard = graph_phase(torch, port, cli, gs, timer, card, head)
+        for D, per in per_phase.items():
             for name, cnt in per.items():
                 launches[D][name] += cnt
+    # phase 10 (b): the guard kernel against its plain version
+    guard_table = guard_timing(torch, card, bw)
 
-    # phase 9 (b)
+    # phase 11
     kernels = [
         {
             "name": f"ghost_stencil_{D}d_{name}",
@@ -2575,6 +3029,20 @@ def main() -> None:
         }
         for D in (2, 3)
         for name in ("float32", "float64")
+    ] + [
+        {
+            "name": "graph_loop_guard",
+            "route": "cuda",
+            "source": GUARD_SOURCE,
+            "replaces": GUARD_REPLACES,
+            # the guard's runs in phase 10 (one ahead of each entry of a
+            # WHILE node, one per pass) and the passes
+            "launches": guard["launches"],
+            "while_passes": guard["passes"],
+            **{k: v for k, v in guard_table.items()
+               if not k.endswith("_turns") and k != "body_sweep_ms"},
+            "library_ms": None,
+        }
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

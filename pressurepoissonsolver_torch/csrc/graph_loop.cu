@@ -1,0 +1,153 @@
+// Device-side loops for CUDA graphs, for Hopper (sm_90a): the guard kernel
+// of a WHILE node and host functions that compose captured graphs into one
+// executable graph with (nested) WHILE nodes.
+//
+// It is the counterpart of the condition of the reference's
+// ``jax.lax.while_loop`` (pressurepoissonsolver_tpu/krylov.py:213, the inner
+// BiCGStab; solver.py:477, the refinement's outer loop): XLA keeps the loop
+// and its stop test on the device, and so does a WHILE node, whose body runs
+// again for as long as the node's condition handle holds a nonzero value.
+//
+// The guard kernel ``pps_set_conditional`` (one thread) copies a loop's own
+// stop flag (a 0-d torch.bool of the loop state, written by the body's last
+// captured piece) into the handle with ``cudaGraphSetConditional`` and adds
+// the value to the loop's run counter, so that the counter ends as the number
+// of body executions.  One guard node sits ahead of each WHILE node (a loop
+// whose flag is false after its init runs no step) and one ends its body.
+//
+// A body holds child-graph nodes (clones of graphs torch captured, over
+// static buffers whose addresses persist), guard kernel nodes and nested
+// WHILE nodes; the caller keeps every captured graph and buffer alive for as
+// long as the executable graph.  What bounds the guard is the cost of a
+// graph node (a launch of one thread on the device, a few microseconds), not
+// bytes: it reads one flag and updates one 8-byte counter.
+//
+// Every function returns its cudaError_t (0 on success); the Python wrapper
+// raises on any other value with pps_graph_error_string.  The library links
+// the CUDA runtime statically; graph, node and stream handles are driver
+// objects of the primary context, which torch's runtime uses too.
+
+#include <cuda_runtime.h>
+
+extern "C" __global__ void pps_set_conditional(cudaGraphConditionalHandle handle,
+                                               const bool* go, long long* runs) {
+  const unsigned int value = *go ? 1u : 0u;
+  cudaGraphSetConditional(handle, value);
+  *runs += value;
+}
+
+namespace {
+
+cudaError_t add_guard(cudaGraph_t graph, cudaGraphNode_t dep,
+                      cudaGraphConditionalHandle handle, const bool* go,
+                      long long* runs, cudaGraphNode_t* node) {
+  void* args[] = {&handle, &go, &runs};
+  cudaKernelNodeParams p = {};
+  p.func = reinterpret_cast<void*>(pps_set_conditional);
+  p.gridDim = dim3(1);
+  p.blockDim = dim3(1);
+  p.sharedMemBytes = 0;
+  p.kernelParams = args;
+  p.extra = nullptr;
+  return cudaGraphAddKernelNode(node, graph, dep ? &dep : nullptr, dep ? 1 : 0, &p);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* pps_graph_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int pps_graph_driver_version(int* version) {
+  return cudaDriverGetVersion(version);
+}
+
+int pps_graph_runtime_version(int* version) {
+  return cudaRuntimeGetVersion(version);
+}
+
+int pps_graph_create(void** graph) {
+  return cudaGraphCreate(reinterpret_cast<cudaGraph_t*>(graph), 0);
+}
+
+// A memset node zeroing ``count`` 8-byte counters at ``dst``, after ``dep``
+// (null: a root node).
+int pps_graph_add_zero(void* graph, void* dep, long long* dst, int count, void** node) {
+  cudaMemsetParams p = {};
+  p.dst = dst;
+  p.pitch = 0;
+  p.value = 0;
+  p.elementSize = 4;
+  p.width = 2 * static_cast<size_t>(count);
+  p.height = 1;
+  cudaGraphNode_t d = static_cast<cudaGraphNode_t>(dep);
+  return cudaGraphAddMemsetNode(reinterpret_cast<cudaGraphNode_t*>(node),
+                                static_cast<cudaGraph_t>(graph), d ? &d : nullptr,
+                                d ? 1 : 0, &p);
+}
+
+// A child-graph node holding a clone of ``child`` (a captured graph), after
+// ``dep`` (null: a root node).
+int pps_graph_add_child(void* graph, void* dep, void* child, void** node) {
+  cudaGraphNode_t d = static_cast<cudaGraphNode_t>(dep);
+  return cudaGraphAddChildGraphNode(reinterpret_cast<cudaGraphNode_t*>(node),
+                                    static_cast<cudaGraph_t>(graph), d ? &d : nullptr,
+                                    d ? 1 : 0, static_cast<cudaGraph_t>(child));
+}
+
+// A WHILE loop in ``graph`` after ``dep``: a guard node that sets the new
+// handle from ``*go`` (and adds it to ``*runs``), then the WHILE node on that
+// handle.  Out: the WHILE node, its (empty) body graph and the handle, which
+// the body's closing guard (pps_graph_add_guard) sets.
+int pps_graph_add_while(void* graph, void* dep, const bool* go, long long* runs,
+                        void** node, void** body, unsigned long long* handle) {
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  cudaGraphConditionalHandle h;
+  cudaError_t err = cudaGraphConditionalHandleCreate(&h, g, 0, cudaGraphCondAssignDefault);
+  if (err != cudaSuccess) return err;
+  cudaGraphNode_t guard;
+  err = add_guard(g, static_cast<cudaGraphNode_t>(dep), h, go, runs, &guard);
+  if (err != cudaSuccess) return err;
+  cudaGraphNodeParams p = {};
+  p.type = cudaGraphNodeTypeConditional;
+  p.conditional.handle = h;
+  p.conditional.type = cudaGraphCondTypeWhile;
+  p.conditional.size = 1;
+  err = cudaGraphAddNode(reinterpret_cast<cudaGraphNode_t*>(node), g, &guard, 1, &p);
+  if (err != cudaSuccess) return err;
+  *body = p.conditional.phGraph_out[0];
+  *handle = h;
+  return cudaSuccess;
+}
+
+// The closing guard of a WHILE body: sets ``handle`` from ``*go`` after
+// ``dep`` (null: the body's only node, for an empty body).
+int pps_graph_add_guard(void* graph, void* dep, unsigned long long handle, const bool* go,
+                        long long* runs, void** node) {
+  return add_guard(static_cast<cudaGraph_t>(graph), static_cast<cudaGraphNode_t>(dep),
+                   handle, go, runs, reinterpret_cast<cudaGraphNode_t*>(node));
+}
+
+int pps_graph_instantiate(void* graph, void** exec) {
+  return cudaGraphInstantiate(reinterpret_cast<cudaGraphExec_t*>(exec),
+                              static_cast<cudaGraph_t>(graph), 0);
+}
+
+int pps_graph_launch(void* exec, void* stream) {
+  return cudaGraphLaunch(static_cast<cudaGraphExec_t>(exec),
+                         static_cast<cudaStream_t>(stream));
+}
+
+int pps_graph_destroy(void* graph, void* exec) {
+  cudaError_t err = cudaSuccess;
+  if (exec) err = cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec));
+  if (graph) {
+    cudaError_t e2 = cudaGraphDestroy(static_cast<cudaGraph_t>(graph));
+    if (err == cudaSuccess) err = e2;
+  }
+  return err;
+}
+
+}  // extern "C"

@@ -5,18 +5,24 @@ the monitored forms that record a residual-norm history.
 
 Port of ``pressurepoissonsolver_tpu.krylov``: the same recurrences,
 breakdown guards, stop rules and iteration counts.  The reference runs
-each loop inside one ``lax.while_loop``.  Here BiCGStab, CG and Richardson
-are each three parts, :class:`KrylovLoop`: an init, a guarded step that
-does device work only (the iteration, the step count ``k + 1`` and the
-stop test ``(k < max_iter) & (||r|| / ||r0|| > tol)`` on the device, in
-the working dtype) and a result.  :func:`run_loop` drives them: it reads
-the guard to the host once per step and runs the step while it holds, so
-a step past the stop is never computed.  The step runs eagerly (on the
-CPU, and from these functions), or as a CUDA graph captured once per
-solver and key and replayed (``utils.graphs.CapturedLoop``, which
-``solver.PoissonSolver`` uses on one CUDA device).  GMRES reads the new
-Hessenberg column per Arnoldi step and runs the Givens rotations and the
-small triangular solve on the host.
+each loop inside one ``lax.while_loop``.  Here each method is a
+:class:`KrylovLoop`: an init, pieces that do device work only, and a
+result.  BiCGStab, CG and Richardson have one piece, the guarded step
+(the iteration, the step count ``k + 1`` and the stop test ``(k <
+max_iter) & (||r|| / ||r0|| > tol)`` on the device, in the working
+dtype).  GMRES (:func:`gmres_loop`) is two nested loops of pieces, as the
+reference's restart ``while_loop`` around its Arnoldi ``fori_loop``: a
+cycle's init, the Arnoldi step (the masked two-pass Gram-Schmidt, then
+the Givens rotations, all on the device) while the cycle is not done, and
+the cycle's end (the masked triangular solve, the update and the true
+residual).  A loop is a :class:`While` over a guard flag of the state.
+
+The plain driver reads each guard to the host before every pass
+(:func:`run_loop`, :func:`run_program`; every read is counted in
+``reads``), so a step past the stop is never computed: the CPU takes it,
+and so do these functions.  On one CUDA device ``solver.PoissonSolver``
+runs the pieces from CUDA graphs composed into one executable graph with
+WHILE nodes (``utils.graphs``), one launch per solve.
 
 The monitored forms (``residual_history``, ``cg_history``,
 ``gmres(history=True)``) stop at convergence.  The reference's
@@ -31,7 +37,6 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
-import scipy.linalg
 import torch
 
 Op = Callable[[torch.Tensor], torch.Tensor]
@@ -73,33 +78,65 @@ class BiCGStabState(NamedTuple):
     rhat: torch.Tensor
 
 
+class While(NamedTuple):
+    """A loop of a program: ``body`` (pieces ``state -> state`` and
+    loops) runs again for as long as the flag ``guard(state)`` (a 0-d bool
+    of the state) holds; the counterpart of ``lax.while_loop``'s cond and
+    body, and of a CUDA graph's WHILE node (``utils.graphs.GraphLoop``)."""
+
+    guard: Callable
+    body: tuple
+
+
+def _go(state) -> torch.Tensor:
+    return state.go
+
+
 class KrylovLoop(NamedTuple):
-    """A Krylov method as the three parts of a guarded loop, the
-    counterpart of the reference's ``lax.while_loop`` (cond, body, init):
+    """A Krylov method as the parts of a guarded loop, the counterpart of
+    the reference's ``lax.while_loop`` (cond, body, init):
 
     * ``init(b, tol, max_iter, x0=None)``: the state, a NamedTuple of
       tensors ending in the step limit ``max_iter``, the step count ``k``
       (both int64) and the guard ``go`` (bool), all 0-d and on ``b``'s
-      device; ``tol`` becomes a 0-d tensor of ``b``'s dtype;
+      device; ``tol`` becomes a 0-d tensor of ``b``'s dtype (``tol`` and
+      ``max_iter`` may be given as 0-d tensors: a captured init reads them
+      from static buffers);
     * ``step(state)``: one guarded step, device work only: the iteration,
       ``k + 1`` and the guard re-tested on the new state;
-    * ``result(state, iterations)``: the :class:`KrylovResult`.
+    * ``result(state, iterations)``: the :class:`KrylovResult`;
+    * ``body``: the program after init (pieces and :class:`While` loops);
+      empty for one loop of ``step`` on ``go``;
+    * ``count``: the state field holding the iteration count; empty when it
+      is the number of steps.
 
-    The state holds everything a solve changes, so that a step captured
-    over static copies of it (``utils.graphs.CapturedLoop``) serves every
+    The state holds everything a solve changes, so that pieces captured
+    over static copies of it (``utils.graphs.CapturedLoop``) serve every
     right-hand side, ``tol`` and ``max_iter``."""
 
     init: Callable
     step: Callable
     result: Callable
+    body: tuple = ()
+    count: str = ""
+
+
+def program(loop: KrylovLoop) -> tuple:
+    """The pieces and loops ``loop`` runs after its init."""
+    return loop.body or (While(_go, (loop.step,)),)
 
 
 def _scalar(v, b: torch.Tensor) -> torch.Tensor:
-    """``v`` as a 0-d tensor of ``b``'s dtype on its device."""
+    """``v`` as a 0-d tensor of ``b``'s dtype on its device (a tensor ``v``
+    is taken as it is, cast if need be)."""
+    if torch.is_tensor(v):
+        return v.to(dtype=b.dtype)
     return torch.full((), v, dtype=b.dtype, device=b.device)
 
 
-def _count(b: torch.Tensor, v: int = 0) -> torch.Tensor:
+def _count(b: torch.Tensor, v=0) -> torch.Tensor:
+    if torch.is_tensor(v):
+        return v.to(dtype=torch.int64)
     return torch.full((), v, dtype=torch.int64, device=b.device)
 
 
@@ -111,23 +148,72 @@ def _guard(k: torch.Tensor, max_iter: torch.Tensor, ratio: torch.Tensor,
     return (k < max_iter) & (ratio > tol)
 
 
+#: device-to-host reads made at the loops' read points (a guard before a
+#: pass, the counts and results after a launch): ``reads["host"]``; a
+#: solve's reads are the difference across it
+reads = {"host": 0}
+
+
+def read_flag(flag: torch.Tensor) -> bool:
+    """A 0-d flag read to the host (one counted read)."""
+    reads["host"] += 1
+    return bool(flag.item())
+
+
+def read_scalar(t: torch.Tensor) -> float:
+    """A 0-d tensor read to the host (one counted read)."""
+    reads["host"] += 1
+    return float(t.item())
+
+
+def host_read(*tensors: torch.Tensor) -> list:
+    """``tensors`` read to the host in one copy (one counted read): a flat
+    float64 numpy array per tensor (counts are exact in it)."""
+    reads["host"] += 1
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors])
+    host = flat.cpu().numpy()
+    out, i = [], 0
+    for t in tensors:
+        out.append(host[i:i + t.numel()])
+        i += t.numel()
+    return out
+
+
 def run_loop(state, advance: Callable):
     """Run guarded steps while ``state.go`` holds, reading it to the host
     once per step (the loop's only host read); ``advance(state)`` is the
     state after one step, computed eagerly or by replaying a captured step
-    over static buffers.  ``(state, steps)``."""
+    over static buffers.  ``(state, steps)``.  The plain version of a WHILE
+    node."""
     steps = 0
-    while bool(state.go.item()):
+    while read_flag(state.go):
         state = advance(state)
         steps += 1
     return state, steps
 
 
+def run_program(state, body: tuple):
+    """``body`` run eagerly on ``state``: each piece in turn, each
+    :class:`While` reading its guard to the host before every pass (as
+    :func:`run_loop`).  The state after it."""
+    for item in body:
+        if isinstance(item, While):
+            while read_flag(item.guard(state)):
+                state = run_program(state, item.body)
+        else:
+            state = item(state)
+    return state
+
+
 def solve_loop(loop: KrylovLoop, b: torch.Tensor, tol, max_iter: int,
                x0=None) -> KrylovResult:
     """``loop`` run eagerly on ``b`` to its stop."""
-    state, steps = run_loop(loop.init(b, tol, max_iter, x0), loop.step)
-    return loop.result(state, steps)
+    state = loop.init(b, tol, max_iter, x0)
+    if not loop.body:
+        state, steps = run_loop(state, loop.step)
+        return loop.result(state, steps)
+    state = run_program(state, loop.body)
+    return loop.result(state, int(host_read(getattr(state, loop.count))[0][0]))
 
 
 class _BiCGStab(NamedTuple):
@@ -433,6 +519,219 @@ def richardson(
     return solve_loop(richardson_loop(A, M, allreduce), b, tol, max_iter, x0)
 
 
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+class _GMRES(NamedTuple):
+    b: torch.Tensor  # the right-hand side, flat
+    x: torch.Tensor
+    r: torch.Tensor
+    rnorm: torch.Tensor
+    r0: torch.Tensor
+    target: torch.Tensor  # ||r0|| * tol
+    it: torch.Tensor
+    max_iter: torch.Tensor
+    go: torch.Tensor  # another cycle: rnorm > target and it < max_iter
+    H: torch.Tensor  # [restart + 1, restart]
+    cs: torch.Tensor
+    sn: torch.Tensor
+    g: torch.Tensor
+    j: torch.Tensor  # the cycle's next Arnoldi column
+    kdone: torch.Tensor  # the columns taken
+    done: torch.Tensor
+    go_in: torch.Tensor  # another Arnoldi step: not done and j < restart
+    w: torch.Tensor  # the Gram-Schmidt step's new vector, flat
+    h: torch.Tensor  # and its Hessenberg column
+    wnorm: torch.Tensor
+    hist: torch.Tensor
+
+
+def _go_in(state) -> torch.Tensor:
+    return state.go_in
+
+
+def gmres_loop(A: Op, M: Optional[Op] = None, restart: int = 30,
+               allreduce: Reduce = None, history: int = 0) -> KrylovLoop:
+    """Right-preconditioned restarted GMRES(restart) as the pieces of two
+    nested loops (see :class:`KrylovLoop`), all device work in the working
+    dtype: the port of the reference's ``gmres``
+    (``pressurepoissonsolver_tpu/krylov.py:255-424``).  While ``||r|| >
+    tol ||r0||`` and ``it < max_iter``: the cycle's init (``V[0] = r /
+    beta``; H, the Givens pairs and g reset), then while the cycle is not
+    done and ``j < restart`` the Arnoldi step, as two pieces: the masked
+    two-pass modified Gram-Schmidt over all ``restart + 1`` basis rows (rows
+    past ``j`` are zero and masked), and the Givens algebra (the earlier
+    rotations applied to the new column, masked as the reference's scan,
+    the new pair, g, the degenerate-column rule, ``done``); then the
+    cycle's end (the masked triangular solve with identity on the inactive
+    diagonal, ``x + M(V^T y)``, the true residual, a non-finite update
+    rejected, ``it += max(kdone, 1)``).  The reference's Arnoldi runs
+    every slot of a cycle and freezes its state once the cycle is done;
+    here the cycle leaves at that point, which gives the same iterate and
+    count.
+
+    ``history``: the slots of the residual history (the reference's
+    ``max_iter + restart + 1``), 0 for none; ``hist[k]`` is the norm after
+    iteration ``k``, the running Givens estimate within a cycle, the true
+    residual at a cycle boundary, zero where nothing was written.  The
+    basis ``V`` (``restart + 1`` rows of the flat size) is a workspace of
+    the loop, allocated at its first init and reset by each cycle's init,
+    so that a captured loop keeps one copy."""
+    R = restart
+    ws: dict = {}
+
+    def red(t):
+        return t if allreduce is None else allreduce(t)
+
+    def Af(v):
+        return A(v.reshape(ws["shape"])).reshape(-1)
+
+    def Mf(v):
+        return v if M is None else M(v.reshape(ws["shape"])).reshape(-1)
+
+    def pos(n, like):
+        return torch.arange(n, device=like.device)
+
+    def init(b, tol, max_iter, x0=None):
+        ws["shape"] = b.shape
+        bf = b.reshape(-1)
+        N = bf.numel()
+        V = ws.get("V")
+        if V is None or V.shape[1] != N or V.dtype != b.dtype or V.device != b.device:
+            ws["V"] = b.new_zeros((R + 1, N))
+        if x0 is None:
+            x, r = torch.zeros_like(bf), bf  # b - A(0) = b
+        else:
+            x = x0.reshape(-1)
+            r = bf - Af(x)
+        r0 = _norm(r, allreduce)
+        # tolerance on ||r||/||r0||, as bicgstab's
+        target = r0 * _scalar(tol, b)
+        it, max_iter = _count(b), _count(b, max_iter)
+        hist = b.new_zeros(max(history, 1))
+        hist = torch.where(pos(hist.numel(), b) == 0, r0, hist)
+        z = b.new_zeros
+        no = torch.zeros((), dtype=torch.bool, device=b.device)
+        return _GMRES(bf, x, r, r0, r0, target, it, max_iter,
+                      (r0 > target) & (it < max_iter), z((R + 1, R)), z(R), z(R), z(R + 1),
+                      _count(b), _count(b), ~no, no, torch.zeros_like(bf), z(R + 1),
+                      z(()), hist)
+
+    def cycle_init(s):
+        # r is carried from the previous cycle's true-residual check
+        beta = s.rnorm
+        safe_beta = torch.where(beta != 0, beta, torch.ones_like(beta))
+        V = ws["V"]
+        V[1:].zero_()
+        V[0].copy_(s.r / safe_beta)
+        g = torch.where(pos(R + 1, beta) == 0, beta, torch.zeros_like(s.g))
+        done = beta <= s.target
+        return s._replace(H=torch.zeros_like(s.H), cs=torch.zeros_like(s.cs),
+                          sn=torch.zeros_like(s.sn), g=g, j=torch.zeros_like(s.j),
+                          kdone=torch.zeros_like(s.kdone), done=done, go_in=~done)
+
+    def gram_schmidt(s):
+        V, j = ws["V"], s.j
+        w = Af(Mf(V.index_select(0, j.reshape(1)).reshape(-1)))
+        # masked modified Gram-Schmidt: one classical pass and a
+        # re-orthogonalization pass over rows i <= j
+        p = pos(R + 1, w)
+        mask = (p <= j).to(w.dtype)
+        h1 = red(torch.mv(V, w)) * mask
+        w = w - torch.mv(V.t(), h1)
+        h2 = red(torch.mv(V, w)) * mask
+        w = w - torch.mv(V.t(), h2)
+        wnorm = _norm(w, allreduce)
+        h = torch.where(p == j + 1, wnorm, h1 + h2)
+        return s._replace(w=w, h=h, wnorm=wnorm)
+
+    def givens(s):
+        V, j, h = ws["V"], s.j, s.h.clone()
+        one = torch.ones((), dtype=h.dtype, device=h.device)
+        # the earlier rotations on the new column, masked to the slots i < j
+        # as the reference's scan over all slots: slot i turns (h[i],
+        # h[i+1]) by [[c, s], [-s, c]] when active, by the identity if not
+        act = (pos(R, h) < j).to(h.dtype)
+        c, sn_ = act * s.cs + (1 - act), act * s.sn
+        G = torch.stack([torch.stack([c, sn_], -1), torch.stack([-sn_, c], -1)], -2)
+        for i in range(R):
+            h[i:i + 2] = torch.mv(G[i], h[i:i + 2])
+        jj, j1 = j.reshape(1), (j + 1).reshape(1)
+        hj, hj1 = h.index_select(0, jj)[0], h.index_select(0, j1)[0]
+        denom = torch.sqrt(hj * hj + hj1 * hj1)
+        nz = denom != 0
+        safe_d = torch.where(nz, denom, one)
+        cj = torch.where(nz, hj / safe_d, one)
+        sj = torch.where(nz, hj1 / safe_d, torch.zeros_like(one))
+        p = pos(R + 1, h)
+        h = torch.where(p == j, cj * hj + sj * hj1, torch.where(p == j + 1, 0.0, h))
+        gj = s.g.index_select(0, jj)[0]
+        g_j1 = -sj * gj
+        g_new = torch.where(p == j + 1, g_j1, torch.where(p == j, cj * gj, s.g))
+        # degenerate column: the rotated diagonal is zero, i.e. A M V[j] lies
+        # in the previous Krylov subspace (a lucky breakdown); taking it
+        # would put a zero on R's diagonal, so the cycle ends and the
+        # true-residual check decides
+        degenerate = denom <= 0
+        take = ~s.done & ~degenerate
+        safe_w = torch.where(s.wnorm != 0, s.wnorm, one)
+        V.index_copy_(0, j1, torch.where(take, s.w / safe_w,
+                                         V.index_select(0, j1)[0]).reshape(1, -1))
+        col = pos(R, h) == j
+        H = torch.where(take & col.reshape(1, R), h.reshape(R + 1, 1), s.H)
+        cs = torch.where(take & col, cj, s.cs)
+        sn = torch.where(take & col, sj, s.sn)
+        g = torch.where(take, g_new, s.g)
+        kdone = torch.where(take, j + 1, s.kdone)
+        done = s.done | degenerate | (g_j1.abs() <= s.target)
+        hist = s.hist
+        if history:
+            at = pos(hist.numel(), h) == s.it + j + 1
+            hist = torch.where(take & at, g_j1.abs(), hist)
+        j = j + 1
+        return s._replace(H=H, cs=cs, sn=sn, g=g, j=j, kdone=kdone, done=done,
+                          go_in=~done & (j < R), hist=hist)
+
+    def cycle_end(s):
+        V = ws["V"]
+        # the triangular system R y = g: inactive columns get an identity
+        # diagonal and a zero right-hand side, so their y is 0
+        act = pos(R, s.g) < s.kdone
+        Rm = torch.where(act.reshape(1, R) & act.reshape(R, 1), s.H[:R], 0.0)
+        Rm = Rm + torch.diag((~act).to(Rm.dtype))
+        rhs = torch.where(act, s.g[:R], 0.0)
+        y = torch.linalg.solve_triangular(Rm, rhs.reshape(R, 1), upper=True).reshape(R)
+        dx = torch.mv(V[:R].t(), y)
+        # the Givens estimate can drift from the true residual when the
+        # basis loses orthogonality: check the true residual (reused as the
+        # next cycle's r)
+        x_new = s.x + Mf(dx)
+        r_new = s.b - Af(x_new)
+        rnorm_new = _norm(r_new, allreduce)
+        # reject a non-finite update: keep the last good iterate; ``it``
+        # still advances, so the loop ends at max_iter
+        ok = torch.isfinite(rnorm_new)
+        hist = s.hist
+        if history:
+            at = pos(hist.numel(), s.g) == s.it + s.kdone
+            hist = torch.where(ok & at, rnorm_new, hist)
+        rnorm = torch.where(ok, rnorm_new, s.rnorm)
+        it = s.it + torch.clamp(s.kdone, min=1)
+        return s._replace(x=torch.where(ok, x_new, s.x), r=torch.where(ok, r_new, s.r),
+                          rnorm=rnorm, it=it, go=(rnorm > s.target) & (it < s.max_iter),
+                          hist=hist)
+
+    def result(s, iterations):
+        res = KrylovResult(x=s.x.reshape(ws["shape"]), iterations=iterations,
+                           residual_norm=s.rnorm, r0_norm=s.r0)
+        if not history:
+            return res
+        return res, host_read(s.hist)[0].astype(_NP[s.hist.dtype])
+
+    body = (While(_go, (cycle_init, While(_go_in, (gram_schmidt, givens)), cycle_end)),)
+    return KrylovLoop(init, gram_schmidt, result, body, "it")
+
+
 def gmres(
     A: Op,
     b: torch.Tensor,
@@ -444,124 +743,17 @@ def gmres(
     history: bool = False,
     allreduce: Reduce = None,
 ):
-    """Right-preconditioned restarted GMRES(restart): Arnoldi with two-pass
-    modified Gram-Schmidt, Givens rotations, and the true residual checked
-    at every cycle boundary; ``iterations`` advances by ``max(columns
-    taken, 1)`` per cycle and the loop stops once ``||r|| <= tol * ||r0||``
-    or ``iterations >= max_iter``.
+    """Right-preconditioned restarted GMRES(restart) (:func:`gmres_loop`)
+    run eagerly: Arnoldi with two-pass modified Gram-Schmidt, Givens
+    rotations, and the true residual checked at every cycle boundary;
+    ``iterations`` advances by ``max(columns taken, 1)`` per cycle and the
+    loop stops once ``||r|| <= tol * ||r0||`` or ``iterations >=
+    max_iter``.
 
     With ``history=True`` returns ``(result, hist)``: ``hist[k]`` is the
     residual norm after iteration ``k``, the running Givens estimate within
     a cycle, overwritten by the true residual at each cycle boundary
     (``max_iter + restart + 1`` slots, zero where nothing was written, as
-    the reference's).
-
-    The reference's Arnoldi runs every slot of a cycle and freezes its
-    state once the cycle is done (converged or a degenerate column); here
-    the cycle leaves at that point, which gives the same iterate and
-    count.  The masked Gram-Schmidt of the reference projects on all
-    ``restart + 1`` basis rows with the rows past ``j`` masked; those rows
-    are zero, so here it projects on rows ``0..j``."""
-    shape = b.shape
-    N = b.numel()
-    hdt = np.float64 if b.dtype == torch.float64 else np.float32
-    bf = b.reshape(-1)
-
-    def Af(v):
-        return A(v.reshape(shape)).reshape(-1)
-
-    def Mf(v):
-        return v if M is None else M(v.reshape(shape)).reshape(-1)
-
-    if x0 is None:
-        x, r = torch.zeros_like(bf), bf  # b - A(0) = b
-    else:
-        x = x0.reshape(-1)
-        r = bf - Af(x)
-    r0_norm = _norm(r, allreduce)
-    rnorm = r0_norm
-    r0 = hdt(r0_norm.item())
-    # tolerance on ||r||/||r0||, as bicgstab's
-    target = r0 * hdt(tol)
-    rn = r0
-    it = 0
-    hist = np.zeros(max_iter + restart + 1 if history else 1, dtype=hdt)
-    hist[0] = r0
-    with np.errstate(all="ignore"):
-        while rn > target and it < max_iter:
-            V = b.new_zeros(restart + 1, N)
-            V[0] = r / torch.where(rnorm != 0, rnorm, torch.ones_like(rnorm))
-            H = np.zeros((restart + 1, restart), dtype=hdt)
-            cs = np.zeros(restart, dtype=hdt)
-            sn = np.zeros(restart, dtype=hdt)
-            g = np.zeros(restart + 1, dtype=hdt)
-            g[0] = rn
-            done = rn <= target
-            kdone = 0
-            for j in range(restart):
-                if done:
-                    break
-                w = Af(Mf(V[j]))
-                Vj = V[: j + 1]
-                h1 = Vj @ w
-                if allreduce is not None:
-                    h1 = allreduce(h1)
-                w = w - Vj.t() @ h1
-                h2 = Vj @ w
-                if allreduce is not None:
-                    h2 = allreduce(h2)
-                w = w - Vj.t() @ h2
-                wnorm = _norm(w, allreduce)
-                # the one host read of the step: the new column and ||w||
-                col = torch.cat([h1 + h2, wnorm.reshape(1)]).cpu().numpy()
-                h = np.zeros(restart + 1, dtype=hdt)
-                h[: j + 2] = col
-                for i in range(j):  # the earlier rotations
-                    t1 = cs[i] * h[i] + sn[i] * h[i + 1]
-                    t2 = -sn[i] * h[i] + cs[i] * h[i + 1]
-                    h[i], h[i + 1] = t1, t2
-                denom = np.sqrt(h[j] ** 2 + h[j + 1] ** 2)
-                safe_d = denom if denom != 0 else hdt(1.0)
-                cj = h[j] / safe_d if denom != 0 else hdt(1.0)
-                sj = h[j + 1] / safe_d if denom != 0 else hdt(0.0)
-                h[j] = cj * h[j] + sj * h[j + 1]
-                h[j + 1] = 0.0
-                g_j1 = -sj * g[j]
-                # degenerate column: the rotated diagonal is zero, i.e.
-                # A M V[j] lies in the previous Krylov subspace (a lucky
-                # breakdown); taking it would put a zero on R's diagonal,
-                # so the cycle ends and the true-residual check decides
-                degenerate = bool(denom <= 0)
-                if not degenerate:
-                    V[j + 1] = w / torch.where(wnorm != 0, wnorm, torch.ones_like(wnorm))
-                    H[:, j] = h
-                    cs[j], sn[j] = cj, sj
-                    g[j + 1], g[j] = g_j1, cj * g[j]
-                    kdone = j + 1
-                    if history:
-                        hist[it + j + 1] = abs(g_j1)
-                done = degenerate or abs(g_j1) <= target
-            # the triangular system R y = g on the columns taken
-            if kdone:
-                y = scipy.linalg.solve_triangular(H[:kdone, :kdone], g[:kdone],
-                                                check_finite=False)
-                dx = V[:kdone].t() @ torch.as_tensor(y, dtype=b.dtype, device=b.device)
-            else:
-                dx = torch.zeros_like(bf)
-            # the Givens estimate can drift from the true residual when the
-            # basis loses orthogonality: check the true residual (reused as
-            # the next cycle's r)
-            x_new = x + Mf(dx)
-            r_new = bf - Af(x_new)
-            rnorm_new = _norm(r_new, allreduce)
-            rn_new = hdt(rnorm_new.item())
-            # reject a non-finite update: keep the last good iterate;
-            # ``it`` still advances, so the loop ends at max_iter
-            if np.isfinite(rn_new):
-                x, r, rnorm, rn = x_new, r_new, rnorm_new, rn_new
-                if history:
-                    hist[it + kdone] = rn_new
-            it += max(kdone, 1)
-    res = KrylovResult(x=x.reshape(shape), iterations=it, residual_norm=rnorm,
-                       r0_norm=r0_norm)
-    return (res, hist) if history else res
+    the reference's; a host numpy array)."""
+    slots = max_iter + restart + 1 if history else 0
+    return solve_loop(gmres_loop(A, M, restart, allreduce, slots), b, tol, max_iter, x0)

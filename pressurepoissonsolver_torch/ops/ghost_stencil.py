@@ -83,20 +83,39 @@ def _counters() -> tuple:
 
 
 def reset_launches() -> None:
+    _pending.clear()
     for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 # The counters are host integers, bumped where a wrapper launches.  A CUDA
-# graph replays its kernels without the wrappers, so a captured step is
+# graph replays its kernels without the wrappers, so a captured piece is
 # accounted for by hand (``utils.graphs``): the difference of two
-# ``counters()`` around its capture is the step's launches, taken back once
-# (the capture ran nothing) and added once per replay with ``add_launches``.
-# ``last_width`` keeps the capture's widths.
+# ``counters()`` around its capture is the piece's launches, taken back once
+# (the capture ran nothing) and added once per replay with ``add_launches``,
+# or, for a graph that runs its loops on the card, times the passes the
+# launch made.  A launch whose passes stay on the card until a later read
+# (``solve_refined(sync=False)``) leaves a report in ``_pending``: the next
+# ``counters()`` reads it and adds its launches.  ``last_width`` keeps the
+# capture's widths.
+
+#: launches counted on the card and not read yet: callables that read them
+#: and add them to the counters
+_pending: list = []
+
+
+def defer(report) -> None:
+    """Queue ``report()``, which reads launches counted on the card and
+    adds them, for the next :func:`counters`."""
+    _pending.append(report)
+
 
 def counters() -> list:
-    """A copy of every launch counter (``last_width`` is not one)."""
+    """A copy of every launch counter (``last_width`` is not one), after
+    the pending reports are read."""
+    while _pending:
+        _pending.pop(0)()
     return [dict(c) for c in _counters()]
 
 

@@ -9,9 +9,11 @@ Port of ``pressurepoissonsolver_tpu.solver`` for one device:
   GMG --solver thunderegg``) or by one sweep of patch solves (Schwarz).
 * ``solve_refined``: f64 iterative refinement around f32 inner solves
   (GMG-preconditioned BiCGStab, CG or Richardson).  The reference runs the
-  whole outer loop in one jitted ``lax.while_loop``; here the outer round
-  is host Python with the same best-iterate, stagnation and breakdown
-  rules, reading one scalar per round, around the inner loop.
+  whole outer loop in one jitted ``lax.while_loop``; so does the port on
+  one CUDA device (the round's residual update, best iterate, stagnation
+  and breakdown rules and the inner loop as pieces of one graph with
+  nested WHILE nodes); elsewhere the outer round is host Python with the
+  same rules, reading one scalar per round, around the inner loop.
 * ``solve_schur``: eliminate the patch interiors, solve the interface
   system ``(I - S) gamma = interp(solve(f, 0))`` with BiCGStab or GMRES,
   then recover ``u`` by one more round of patch solves (reference
@@ -19,21 +21,24 @@ Port of ``pressurepoissonsolver_tpu.solver`` for one device:
 * ``solve_monitored``: the composite or the Schur solve with a
   per-iteration relative-residual history (the CLI's ``--monitor``).
 
-On one CUDA device the BiCGStab, CG and Richardson loops of ``solve``,
-``solve_refined`` and ``solve_schur`` run from CUDA graphs, as the
-reference runs them from compiled programs: each loop's step (the
-preconditioner, the operator applies, the dots and axpys, the step count
-and the stop test) is captured and kept (``utils.graphs.CapturedLoop``),
-one graph per entry point and method: ``solve`` per ``krylov``,
-``solve_refined`` per ``inner_krylov``, ``solve_schur`` per
-``preconditioner``.  The right-hand side, ``tol`` and the step limit are
-copied into the graph's buffers, so they need no new capture; the outer
-IR loop stays on the host, so ``max_outer`` is no part of the graph.  The
-step is captured at the first solve of its key, whose wall holds the
-capture.  The host replays the step and reads the guard once per step.
-GMRES, the monitored forms, the sharded engines and the batched patch
-BiCGStab (``patch_solver="bcgs"``, a host read per patch iteration) run
-eagerly; everywhere else the same loop parts run eagerly too.
+On one CUDA device the Krylov loops of ``solve``, ``solve_refined`` and
+``solve_schur`` (BiCGStab, CG, Richardson and GMRES) and the GMRES of
+``solve_monitored`` run as one graph launch per solve, as the reference
+runs them as one compiled program: the loop's init and pieces (the
+preconditioner, the operator applies, the dots and axpys, the step counts
+and the stop tests) are captured and composed into one graph whose loops
+are WHILE nodes (``utils.graphs``), kept per entry point and method:
+``("solve", krylov)``, ``("refined", inner_krylov)``, ``("schur",
+preconditioner)`` for BiCGStab and ``("schur", preconditioner, "gmres")``,
+``("monitored", "gmres", ...)``.  The right-hand side, ``tol`` and the step
+limits (``max_outer`` too, up to the history slots of the capture) are
+copied into the graph's buffers, so they need no new capture.  A key's
+graph is built at its first solve, whose wall holds the capture.  After
+the launch the host makes one read (the counts), or none
+(``solve_refined(sync=False)``).  The fixed-trip monitored forms, the
+sharded engines and the batched patch BiCGStab (``patch_solver="bcgs"``,
+a host read per patch iteration) run eagerly; everywhere else the same
+pieces run eagerly too, a host read per guard.
 
 With ``mesh`` (``parallel.sharding.make_mesh``) the solves run
 patch-sharded, one rank per device, through the cut-face halo engine
@@ -50,19 +55,24 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .domain import DomainHierarchy
 from .gmg import CycleOpts, build_gmg
-from .krylov import (KrylovLoop, KrylovResult, _norm, bicgstab_loop, cg_history,
-                     cg_loop, gmres, residual_history, richardson_loop, solve_loop)
+from .krylov import (KrylovLoop, KrylovResult, While, _go, _norm, bicgstab_loop,
+                     cg_history, cg_loop, gmres_loop, host_read, read_scalar,
+                     residual_history, richardson_loop, solve_loop)
 from .matrix import schur_block_jacobi
+from .ops import ghost_stencil
 from .ops.level_ops import Level
 from .precond import poly_cheb, schwarz
-from .utils.graphs import CapturedLoop
+from .utils.graphs import CapturedLoop, GraphLoop
+
+# the restart length of every GMRES solve (the reference's gmres default)
+GMRES_RESTART = 30
 
 
 @dataclass
@@ -166,12 +176,14 @@ class PoissonSolver:
             )
         self._fine_low = None
         self._schur_M: dict = {}  # solve_schur's preconditioner -> M
-        # on one CUDA device every loop runs from its captured step
-        # (``_run_loop``); a solver's only switch, kept private so that
-        # tests can run the eager loop beside the captured one
+        # on one CUDA device every loop runs as one graph launch
+        # (``_run_loop``, ``solve_refined``): True.  A solver's only switch,
+        # kept private so that tests can run the other ways beside it:
+        # "steps" replays the same captured pieces one by one with a host
+        # read per guard, False runs the loops eagerly
         self._graphs = (self.device.type == "cuda" and mesh is None
                         and o.patch_solver == "dft")
-        self._captured: dict = {}  # key -> CapturedLoop
+        self._captured: dict = {}  # key -> CapturedLoop or _RefineGraph
 
     # -- operators ----------------------------------------------------------
 
@@ -230,16 +242,17 @@ class PoissonSolver:
     # -- solves -------------------------------------------------------------
 
     def _run_loop(self, key: tuple, make: Callable[[], KrylovLoop], b: torch.Tensor,
-                  tol: float, max_iter: int) -> KrylovResult:
+                  tol: float, max_iter: int):
         """The Krylov loop ``make()`` on ``b`` to its stop: with
-        ``_graphs``, from its step captured at the first solve of ``key``
-        (the graph and its capture seconds kept in ``_captured[key]``), else
+        ``_graphs``, from its pieces captured at the first solve of ``key``
+        (kept in ``_captured[key]`` with their capture seconds), as one
+        graph launch (``_graphs == "steps"``: piece by piece), else
         eagerly."""
         if not self._graphs:
             return solve_loop(make(), b, tol, max_iter)
         if key not in self._captured:
             self._captured[key] = CapturedLoop(make(), b, tol, max_iter)
-        return self._captured[key].run(b, tol, max_iter)
+        return self._captured[key].run(b, tol, max_iter, one=self._graphs is True)
 
     def solve(
         self,
@@ -253,12 +266,11 @@ class PoissonSolver:
         max_iter = self.opts.max_iter if max_iter is None else max_iter
         A, b, red = self._op.apply, self._as_field(f), self._allreduce
         krylov = self.opts.krylov
-        if krylov == "gmres":
-            return gmres(A, b, M=self._preconditioner(), tol=tol, max_iter=max_iter,
-                         allreduce=red)
 
         def make():
             M = self._preconditioner()
+            if krylov == "gmres":
+                return gmres_loop(A, M, GMRES_RESTART, red)
             if krylov == "cg":
                 return cg_loop(A, M, self._volume_weight(self.opts.dtype), red)
             return bicgstab_loop(A, M, red)
@@ -302,8 +314,12 @@ class PoissonSolver:
                 weight = self._volume_weight(self.opts.dtype)
         red = self._allreduce
         if method == "gmres":
-            res, hist = gmres(A, rhs, M=M, tol=tol, max_iter=max_iter, history=True,
-                              allreduce=red)
+            # the history's slots depend on max_iter, so it is in the key
+            key = ("monitored", "gmres", schur, schur_preconditioner, max_iter)
+            res, hist = self._run_loop(
+                key, lambda: gmres_loop(A, M, GMRES_RESTART, red,
+                                        max_iter + GMRES_RESTART + 1),
+                rhs, tol, max_iter)
         elif method == "cg":
             res, hist = cg_history(A, rhs, M=M, tol=tol, max_iter=max_iter,
                                    weight=weight, allreduce=red)
@@ -329,12 +345,15 @@ class PoissonSolver:
         inner product, or Richardson) in the preconditioner dtype (f32),
         residual updates in f64.
 
-        ``sync`` is the reference's keyword and changes nothing here: the
-        reference runs the whole loop on the device and, with
-        ``sync=False``, leaves its counts there; this loop reads the
-        relative residual on the host every round to decide whether to
-        stop (its one read per round besides the inner loop's guard), so
-        the counts are host integers whatever ``sync`` says.
+        On one CUDA device the whole loop (the rounds, their residual
+        update, best iterate, stagnation and breakdown rules, and the inner
+        loop) is one graph launch (:class:`_RefineGraph`); with ``sync``
+        the counts are read once after it, and with ``sync=False`` they
+        stay on the device, as the reference leaves them: 0-d tensors
+        (``outer_history`` 1-d, ``max_outer + 1`` slots, 1 where no round
+        wrote) and no host read.  Elsewhere the rounds run on the host with
+        the same rules, reading the relative residual once per round (the
+        plain version), and ``sync=False`` gives the same tensors.
 
         The inner operator is the cycle's finest level when it has the
         preconditioner dtype, else a bilinear level of that dtype: with the
@@ -366,6 +385,15 @@ class PoissonSolver:
             return method(low.apply, M, red)
 
         f = self._as_field(f)
+        if self._graphs:
+            key = ("refined", inner)
+            entry = self._captured.get(key)
+            if entry is None or entry.slots < max_outer + 1:
+                entry = self._captured[key] = _RefineGraph(
+                    make(), apply64, f, tol, pdtype, max_outer, inner_tol, inner_max_iter,
+                    red)
+            return entry.run(f, tol, max_outer, inner_tol, inner_max_iter,
+                             one=self._graphs is True, sync=sync)
         fnorm = _norm(f, red)
         fnorm = torch.where(fnorm > 0, fnorm, torch.ones_like(fnorm))
         u = torch.zeros_like(f)
@@ -375,13 +403,12 @@ class PoissonSolver:
         k = inner_total = 0
         hist = [1.0]
         while True:
-            e_res = self._run_loop(("refined", inner), make, r.to(pdtype), inner_tol,
-                                   inner_max_iter)
+            e_res = solve_loop(make(), r.to(pdtype), inner_tol, inner_max_iter)
             e = torch.where(torch.isfinite(e_res.x), e_res.x,
                             torch.zeros_like(e_res.x))
             u_new = u + e.to(f.dtype)
             r = f - apply64(u_new)
-            rel_new = float((_norm(r, red) / fnorm).item())
+            rel_new = read_scalar(_norm(r, red) / fnorm)
             breakdown = not math.isfinite(rel_new)
             k += 1
             inner_total += e_res.iterations
@@ -393,6 +420,9 @@ class PoissonSolver:
             hist.append(rel)
             if breakdown or rel_new <= tol or stagnated or k >= max_outer:
                 break
+        if not sync:
+            hist = hist + [1.0] * (max_outer + 1 - len(hist))
+            return u, _device_info(f.device, k, inner_total, rel, hist)
         return u, {
             "outer_iterations": k,
             "inner_iterations": inner_total,
@@ -454,7 +484,9 @@ class PoissonSolver:
             return g - lvl.schur_S(g)
 
         if self.opts.krylov == "gmres":
-            res = gmres(A, b, M=M, tol=tol, max_iter=max_iter, allreduce=red)
+            res = self._run_loop(("schur", preconditioner, "gmres"),
+                                 lambda: gmres_loop(A, M, GMRES_RESTART, red), b, tol,
+                                 max_iter)
         else:
             res = self._run_loop(("schur", preconditioner), lambda: bicgstab_loop(A, M, red),
                                  b, tol, max_iter)
@@ -512,6 +544,143 @@ class PoissonSolver:
         out["error"] = float((_norm(err, red) / _norm(exact, red)).item())
         out["conservation"] = float((lvl.integrate(au) - lvl.integrate(f)).item())
         return out
+
+
+def _device_info(device, k, inner_total, rel, hist) -> dict:
+    """``solve_refined``'s info as ``sync=False`` gives it: tensors on
+    ``device``."""
+    def t(v, dtype):
+        return torch.as_tensor(v, dtype=dtype, device=device)
+
+    return {"outer_iterations": t(k, torch.int64),
+            "inner_iterations": t(inner_total, torch.int64),
+            "residual": t(rel, torch.float64), "outer_history": t(hist, torch.float64)}
+
+
+class _Refinement(NamedTuple):
+    fnorm: torch.Tensor
+    u: torch.Tensor
+    r: torch.Tensor
+    best_u: torch.Tensor
+    best_rel: torch.Tensor
+    rel: torch.Tensor
+    k: torch.Tensor  # rounds
+    inner_total: torch.Tensor
+    go: torch.Tensor  # another round: not stopped
+    hist: torch.Tensor  # [slots], 1 where no round wrote
+    inner: tuple  # the inner loop's state
+
+
+def _inner_go(state) -> torch.Tensor:
+    return state.inner.go
+
+
+class _RefineGraph:
+    """``solve_refined``'s loop as the reference's ``lax.while_loop``
+    (``pressurepoissonsolver_tpu/solver.py:436-477``): an init, then while
+    not stopped a round of three parts, the inner Krylov init on
+    ``r.to(pdtype)``, the inner loop (a nested loop of its step) and the
+    round's end (the finite mask of ``e``, ``u_new``, the f64 residual,
+    ``rel``, the best iterate, stagnation, breakdown, the stop flag and
+    ``hist[k]``), all device work, composed into one graph
+    (``utils.graphs.GraphLoop``) over static inputs: ``f``, ``tol``,
+    ``max_outer``, ``inner_tol`` and ``inner_max_iter``.  ``slots``: the
+    history's length, ``max_outer + 1`` at the capture; a solve with more
+    rounds needs a new capture."""
+
+    def __init__(self, inner: KrylovLoop, apply64: Callable, f: torch.Tensor, tol,
+                 pdtype: torch.dtype, max_outer: int, inner_tol, inner_max_iter: int,
+                 red=None):
+        dev = f.device
+        self.slots = max_outer + 1
+        self.f = f.clone()
+        self.tol = torch.full((), tol, dtype=f.dtype, device=dev)
+        self.max_outer = torch.full((), max_outer, dtype=torch.int64, device=dev)
+        self.inner_tol = torch.full((), inner_tol, dtype=pdtype, device=dev)
+        self.inner_max_iter = torch.full((), inner_max_iter, dtype=torch.int64, device=dev)
+        slots = self.slots
+
+        def init(f, *_):
+            fnorm = _norm(f, red)
+            fnorm = torch.where(fnorm > 0, fnorm, torch.ones_like(fnorm))
+            u = torch.zeros_like(f)
+            one = torch.ones((), dtype=f.dtype, device=dev)
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            return _Refinement(fnorm, u, f, u, one * math.inf, one, zero, zero,
+                               torch.ones((), dtype=torch.bool, device=dev),
+                               torch.ones(slots, dtype=f.dtype, device=dev), None)
+
+        def begin(s):
+            return s._replace(inner=inner.init(s.r.to(pdtype), self.inner_tol,
+                                               self.inner_max_iter))
+
+        def step(s):
+            return s._replace(inner=inner.step(s.inner))
+
+        def end(s):
+            x = s.inner.x
+            e = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+            u_new = s.u + e.to(s.u.dtype)
+            r = self.f - apply64(u_new)
+            rel_new = _norm(r, red) / s.fnorm
+            breakdown = ~torch.isfinite(rel_new)
+            improved = rel_new < s.best_rel
+            k = s.k + 1
+            stagnated = ((k > 3) & (rel_new > 0.5 * s.best_rel)
+                         & (rel_new > 10 * self.tol))
+            stop = breakdown | (rel_new <= self.tol) | stagnated | (k >= self.max_outer)
+            # on breakdown, fall back to the best iterate so far
+            rel = torch.where(breakdown, s.best_rel, rel_new)
+            at = torch.arange(slots, device=dev) == k
+            return s._replace(
+                u=torch.where(breakdown, s.best_u, u_new), r=r,
+                best_u=torch.where(improved, u_new, s.best_u),
+                best_rel=torch.where(improved, rel_new, s.best_rel), rel=rel, k=k,
+                inner_total=s.inner_total + s.inner.k, go=~stop,
+                hist=torch.where(at, rel, s.hist))
+
+        def template():
+            s = init(self.f)
+            return begin(s)
+
+        body = (While(_go, (begin, While(_inner_go, (step,)), end)),)
+        self.graphs = GraphLoop((self.f,), init, body, template, step, dev)
+        self.state = self.graphs.state
+        self.graph, self.launches = self.graphs.graph, self.graphs.launches
+        self.capture_s = self.graphs.capture_s
+
+    def run(self, f, tol, max_outer: int, inner_tol, inner_max_iter: int, one: bool = True,
+            sync: bool = True):
+        """One solve: the inputs copied in, then on the card with ``one``
+        one graph launch (else piece by piece, a host read per guard);
+        with ``sync`` one read of the counts, else none."""
+        self.f.copy_(f)
+        self.tol.fill_(tol)
+        self.max_outer.fill_(max_outer)
+        self.inner_tol.fill_(inner_tol)
+        self.inner_max_iter.fill_(inner_max_iter)
+        s, g = self.state, self.graphs
+        launched = one and self.f.is_cuda
+        if launched:
+            g.launch()
+        else:
+            g.replay()
+        u = s.u.clone()
+        if not sync:
+            if launched:
+                snap = g.runs.clone()
+                ghost_stencil.defer(lambda: g.account(host_read(snap)[0]))
+            return u, {"outer_iterations": s.k.clone(),
+                       "inner_iterations": s.inner_total.clone(),
+                       "residual": s.rel.clone(),
+                       "outer_history": s.hist[:max_outer + 1].clone()}
+        # the passes (for the launch accounting) read with the results
+        got = host_read(s.k, s.inner_total, s.rel, s.hist, *((g.runs,) if launched else ()))
+        if launched:
+            g.account(got[4])
+        k = int(got[0][0])
+        return u, {"outer_iterations": k, "inner_iterations": int(got[1][0]),
+                   "residual": float(got[2][0]), "outer_history": got[3][:k + 1]}
 
 
 def shift_for_neumann(level: Level, f: torch.Tensor) -> torch.Tensor:

@@ -4,10 +4,17 @@ the Schur path's ``apply_with_interface`` and per-patch BiCGStab through the
 kernels against the CPU, the kernels' no-gf mode and the face-term kernel, small 2D and 3D solves (``solve_refined`` and
 ``solve_schur``), and the measurement surface: the bench scripts at a small
 size, ``time_op``'s held device time and its fallback, a trace and the op
-report; and the solve loops run from captured CUDA graphs against the
+report; the solve loops run from captured CUDA graphs against the
 eager loops (counts, bit-equal iterates, launch counts, the graph's
 stencil nodes against the replay accounting, a false guard, a new
-``tol``, unaliased results, a capture that cannot be made).
+``tol``, unaliased results, a capture that cannot be made); and the
+solves as one graph launch with WHILE nodes (``csrc/graph_loop.cu``)
+against the per-step replay and the eager loops, GMRES and the nested
+refinement loop included (bit-equal iterates, equal counts and launches,
+one graph launch and one host read per solve, none with
+``solve_refined(sync=False)``, zero steps on a zero right-hand side, the
+step limits, new inputs without a new capture, the stencil nodes of each
+WHILE body against the accounting).
 
 Every test here needs a card and skips without one (the CUDA kernel has no
 CPU mode).  This file imports no JAX, so it runs on a machine without it;
@@ -15,6 +22,8 @@ there, skip the JAX-based ``tests/conftest.py``::
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -976,3 +985,255 @@ def test_capture_that_cannot_be_made_raises(cuda):
     s._graphs = True
     with pytest.raises(RuntimeError):
         s.solve(f, max_iter=3)
+
+
+# --- the solves as one graph launch (WHILE nodes) -----------------------------
+
+# the one-launch solves: the captured solves above and GMRES (composite and
+# Schur), on the small 2D mesh
+LOOP_SOLVES = {
+    **GRAPH_SOLVES,
+    "solve-gmres": ({"krylov": "gmres"}, "solve"),
+    "schur-gmres": ({"precond_dtype": torch.float32, "krylov": "gmres"}, "schur"),
+}
+LOOP_CASES = [(2, c) for c in LOOP_SOLVES] + [(3, "refined-bicgstab"), (3, "solve-gmres")]
+
+
+def _counted(s, f, how, **kw):
+    """One solve with every launch counter set to 0 just before it:
+    ``(u, counts, stencil counters, graph_loop counters, host reads made
+    inside the solve)``."""
+    from pressurepoissonsolver_torch import krylov
+    from pressurepoissonsolver_torch.utils import graphs
+
+    gs.reset_launches()
+    graphs.reset_launches()
+    reads = krylov.reads["host"]
+    u, counts = _graph_run(s, f, how, **kw)
+    reads = krylov.reads["host"] - reads
+    torch.cuda.synchronize()
+    return u, counts, gs.counters(), dict(graphs.launches), reads
+
+
+@pytest.mark.parametrize("D, case", LOOP_CASES)
+def test_one_launch_solve_matches_steps_and_eager(cuda, D, case):
+    """The default on one card is one graph launch per solve; in turns with
+    the per-step replay and the eager loop (one launch (the capture),
+    steps, eager, eager, steps, one launch) every solve gives the same
+    counts, the same iterate bit for bit and the same stencil launch
+    counts; a one-launch solve makes one graph launch and one host read,
+    the per-step replay none and a read per guard."""
+    opts, how = LOOP_SOLVES[case]
+    s, f, exact = _graph_solver(cuda, D, **opts)
+    assert s._graphs is True
+    out = {}
+    for mode in (True, "steps", False, False, "steps", True):
+        s._graphs = mode
+        out.setdefault(mode, []).append(_counted(s, f, how))
+    assert len(s._captured) == 1
+    ref_u, ref_c, ref_l = out[False][0][:3]
+    for runs in out.values():
+        for u, counts, launched, _, _ in runs:
+            assert counts == ref_c and torch.equal(u, ref_u) and launched == ref_l
+    _, _, _, one, one_reads = out[True][1]
+    _, _, _, steps, steps_reads = out["steps"][1]
+    assert one["graph"] == 1 and one_reads == 1
+    assert one["guard"] > one["passes"] > 0
+    assert steps["graph"] == steps["guard"] == 0 and steps_reads > one["passes"]
+    assert sum(ref_l[D - 2].values()) > 0
+    assert s.report(ref_u, f, exact)["residual"] <= 1e-9
+
+
+@pytest.mark.parametrize("D, case", LOOP_CASES)
+def test_while_bodies_hold_the_accounted_stencils(cuda, D, case):
+    """The stencil kernel nodes of each level of the composed graph (the
+    root and each WHILE body, child graphs included, nested bodies not),
+    read back through the driver API, are the launches the accounting adds
+    per pass of that level; every node is of a kind a WHILE body may hold;
+    each loop has a guard ahead of it and one closing its body."""
+    from chip_smoke import graph_levels, graph_stencils
+
+    opts, how = LOOP_SOLVES[case]
+    s, f, _ = _graph_solver(cuda, D, **opts)
+    _graph_run(s, f, how)
+    (entry,) = s._captured.values()
+    gl = entry.graphs
+    levels = graph_levels(gl)
+    want = gl.level_launches()
+    assert set(levels) == set(want) and len(levels) == len(gl.whiles) + 1
+    allowed = {"kernel", "memcpy", "memset", "graph", "empty", "conditional"}
+    for level, got in levels.items():
+        assert got["stencils"] == want[level], level
+        assert set(got["kinds"]) <= allowed, got["kinds"]
+        nested = sum(1 for w in gl.whiles if _parent(gl, w) == level)
+        assert got["guards"] == nested + (level != "root"), (level, got)
+    total = graph_stencils(gl.root, D, gl.loop_nodes)
+    assert total == {dt: sum(v[D][dt] for v in want.values()) for dt in total}
+    assert sum(want[len(gl.whiles) - 1][D].values()) > 0
+
+
+def _parent(gl, w):
+    """The level (``"root"`` or a loop slot) whose graph holds the WHILE
+    node of ``w``."""
+    def find(tree, level):
+        for item in tree:
+            if hasattr(item, "body") and hasattr(item, "index"):
+                if gl.whiles[item.index] is w:
+                    return level
+                got = find(item.body, item.index)
+                if got is not None:
+                    return got
+        return None
+
+    return find(gl.tree, "root")
+
+
+@pytest.mark.parametrize("case", ["solve-bicgstab", "solve-gmres", "refined-bicgstab",
+                                  "schur-gmres"])
+def test_one_launch_solve_of_a_zero_rhs_runs_zero_steps(cuda, case):
+    """A zero right-hand side after the capture: the guards are false after
+    the init, so no loop runs a pass (the refinement runs its one round,
+    whose inner loop runs none), as the eager loop."""
+    opts, how = LOOP_SOLVES[case]
+    s, f, _ = _graph_solver(cuda, **opts)
+    _graph_run(s, f, how)
+    zero = torch.zeros_like(f)
+    u, counts, launched, g, _ = _counted(s, zero, how)
+    s._graphs = False
+    ue, ce, le, _, _ = _counted(s, zero, how)
+    assert counts == ce and torch.equal(u, ue) and launched == le
+    assert counts == ((1, 0) if how == "refined" else (0,))
+    assert g["passes"] == (1 if how == "refined" else 0)
+    if how != "schur":
+        assert not bool(u.abs().max())
+
+
+@pytest.mark.parametrize("case", ["solve-bicgstab", "solve-cg", "solve-gmres"])
+def test_one_launch_solve_stops_at_max_iter(cuda, case):
+    """A step limit below the count after the capture stops the one-launch
+    solve where it stops the eager one (GMRES: at the first cycle boundary
+    at or past it)."""
+    opts, how = LOOP_SOLVES[case]
+    s, f, _ = _graph_solver(cuda, **opts)
+    full = _graph_run(s, f, how)[1][0]
+    u, counts, launched, _, _ = _counted(s, f, how, max_iter=2)
+    s._graphs = False
+    ue, ce, le, _, _ = _counted(s, f, how, max_iter=2)
+    assert counts == ce and torch.equal(u, ue) and launched == le
+    assert len(s._captured) == 1
+    assert counts[0] == 2 if case != "solve-gmres" else 2 <= counts[0] <= full
+
+
+def test_one_launch_refinement_stops_at_its_limits(cuda):
+    """``inner_max_iter=2`` stops every inner loop at 2 steps and
+    ``max_outer=2`` the rounds at 2, after the capture, as eagerly."""
+    s, f, _ = _graph_solver(cuda, precond_dtype=torch.float32)
+    s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    for kw in (dict(inner_max_iter=2), dict(max_outer=2)):
+        out = {}
+        for mode in (True, False):
+            s._graphs = mode
+            u, info = s.solve_refined(f, tol=1e-10, inner_tol=1e-4, **kw)
+            out[mode] = (u, info["outer_iterations"], info["inner_iterations"],
+                         list(info["outer_history"]))
+        assert out[True][1:] == out[False][1:] and torch.equal(out[True][0], out[False][0])
+        k, inner = out[True][1:3]
+        assert inner == 2 * k if "inner_max_iter" in kw else k == 2
+    assert len(s._captured) == 1
+
+
+@pytest.mark.parametrize("case", ["solve-gmres", "refined-cg", "schur-gmres"])
+def test_one_launch_solve_takes_new_inputs_without_a_new_capture(cuda, case):
+    """A new right-hand side, ``tol`` and step limit after the capture: the
+    same graph, the eager loop's counts and iterate."""
+    opts, how = LOOP_SOLVES[case]
+    s, f, _ = _graph_solver(cuda, **opts)
+    _graph_run(s, f, how)
+    (entry,) = s._captured.values()
+    for rhs, tol in ((3 * f + 1, 1e-10), (f, 1e-4), (f, 1e-12)):
+        s._graphs = True
+        ug, cg = _graph_run(s, rhs, how, tol=tol)
+        s._graphs = False
+        ue, ce = _graph_run(s, rhs, how, tol=tol)
+        assert cg == ce and torch.equal(ug, ue)
+    assert list(s._captured.values()) == [entry]
+
+
+def test_refinement_sync_false_leaves_the_counts_on_the_card(cuda):
+    """``solve_refined(sync=False)``: no host read inside the solve; its
+    counts, residual and history are tensors on the card equal to the
+    ``sync=True`` solve's (the history has ``max_outer + 1`` slots, 1 past
+    the rounds), and its stencil launches are read at the next
+    ``counters()``."""
+    from pressurepoissonsolver_torch import krylov
+
+    s, f, _ = _graph_solver(cuda, precond_dtype=torch.float32)
+    u1, info1 = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    gs.reset_launches()
+    s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    synced = gs.counters()
+    gs.reset_launches()
+    reads = krylov.reads["host"]
+    u2, info2 = s.solve_refined(f, tol=1e-10, inner_tol=1e-4, sync=False)
+    assert krylov.reads["host"] == reads
+    assert all(torch.is_tensor(v) and v.is_cuda for v in info2.values())
+    k = int(info2["outer_iterations"])
+    assert k == info1["outer_iterations"]
+    assert int(info2["inner_iterations"]) == info1["inner_iterations"]
+    assert float(info2["residual"]) == info1["residual"]
+    hist = info2["outer_history"].cpu().numpy()
+    assert hist.shape == (13,) and np.array_equal(hist[:k + 1], info1["outer_history"])
+    assert np.all(hist[k + 1:] == 1.0)
+    assert torch.equal(u1, u2)
+    assert gs.counters() == synced
+
+
+class _Counter(NamedTuple):
+    k: torch.Tensor
+    j: torch.Tensor
+    total: torch.Tensor
+    go: torch.Tensor
+    go_in: torch.Tensor
+
+
+@pytest.mark.parametrize("n, m", [(3, 4), (0, 5), (2, 0), (1, 1)])
+def test_nested_while_nodes_count_as_the_plain_loop(cuda, n, m):
+    """Two nested loops of counter pieces (``n`` rounds of ``m`` steps,
+    both read from input buffers) as one graph launch against the plain
+    version (each guard read on the host): the same state and passes,
+    zero passes where a guard is false after its init, and the guard
+    kernel run once ahead of each loop's entry and once per pass."""
+    from pressurepoissonsolver_torch.krylov import While
+    from pressurepoissonsolver_torch.utils import graphs
+
+    nb = torch.full((), n, dtype=torch.int64, device=cuda)
+    mb = torch.full((), m, dtype=torch.int64, device=cuda)
+    zero = torch.zeros((), dtype=torch.int64, device=cuda)
+
+    def init(n_, m_):
+        return _Counter(zero.clone(), zero.clone(), zero.clone(), zero < n_, zero > 0)
+
+    def begin(st):
+        return st._replace(j=torch.zeros_like(st.j), go_in=zero < mb)
+
+    def step(st):
+        j = st.j + 1
+        return st._replace(j=j, total=st.total + 1, go_in=j < mb)
+
+    def end(st):
+        k = st.k + 1
+        return st._replace(k=k, go=k < nb)
+
+    body = (While(lambda st: st.go, (begin, While(lambda st: st.go_in, (step,)), end)),)
+    gl = graphs.GraphLoop((nb, mb), init, body, lambda: init(nb, mb), step, cuda)
+    runs_plain = gl.replay()
+    plain = [int(t) for t in gl.state]
+    graphs.reset_launches()
+    gl.launch()
+    torch.cuda.synchronize()
+    runs = gl.runs.tolist()
+    gl.account(runs)
+    assert runs == runs_plain == [n, n * m]
+    assert [int(t) for t in gl.state] == plain
+    assert int(gl.state.k) == n and int(gl.state.total) == n * m
+    assert graphs.launches == {"guard": 1 + n + n + n * m, "passes": n + n * m, "graph": 1}
