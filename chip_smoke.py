@@ -142,7 +142,14 @@ Phases, any failure of which raises and exits non-zero:
    MiB after the build, graph nodes per Arnoldi step, and one profiled
    one-launch solve per cell (busy and idle share, kernels, the stencils
    its trace names, reported: the trace misnames some kernels that run
-   inside WHILE bodies); (b) the guard kernel
+   inside WHILE bodies); then the cells of the loops inside pieces and of
+   the monitored and assembled-matrix solves (``SMALL_BCGS``: bcgs
+   ``solve``, ``solve_refined`` and ``solve_schur`` on the small Schur
+   mesh; ``cli-small-crs``; at full width ``FULL_CELLS``: cli-2d-bcgs,
+   cli-2d-monitor, cli-2d-monitor-cg, cli-2d-schur-pbm), held the same way
+   and to their references, with the patch passes per solve (equal in the
+   three modes), the largest patch loop, and each patch loop's pass graph
+   holding its accounted stencil nodes; (b) the guard kernel
    against its plain version (a host read per pass), timed per pass;
 11. print the kernel table (its launches include phases 7-10; each
    stencil entry also has the no-gf mode's times, bound and launches; the
@@ -2514,8 +2521,11 @@ def loop_cell(torch, gs, card, label, solver, solve, D, sync_false=None, ref=Non
     launches the accounting adds per pass of that level (``graph_levels``);
     with ``ref`` ((counts, error) of the JAX reference) the counts exactly
     (``f64``) or within one, and ``error()`` within ``GMRES_ERROR_RTOL`` of
-    the reference's.  The row, with the stencil launches, guard runs and
-    passes summed over the counters read."""
+    the reference's.  The passes of the loops inside pieces (the bcgs
+    patch solves, ``graphs.inner``) must be equal in every solve too, and
+    the stencil kernel nodes of each such loop's pass graph its accounted
+    launches.  The row, with the stencil launches, guard runs and passes
+    summed over the counters read."""
     from pressurepoissonsolver_torch import krylov
     from pressurepoissonsolver_torch.utils import graphs
 
@@ -2535,6 +2545,7 @@ def loop_cell(torch, gs, card, label, solver, solve, D, sync_false=None, ref=Non
         wall = time.perf_counter() - t1
         reads = krylov.reads["host"] - reads
         launched, loops = gs.counters(), dict(graphs.launches)
+        loops["inner"] = dict(graphs.inner)
         for dt in read["stencils"]:
             read["stencils"][dt] += launched[D - 2][dt]
         read["guard"] += loops["guard"]
@@ -2555,7 +2566,8 @@ def loop_cell(torch, gs, card, label, solver, solve, D, sync_false=None, ref=Non
     solver._graphs = True
     runs = [r for m in rec for r in rec[m]["runs"]]
     counts, launched = runs[0][:2]
-    same = all(r[0] == counts and r[1] == launched for r in runs)
+    inner = runs[0][2]["inner"]
+    same = all(r[0] == counts and r[1] == launched and r[2]["inner"] == inner for r in runs)
     one = [r[2:] for r in rec[True]["runs"]]
     one_ok = all(lp["graph"] == 1 and rd == 1 and lp["guard"] > lp["passes"] > 0
                  for lp, rd in one)
@@ -2581,6 +2593,11 @@ def loop_cell(torch, gs, card, label, solver, solve, D, sync_false=None, ref=Non
     levels = graph_levels(gl)
     want = gl.level_launches()
     levels_ok = all(levels[lv]["stencils"] == want[lv] for lv in levels)
+    # each loop inside a piece: its pass graph (the body of its WHILE
+    # nodes) against its accounted launches
+    piece_loops = {slot: (graph_stencils(pl.graph, D), pl.launches[D - 2])
+                   for slot, pl in gl.inner}
+    levels_ok = levels_ok and all(a == b for a, b in piece_loops.values())
     allowed = {"kernel", "memcpy", "memset", "graph", "empty", "conditional"}
     kinds_ok = all(set(levels[lv]["kinds"]) <= allowed for lv in levels)
     med = {LOOP_MODES[m]: statistics.median(rec[m]["walls"]) for m in rec}
@@ -2594,7 +2611,9 @@ def loop_cell(torch, gs, card, label, solver, solve, D, sync_false=None, ref=Non
            "levels": {str(lv): {"stencils": levels[lv]["stencils"][D],
                                 "accounted": want[lv][D], "kinds": levels[lv]["kinds"],
                                 "guards": levels[lv]["guards"]} for lv in levels},
-           "sync_false": nosync, "read": read, "profile_one_launch": profiled}
+           "sync_false": nosync, "read": read, "profile_one_launch": profiled,
+           "patch_passes": inner["passes"], "patch_loop_runs": inner["runs"],
+           "largest_patch_loop": inner["largest"], "piece_loop_slots": len(gl.inner)}
     line = (f"loops {label} [{card}]: counts {counts} in every solve of the three modes "
             f"({same}); iterates bit-equal; stencil launches per solve {launched[D - 2]}; "
             f"median wall s one launch / per step / eager {med['one_launch']:.6f} / "
@@ -2610,7 +2629,10 @@ def loop_cell(torch, gs, card, label, solver, solve, D, sync_false=None, ref=Non
             f"{wall_ms:.3f}, busy ms {busy_ms:.3f}, idle {100 * profiled['idle_share']:.1f}%, "
             f"kernels run {kernels}, host launch calls {profiled['host_launch_calls']} "
             f"({profiled['graph_launches']} graph launches), stencil kernels in its trace "
-            f"{traced} against {prof_counts[D - 2]} counted; levels "
+            f"{traced} against {prof_counts[D - 2]} counted; patch passes per solve "
+            f"{inner['passes']} in {inner['runs']} runs of {len(gl.inner)} loops inside "
+            f"pieces, the largest run {inner['largest']} (pass graphs' stencil nodes = "
+            f"accounted: { {k: v[0] == v[1] for k, v in piece_loops.items()} }); levels "
             f"{ {str(lv): (levels[lv]['stencils'][D], levels[lv]['kinds']) for lv in levels} }")
     if nosync is not None:
         line += (f"; sync=False: host reads inside {nosync['reads']}, iterate bit-equal "
@@ -2865,6 +2887,8 @@ def graph_phase(torch, port, cli, gs, timer, card, head):
             add_loop(2, loop_cell(torch, gs, card, label, run.solver, cli_solve, 2,
                                   sync_false=sync_false))
         del run
+    for row in piece_loop_cells(torch, port, cli, gs, timer, card, head):
+        add_loop(2, row)
     print(f"loops GMRES graph nodes per Arnoldi step, by type: {nodes}", flush=True)
     print(json.dumps({"graph_solves": rows}), flush=True)
     print(json.dumps({"loop_solves": loop_rows, "arnoldi_nodes": nodes,
@@ -2873,6 +2897,126 @@ def graph_phase(torch, port, cli, gs, timer, card, head):
           f"runs {guard['launches']}, WHILE passes {guard['passes']}", flush=True)
     assert guard["launches"] > guard["passes"] > 0
     return launches, guard
+
+
+# phase 10's cells of the loops inside pieces, the monitored solves and the
+# assembled-matrix solves.  The small Schur mesh (refined_tree(2, 3, 1),
+# n=8, SCHUR_SMALL_GMG, tol 1e-10) with patch_solver="bcgs": per cell the
+# options, the entry point and the JAX package's counts and error on the
+# CPU (jax_enable_x64): solve with an f64 cycle (the finest level smooths
+# with the bcgs patch solves), solve_refined (its f32 cycle's levels are
+# spectral) and solve_schur(preconditioner="gmg") with an f32 cycle (the
+# Schur operator, its right-hand side and the recovery take the bcgs patch
+# solves)
+SMALL_BCGS = {
+    "small-bcgs-solve": ("float64", "solve", ((6,), 3.5642034504e-3)),
+    "small-bcgs-refined": ("float32", "refined", ((3, 7), 3.5642034504e-3)),
+    "small-bcgs-schur": ("float32", "schur", ((5,), 3.5642034489e-3)),
+}
+# the full-width CLI cells on the 2D bench mesh ("--mesh <file> -n 64 -t
+# 1e-10" plus the flags): label, flags, the reference ((counts), error) or
+# None, and whether the counts are held exactly.  cli-2d-monitor: counts
+# (iterations, history length); the JAX CLI's --monitor runs the default
+# solve's BiCGStab recurrences (the converged state frozen), so its count
+# and error are the default run's.  cli-2d-monitor-cg: the weighted CG's
+# history, held to a history of count + 1 entries ending at or below -t
+# and to the default run's error within GMRES_ERROR_RTOL.
+# cli-2d-schur-pbm: the probed pointer-block operator (the same S as the
+# matrix-free Schur solve), held to CLI_BENCH_2D "schur-gmg" within one
+# iteration.  cli-2d-bcgs: the CLI defaults with bcgs patch solves (to
+# 1e-12 per patch, 500 passes at most); the JAX CLI at this size
+# (4,292,608 DOF, a few hundred patch passes per smoothing) is not run on
+# a CPU, so the cell is held to the dft run's count and error
+# (CLI_BENCH_2D "default"), which the bcgs smoothing reproduces to
+# round-off (the small mesh gives 6 iterations and error 3.5642034555e-3
+# either way, CLI_SMALL).
+FULL_CELLS = (
+    ("cli-2d-monitor", ["--monitor"], ((5, 6), CLI_BENCH_2D["default"][2]), True),
+    ("cli-2d-monitor-cg", ["--solver", "cg", "--monitor"], None, True),
+    ("cli-2d-schur-pbm", ["--schur", "--matrix-type", "pbm"], CLI_BENCH_2D["schur-gmg"][1:],
+     False),
+    # last: the profile of its solve (over 300,000 kernels) leaves the
+    # traces of the cells after it empty
+    ("cli-2d-bcgs", ["--patch_solver", "bcgs"], CLI_BENCH_2D["default"][1:], True),
+)
+
+
+def piece_loop_cells(torch, port, cli, gs, timer, card, head):
+    """Phase 10's cells (:func:`loop_cell`) of the loops inside pieces
+    (``SMALL_BCGS``, cli-2d-bcgs), of the monitored BiCGStab and CG and of
+    the assembled-matrix solves (``--matrix-type crs`` on the small mesh,
+    ``CLI_SMALL["crs"]``; ``pbm`` at full width), each held to its
+    reference; a full-width cell's set-up seconds are printed.  The rows."""
+    rows = []
+    hier = port.DomainHierarchy(port.refined_tree(2, 3, 1), n=8)
+    f, exact = (torch.as_tensor(a, device="cuda")
+                for a in port.init_problem(hier.finest, port.get_problem("trig", 2)))
+    for label, (pdtype, how, ref) in SMALL_BCGS.items():
+        solver = port.PoissonSolver(hier, port.SolveOptions(
+            tol=1e-10, dtype=torch.float64, precond_dtype=getattr(torch, pdtype),
+            gmg=port.CycleOpts(**SCHUR_SMALL_GMG), patch_solver="bcgs"), device="cuda")
+
+        def small(solver=solver, how=how, sync=True):
+            if how == "solve":
+                res = solver.solve(f)
+                return res.x, (res.iterations,)
+            if how == "refined":
+                u, info = solver.solve_refined(f, tol=1e-10, inner_tol=1e-4, sync=sync)
+                return u, (int(info["outer_iterations"]), int(info["inner_iterations"]))
+            u, res = solver.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
+            return u, (res.iterations,)
+
+        def error(u, solver=solver):
+            return solver.report(u, f, exact)["error"]
+
+        rows.append(loop_cell(
+            torch, gs, card, label, solver, small, 2, ref=ref, f64=pdtype == "float64",
+            error=error, sync_false=(lambda s=small: s(sync=False)) if how == "refined"
+            else None))
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = os.path.join(tmp, "small2d.bin")
+        port.refined_tree(2, 3, 1).to_file(mesh)
+        flags, counts, err = CLI_SMALL["crs"]
+        small_cell = ("cli-small-crs", ["--mesh", mesh, "-n", "8", "-t", "1e-10",
+                                        "--gmg-coarse-direct-dof", "64"] + flags,
+                      (counts, err), True)
+        for label, argv, ref, f64 in (small_cell,) + tuple(
+                (lb, head[2] + fl, rf, ex) for lb, fl, rf, ex in FULL_CELLS):
+            _, args = cli.parse_args(2, argv)
+            t0 = time.perf_counter()
+            run = cli.setup(2, args, device="cuda", timer=timer.Timer())
+            setup_s = time.perf_counter() - t0
+            monitored = args.monitor
+
+            def cli_solve(run=run, args=args, monitored=monitored):
+                if monitored:  # the CLI's call, without its printed lines
+                    u, res, hist = run.solver.solve_monitored(run.f,
+                                                              max_iter=args.max_iterations)
+                    run.hist = hist
+                    return u, (res.iterations, len(hist))
+                u, res, _, _ = cli.solve(run, args, timer.Timer("cuda"))
+                return u, (res.iterations,)
+
+            def cli_error(u, run=run):
+                return run.solver.report(u, run.f, run.exact)["error"]
+
+            row = loop_cell(torch, gs, card, label, run.solver, cli_solve, 2, ref=ref,
+                            f64=f64, error=cli_error)
+            row["setup_s"] = setup_s
+            line = f"loops {label}: set-up {setup_s:.1f} s"
+            if monitored:
+                row["history_last"] = float(run.hist[-1])
+                line += f", history {len(run.hist)} entries, last {run.hist[-1]:.6e}"
+            print(line, flush=True)
+            if monitored:
+                assert len(run.hist) == row["counts"][0] + 1 and run.hist[-1] <= 1e-10, line
+            if ref is None:  # the error of the cell's own iterate
+                err = row["error"] = cli_error(cli_solve()[0])
+                assert abs(err - CLI_BENCH_2D["default"][2]) <= (
+                    GMRES_ERROR_RTOL * CLI_BENCH_2D["default"][2]), line
+            rows.append(row)
+            del run
+    return rows
 
 
 def build_kernels(gs, cuda_build) -> None:

@@ -35,7 +35,6 @@ import torch.distributed as dist
 from .domain import DomainHierarchy
 from .geometry import Tree, uniform_tree
 from .gmg import CycleOpts
-from .krylov import bicgstab, cg, gmres
 from .matrix import assemble_composite, assemble_schur, bcoo_matvec, pbm_matvec
 from .parallel.sharding import local_device, make_mesh
 from .problems import get_problem, init_problem
@@ -354,12 +353,10 @@ def _solve_crs(solver, f, A_mv, args):
         def A_mv(x):
             return op.local_rows(mv(op.gather(x)))
 
-    kw = dict(M=M, tol=args.tolerance, max_iter=args.max_iterations,
-              allreduce=solver._allreduce)
-    if args.solver == "cg":
-        return cg(A_mv, f, weight=solver._volume_weight(solver.opts.dtype), **kw)
-    method = gmres if args.solver == "gmres" else bicgstab
-    return method(A_mv, f, **kw)
+    method = args.solver if args.solver in ("cg", "gmres") else "bicgstab"
+    weight = solver._volume_weight(solver.opts.dtype) if method == "cg" else None
+    return solver.solve_matrix("crs", A_mv, f, method, M=M, weight=weight,
+                               tol=args.tolerance, max_iter=args.max_iterations)
 
 
 def _print_monitor(hist) -> None:
@@ -371,12 +368,13 @@ def _print_monitor(hist) -> None:
 def _solve_schur_crs(solver, f, S_mv, args, schur_prec):
     """Schur interface solve through the assembled (probed) Schur matrix
     (reference ``SchurMatrixHelper``, ``apps/3d/steady.cpp:364-367``)."""
-    lvl = solver.fine_level
     M = solver._schur_preconditioner(schur_prec)
-    method = gmres if args.solver == "gmres" else bicgstab
-    b = lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
-    res = method(S_mv, b, M=M, tol=args.tolerance, max_iter=args.max_iterations)
-    return lvl.patch_solve(f, res.x), res
+    method = "gmres" if args.solver == "gmres" else "bicgstab"
+    prepare, finish = solver._schur_ends()
+    res, u = solver.solve_matrix(f"schur-{args.matrix_type}", S_mv, f, method, M=M,
+                                 tol=args.tolerance, max_iter=args.max_iterations,
+                                 prepare=prepare, finish=finish)
+    return u, res
 
 
 def solve(run: SimpleNamespace, args, timer: Timer):

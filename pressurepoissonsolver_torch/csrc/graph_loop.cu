@@ -38,7 +38,7 @@ extern "C" __global__ void pps_set_conditional(cudaGraphConditionalHandle handle
 
 namespace {
 
-cudaError_t add_guard(cudaGraph_t graph, cudaGraphNode_t dep,
+cudaError_t add_guard(cudaGraph_t graph, const cudaGraphNode_t* deps, size_t ndeps,
                       cudaGraphConditionalHandle handle, const bool* go,
                       long long* runs, cudaGraphNode_t* node) {
   void* args[] = {&handle, &go, &runs};
@@ -49,7 +49,32 @@ cudaError_t add_guard(cudaGraph_t graph, cudaGraphNode_t dep,
   p.sharedMemBytes = 0;
   p.kernelParams = args;
   p.extra = nullptr;
-  return cudaGraphAddKernelNode(node, graph, dep ? &dep : nullptr, dep ? 1 : 0, &p);
+  return cudaGraphAddKernelNode(node, graph, deps, ndeps, &p);
+}
+
+// A WHILE loop in ``g`` after ``ndeps`` nodes ``deps``: a guard node that
+// sets a new handle from ``*go`` (and adds it to ``*runs``), then the WHILE
+// node on that handle.  Out: the WHILE node, its (empty) body graph and the
+// handle, which the body's closing guard sets.
+cudaError_t add_while(cudaGraph_t g, const cudaGraphNode_t* deps, size_t ndeps,
+                      const bool* go, long long* runs, cudaGraphNode_t* node,
+                      cudaGraph_t* body, cudaGraphConditionalHandle* handle) {
+  cudaGraphConditionalHandle h;
+  cudaError_t err = cudaGraphConditionalHandleCreate(&h, g, 0, cudaGraphCondAssignDefault);
+  if (err != cudaSuccess) return err;
+  cudaGraphNode_t guard;
+  err = add_guard(g, deps, ndeps, h, go, runs, &guard);
+  if (err != cudaSuccess) return err;
+  cudaGraphNodeParams p = {};
+  p.type = cudaGraphNodeTypeConditional;
+  p.conditional.handle = h;
+  p.conditional.type = cudaGraphCondTypeWhile;
+  p.conditional.size = 1;
+  err = cudaGraphAddNode(node, g, &guard, 1, &p);
+  if (err != cudaSuccess) return err;
+  *body = p.conditional.phGraph_out[0];
+  *handle = h;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -97,28 +122,63 @@ int pps_graph_add_child(void* graph, void* dep, void* child, void** node) {
                                     d ? 1 : 0, static_cast<cudaGraph_t>(child));
 }
 
-// A WHILE loop in ``graph`` after ``dep``: a guard node that sets the new
-// handle from ``*go`` (and adds it to ``*runs``), then the WHILE node on that
-// handle.  Out: the WHILE node, its (empty) body graph and the handle, which
-// the body's closing guard (pps_graph_add_guard) sets.
+// A WHILE loop in ``graph`` after ``dep`` (null: a root node); see
+// add_while.  Out: the WHILE node, its (empty) body graph and the handle.
 int pps_graph_add_while(void* graph, void* dep, const bool* go, long long* runs,
                         void** node, void** body, unsigned long long* handle) {
-  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  cudaGraphNode_t d = static_cast<cudaGraphNode_t>(dep);
   cudaGraphConditionalHandle h;
-  cudaError_t err = cudaGraphConditionalHandleCreate(&h, g, 0, cudaGraphCondAssignDefault);
-  if (err != cudaSuccess) return err;
-  cudaGraphNode_t guard;
-  err = add_guard(g, static_cast<cudaGraphNode_t>(dep), h, go, runs, &guard);
-  if (err != cudaSuccess) return err;
-  cudaGraphNodeParams p = {};
-  p.type = cudaGraphNodeTypeConditional;
-  p.conditional.handle = h;
-  p.conditional.type = cudaGraphCondTypeWhile;
-  p.conditional.size = 1;
-  err = cudaGraphAddNode(reinterpret_cast<cudaGraphNode_t*>(node), g, &guard, 1, &p);
-  if (err != cudaSuccess) return err;
-  *body = p.conditional.phGraph_out[0];
+  cudaError_t err = add_while(static_cast<cudaGraph_t>(graph), d ? &d : nullptr, d ? 1 : 0,
+                              go, runs, reinterpret_cast<cudaGraphNode_t*>(node),
+                              reinterpret_cast<cudaGraph_t*>(body), &h);
   *handle = h;
+  return err;
+}
+
+// A WHILE loop appended to the graph that ``stream`` is capturing, after
+// the stream's capture
+// dependencies: the entry guard, the WHILE node, and in its body a
+// child-graph node holding a clone of ``child`` (the loop's pass, captured
+// on its own over static buffers) and the closing guard.  The WHILE node
+// becomes the stream's only capture dependency, so that what is captured
+// next runs after the loop.  Out: the WHILE node and its body graph.  The
+// captured graph replays, but the CUDA driver refuses to clone it into a
+// child-graph node (cudaErrorNotSupported), which is how the Python side
+// composes pieces; so a loop inside a piece cuts the piece instead
+// (utils/graphs.py, PieceLoop), and this function serves the card test
+// that shows the refusal.
+int pps_capture_add_while(void* stream, void* child, const bool* go, long long* runs,
+                          void** node, void** body) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStreamCaptureStatus status;
+  cudaGraph_t g = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t ndeps = 0;
+#if CUDART_VERSION >= 13000
+  cudaError_t err = cudaStreamGetCaptureInfo(s, &status, nullptr, &g, &deps, nullptr, &ndeps);
+#else
+  cudaError_t err = cudaStreamGetCaptureInfo(s, &status, nullptr, &g, &deps, &ndeps);
+#endif
+  if (err != cudaSuccess) return err;
+  if (status != cudaStreamCaptureStatusActive) return cudaErrorStreamCaptureImplicit;
+  cudaGraphNode_t w;
+  cudaGraph_t b;
+  cudaGraphConditionalHandle h;
+  err = add_while(g, deps, ndeps, go, runs, &w, &b, &h);
+  if (err != cudaSuccess) return err;
+  cudaGraphNode_t pass, guard;
+  err = cudaGraphAddChildGraphNode(&pass, b, nullptr, 0, static_cast<cudaGraph_t>(child));
+  if (err != cudaSuccess) return err;
+  err = add_guard(b, &pass, 1, h, go, runs, &guard);
+  if (err != cudaSuccess) return err;
+#if CUDART_VERSION >= 13000
+  err = cudaStreamUpdateCaptureDependencies(s, &w, nullptr, 1, cudaStreamSetCaptureDependencies);
+#else
+  err = cudaStreamUpdateCaptureDependencies(s, &w, 1, cudaStreamSetCaptureDependencies);
+#endif
+  if (err != cudaSuccess) return err;
+  *node = w;
+  *body = b;
   return cudaSuccess;
 }
 
@@ -126,8 +186,9 @@ int pps_graph_add_while(void* graph, void* dep, const bool* go, long long* runs,
 // ``dep`` (null: the body's only node, for an empty body).
 int pps_graph_add_guard(void* graph, void* dep, unsigned long long handle, const bool* go,
                         long long* runs, void** node) {
-  return add_guard(static_cast<cudaGraph_t>(graph), static_cast<cudaGraphNode_t>(dep),
-                   handle, go, runs, reinterpret_cast<cudaGraphNode_t*>(node));
+  cudaGraphNode_t d = static_cast<cudaGraphNode_t>(dep);
+  return add_guard(static_cast<cudaGraph_t>(graph), d ? &d : nullptr, d ? 1 : 0, handle, go,
+                   runs, reinterpret_cast<cudaGraphNode_t*>(node));
 }
 
 int pps_graph_instantiate(void* graph, void** exec) {

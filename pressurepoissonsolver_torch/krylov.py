@@ -24,12 +24,13 @@ and so do these functions.  On one CUDA device ``solver.PoissonSolver``
 runs the pieces from CUDA graphs composed into one executable graph with
 WHILE nodes (``utils.graphs``), one launch per solve.
 
-The monitored forms (``residual_history``, ``cg_history``,
-``gmres(history=True)``) stop at convergence.  The reference's
-``residual_history`` and ``cg_history`` run all ``max_iter`` iterations
-with the converged state frozen; here the loop leaves at that point, which
-gives the same iterate, count and history up to the count.  Their
-histories are host numpy arrays.
+The monitored forms (``residual_history_loop``, ``cg_history_loop``,
+``gmres_loop(history=...)``) write the history into a device buffer per
+step, read once with the count (``KrylovLoop.read``), and stop at
+convergence.  The reference's ``residual_history`` and ``cg_history`` run
+all ``max_iter`` iterations with the converged state frozen; here the loop
+leaves at that point, which gives the same iterate, count and history up to
+the count.  Their histories are host numpy arrays.
 """
 
 from __future__ import annotations
@@ -108,7 +109,10 @@ class KrylovLoop(NamedTuple):
     * ``body``: the program after init (pieces and :class:`While` loops);
       empty for one loop of ``step`` on ``go``;
     * ``count``: the state field holding the iteration count; empty when it
-      is the number of steps.
+      is the number of steps;
+    * ``read``: state fields read to the host with the count after a run
+      (one read), passed to ``result`` after ``iterations`` as flat float64
+      numpy arrays (a monitored loop's history).
 
     The state holds everything a solve changes, so that pieces captured
     over static copies of it (``utils.graphs.CapturedLoop``) serve every
@@ -119,6 +123,7 @@ class KrylovLoop(NamedTuple):
     result: Callable
     body: tuple = ()
     count: str = ""
+    read: tuple = ()
 
 
 def program(loop: KrylovLoop) -> tuple:
@@ -211,9 +216,13 @@ def solve_loop(loop: KrylovLoop, b: torch.Tensor, tol, max_iter: int,
     state = loop.init(b, tol, max_iter, x0)
     if not loop.body:
         state, steps = run_loop(state, loop.step)
-        return loop.result(state, steps)
-    state = run_program(state, loop.body)
-    return loop.result(state, int(host_read(getattr(state, loop.count))[0][0]))
+    else:
+        state, steps = run_program(state, loop.body), None
+    names = ((loop.count,) if steps is None else ()) + loop.read
+    got = host_read(*(getattr(state, n) for n in names)) if names else []
+    if steps is None:
+        steps, got = int(got[0][0]), got[1:]
+    return loop.result(state, steps, *got)
 
 
 class _BiCGStab(NamedTuple):
@@ -301,9 +310,63 @@ def bicgstab(
     return solve_loop(bicgstab_loop(A, M, allreduce), b, tol, max_iter, x0)
 
 
-def _host_scalar(t: torch.Tensor):
-    """A 0-d tensor as a numpy scalar of its dtype (one host read)."""
-    return t.detach().cpu().numpy()[()]
+_NP = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _slots(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(n, device=like.device)
+
+
+def _monitor_go(k: torch.Tensor, max_iter: torch.Tensor, rn: torch.Tensor,
+                r0: torch.Tensor, tol: torch.Tensor) -> torch.Tensor:
+    """The monitored loops' guard: ``k < max_iter`` and not ``||r|| /
+    ||r0|| <= tol`` (in the working dtype; a zero ``||r0||`` gives NaN,
+    which never stops the loop, as in the reference)."""
+    return (k < max_iter) & ~(rn / r0 <= tol)
+
+
+class _BiCGStabHistory(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rho: torch.Tensor
+    rhat: torch.Tensor
+    r0_norm: torch.Tensor
+    tol: torch.Tensor
+    max_iter: torch.Tensor
+    k: torch.Tensor
+    go: torch.Tensor
+    hist: torch.Tensor  # [slots]: ||r|| after iteration k at k, 0 past the count
+
+
+def residual_history_loop(A: Op, M: Optional[Op] = None, allreduce: Reduce = None,
+                          slots: int = 101) -> KrylovLoop:
+    """:func:`residual_history` as the parts of a guarded loop (see
+    :class:`KrylovLoop`): the history in a device buffer of ``slots``
+    (``max_iter + 1``) entries, written per step, read once with the count;
+    ``result(state, iterations, hist)`` gives ``(KrylovResult, history up to
+    the count)``."""
+
+    def init(b, tol, max_iter, x0=None):
+        st, r0_norm = bicgstab_init(A, b, allreduce=allreduce)
+        tol, max_iter, k = _scalar(tol, b), _count(b, max_iter), _count(b)
+        hist = torch.where(_slots(slots, b) == 0, r0_norm, b.new_zeros(slots))
+        return _BiCGStabHistory(*st, r0_norm, tol, max_iter, k, k < max_iter, hist)
+
+    def step(s):
+        st = bicgstab_step(A, M, BiCGStabState(*s[:5]), allreduce)
+        k = s.k + 1
+        rn = _norm(st.r, allreduce)
+        return _BiCGStabHistory(*st, s.r0_norm, s.tol, s.max_iter, k,
+                                _monitor_go(k, s.max_iter, rn, s.r0_norm, s.tol),
+                                torch.where(_slots(slots, rn) == k, rn, s.hist))
+
+    def result(s, iterations, hist):
+        return (KrylovResult(x=s.x, iterations=iterations,
+                             residual_norm=_norm(s.r, allreduce), r0_norm=s.r0_norm),
+                hist[:iterations + 1].astype(_NP[s.hist.dtype]))
+
+    return KrylovLoop(init, step, result, read=("hist",))
 
 
 def residual_history(
@@ -319,20 +382,10 @@ def residual_history(
     count, ``BiCGStab.h:70-105``): ``hist[k]`` is ``||r||`` after iteration
     ``k``, ``hist[0] = ||r0||``, up to the count.  The stop test is
     ``||r|| / ||r0|| <= tol`` after each iteration, in the working dtype;
-    the count is ``max_iter`` when it never holds."""
-    st, r0_norm = bicgstab_init(A, b, allreduce=allreduce)
-    r0 = _host_scalar(r0_norm)
-    hist = [r0]
-    k = 0
-    while k < max_iter:
-        st = bicgstab_step(A, M, st, allreduce)
-        k += 1
-        rn = _host_scalar(_norm(st.r, allreduce))
-        hist.append(rn)
-        if rn / r0 <= tol:
-            break
-    return (KrylovResult(x=st.x, iterations=k, residual_norm=_norm(st.r, allreduce),
-                         r0_norm=r0_norm), np.asarray(hist))
+    the count is ``max_iter`` when it never holds.  Run eagerly
+    (:func:`residual_history_loop`)."""
+    return solve_loop(residual_history_loop(A, M, allreduce, max_iter + 1), b, tol,
+                      max_iter)
 
 
 def _weighted_dot(weight: Optional[torch.Tensor], dtype: torch.dtype,
@@ -423,6 +476,59 @@ def cg(
     return solve_loop(cg_loop(A, M, w, allreduce), b, tol, max_iter, x0)
 
 
+class _CGHistory(NamedTuple):
+    x: torch.Tensor
+    r: torch.Tensor
+    p: torch.Tensor
+    rz: torch.Tensor
+    r0_norm: torch.Tensor
+    tol: torch.Tensor
+    max_iter: torch.Tensor
+    k: torch.Tensor
+    go: torch.Tensor
+    hist: torch.Tensor
+
+
+def cg_history_loop(A: Op, M: Optional[Op] = None, weight: Optional[torch.Tensor] = None,
+                    allreduce: Reduce = None, slots: int = 101) -> KrylovLoop:
+    """:func:`cg_history` as the parts of a guarded loop (see
+    :func:`residual_history_loop`)."""
+
+    def init(b, tol, max_iter, x0=None):
+        wdot = _weighted_dot(weight, b.dtype, allreduce)
+        x, r = torch.zeros_like(b), b  # b - A(0) = b
+        r0_norm = torch.sqrt(wdot(r, r))
+        z = r if M is None else M(r)
+        tol, max_iter, k = _scalar(tol, b), _count(b, max_iter), _count(b)
+        hist = torch.where(_slots(slots, b) == 0, r0_norm, b.new_zeros(slots))
+        return _CGHistory(x, r, z, wdot(r, z), r0_norm, tol, max_iter, k, k < max_iter,
+                          hist)
+
+    def step(s):
+        wdot = _weighted_dot(weight, s.x.dtype, allreduce)
+        x, r, p, rz = s[:4]
+        ap = A(p)
+        alpha = _safe_div(rz, wdot(p, ap))
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = r if M is None else M(r)
+        rz_new = wdot(r, z)
+        p = z + _safe_div(rz_new, rz) * p
+        k = s.k + 1
+        rn = torch.sqrt(wdot(r, r))
+        return _CGHistory(x, r, p, rz_new, s.r0_norm, s.tol, s.max_iter, k,
+                          _monitor_go(k, s.max_iter, rn, s.r0_norm, s.tol),
+                          torch.where(_slots(slots, rn) == k, rn, s.hist))
+
+    def result(s, iterations, hist):
+        wdot = _weighted_dot(weight, s.x.dtype, allreduce)
+        return (KrylovResult(x=s.x, iterations=iterations,
+                             residual_norm=torch.sqrt(wdot(s.r, s.r)), r0_norm=s.r0_norm),
+                hist[:iterations + 1].astype(_NP[s.hist.dtype]))
+
+    return KrylovLoop(init, step, result, read=("hist",))
+
+
 def cg_history(
     A: Op,
     b: torch.Tensor,
@@ -435,32 +541,10 @@ def cg_history(
     """Preconditioned CG with a per-iteration residual-norm history (see
     ``residual_history``): the norms are the weighted ones when ``weight``
     is given, and the divisions are guarded against a zero denominator, as
-    in the reference's monitored CG."""
-    wdot = _weighted_dot(weight, b.dtype, allreduce)
-    x, r = torch.zeros_like(b), b  # b - A(0) = b
-    r0_norm = torch.sqrt(wdot(r, r))
-    r0 = _host_scalar(r0_norm)
-    z = r if M is None else M(r)
-    p = z
-    rz = wdot(r, z)
-    hist = [r0]
-    k = 0
-    while k < max_iter:
-        ap = A(p)
-        alpha = _safe_div(rz, wdot(p, ap))
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = r if M is None else M(r)
-        rz_new = wdot(r, z)
-        p = z + _safe_div(rz_new, rz) * p
-        rz = rz_new
-        k += 1
-        rn = _host_scalar(torch.sqrt(wdot(r, r)))
-        hist.append(rn)
-        if rn / r0 <= tol:
-            break
-    return (KrylovResult(x=x, iterations=k, residual_norm=torch.sqrt(wdot(r, r)),
-                         r0_norm=r0_norm), np.asarray(hist))
+    in the reference's monitored CG.  Run eagerly
+    (:func:`cg_history_loop`)."""
+    return solve_loop(cg_history_loop(A, M, weight, allreduce, max_iter + 1), b, tol,
+                      max_iter)
 
 
 class _Richardson(NamedTuple):
@@ -517,9 +601,6 @@ def richardson(
     one preconditioner and one operator apply, half a BiCGStab iteration.
     Stops once ``||r|| / ||r0|| <= tol`` (in the working dtype)."""
     return solve_loop(richardson_loop(A, M, allreduce), b, tol, max_iter, x0)
-
-
-_NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 class _GMRES(NamedTuple):
@@ -721,15 +802,15 @@ def gmres_loop(A: Op, M: Optional[Op] = None, restart: int = 30,
                           rnorm=rnorm, it=it, go=(rnorm > s.target) & (it < s.max_iter),
                           hist=hist)
 
-    def result(s, iterations):
+    def result(s, iterations, hist=None):
         res = KrylovResult(x=s.x.reshape(ws["shape"]), iterations=iterations,
                            residual_norm=s.rnorm, r0_norm=s.r0)
         if not history:
             return res
-        return res, host_read(s.hist)[0].astype(_NP[s.hist.dtype])
+        return res, hist.astype(_NP[s.hist.dtype])
 
     body = (While(_go, (cycle_init, While(_go_in, (gram_schmidt, givens)), cycle_end)),)
-    return KrylovLoop(init, gram_schmidt, result, body, "it")
+    return KrylovLoop(init, gram_schmidt, result, body, "it", ("hist",) if history else ())
 
 
 def gmres(

@@ -42,7 +42,7 @@ from ..domain import PatchLevel
 from ..matrix import _dense_case_templates
 from . import transforms as tr
 from .ghost_stencil import ghost_stencil, ghost_stencil_3d
-from .patch_bcgs import batched_patch_bicgstab
+from .patch_bcgs import PatchBicgstab
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 # the ghost-closure stencil kernel of each dimension
@@ -437,6 +437,7 @@ class Level:
         # BiCGStab through the stencil kernel (the reference's
         # BiCGStabSolver fallback) in patch_solve, smooth and smooth_zero
         self.patch_solver_kind = patch_solver
+        self._bcgs: dict = {}  # dtype -> PatchBicgstab (patch_solver="bcgs")
         self.pl = patch_level
         self.D = patch_level.D
         self.n = patch_level.n
@@ -696,10 +697,20 @@ class Level:
         ``patch_solver="bcgs"`` (the reference's ``BiCGStabSolver``)."""
         fc = self.fold_gamma(f, gamma)
         if self.patch_solver_kind == "bcgs":
-            zero = self.gamma_zeros(f.dtype)
-            return batched_patch_bicgstab(lambda u: self.apply_with_interface(u, zero),
-                                          fc, tol=1e-12, max_iter=500)
+            return self._patch_bcgs(f.dtype)(fc)
         return _spectral_apply(self._st, fc, self.D, self.n)
+
+    def _patch_bcgs(self, dtype: torch.dtype) -> PatchBicgstab:
+        """The batched patch BiCGStab of ``patch_solve`` in ``dtype``
+        (``tol=1e-12, max_iter=500``, as the reference's ``Level``), over
+        a zero interface vector kept for it, so that its pass can be
+        captured."""
+        solve = self._bcgs.get(dtype)
+        if solve is None:
+            zero = self.gamma_zeros(dtype)
+            solve = self._bcgs[dtype] = PatchBicgstab(
+                lambda u: self.apply_with_interface(u, zero), tol=1e-12, max_iter=500)
+        return solve
 
     def solve_with_interface(self, f: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
         """Patch solves with explicit interface values (the Schur path)."""

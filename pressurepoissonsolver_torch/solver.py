@@ -21,24 +21,27 @@ Port of ``pressurepoissonsolver_tpu.solver`` for one device:
 * ``solve_monitored``: the composite or the Schur solve with a
   per-iteration relative-residual history (the CLI's ``--monitor``).
 
-On one CUDA device the Krylov loops of ``solve``, ``solve_refined`` and
-``solve_schur`` (BiCGStab, CG, Richardson and GMRES) and the GMRES of
-``solve_monitored`` run as one graph launch per solve, as the reference
-runs them as one compiled program: the loop's init and pieces (the
+On one CUDA device every solve (``solve``, ``solve_refined``,
+``solve_schur``, ``solve_monitored`` and ``solve_matrix``: BiCGStab, CG,
+Richardson and GMRES, the monitored forms and the batched patch BiCGStab
+of ``patch_solver="bcgs"`` included) runs as one graph launch, as the
+reference runs it as one compiled program: the loop's init and pieces (the
 preconditioner, the operator applies, the dots and axpys, the step counts
 and the stop tests) are captured and composed into one graph whose loops
 are WHILE nodes (``utils.graphs``), kept per entry point and method:
 ``("solve", krylov)``, ``("refined", inner_krylov)``, ``("schur",
 preconditioner)`` for BiCGStab and ``("schur", preconditioner, "gmres")``,
-``("monitored", "gmres", ...)``.  The right-hand side, ``tol`` and the step
-limits (``max_outer`` too, up to the history slots of the capture) are
-copied into the graph's buffers, so they need no new capture.  A key's
-graph is built at its first solve, whose wall holds the capture.  After
-the launch the host makes one read (the counts), or none
-(``solve_refined(sync=False)``).  The fixed-trip monitored forms, the
-sharded engines and the batched patch BiCGStab (``patch_solver="bcgs"``,
-a host read per patch iteration) run eagerly; everywhere else the same
-pieces run eagerly too, a host read per guard.
+``("monitored", method, schur, schur_preconditioner, max_iter)``,
+``("matrix", kind, method)``.  A patch BiCGStab inside a piece (each
+smoothing of a bcgs level, each Schur operator apply) becomes a loop of the
+same graph (``utils.graphs.PieceLoop``).  The right-hand side, ``tol`` and
+the step limits (``max_outer`` too, up to the history slots of the
+capture) are copied into the graph's buffers, so they need no new capture.
+A key's graph is built at its first solve, whose wall holds the capture.
+After the launch the host makes one read (the counts, and a monitored
+solve's history), or none (``solve_refined(sync=False)``).  The sharded
+engines run eagerly; so do the CPU and the per-step replay, a host read per
+guard.
 
 With ``mesh`` (``parallel.sharding.make_mesh``) the solves run
 patch-sharded, one rank per device, through the cut-face halo engine
@@ -63,10 +66,9 @@ import torch
 from .domain import DomainHierarchy
 from .gmg import CycleOpts, build_gmg
 from .krylov import (KrylovLoop, KrylovResult, While, _go, _norm, bicgstab_loop,
-                     cg_history, cg_loop, gmres_loop, host_read, read_scalar,
-                     residual_history, richardson_loop, solve_loop)
+                     cg_history_loop, cg_loop, gmres_loop, read_scalar,
+                     residual_history_loop, richardson_loop, solve_loop)
 from .matrix import schur_block_jacobi
-from .ops import ghost_stencil
 from .ops.level_ops import Level
 from .precond import poly_cheb, schwarz
 from .utils.graphs import CapturedLoop, GraphLoop
@@ -181,9 +183,9 @@ class PoissonSolver:
         # kept private so that tests can run the other ways beside it:
         # "steps" replays the same captured pieces one by one with a host
         # read per guard, False runs the loops eagerly
-        self._graphs = (self.device.type == "cuda" and mesh is None
-                        and o.patch_solver == "dft")
+        self._graphs = self.device.type == "cuda" and mesh is None
         self._captured: dict = {}  # key -> CapturedLoop or _RefineGraph
+        self._matrix_ops: dict = {}  # solve_matrix's key -> the A of its graph
 
     # -- operators ----------------------------------------------------------
 
@@ -242,17 +244,39 @@ class PoissonSolver:
     # -- solves -------------------------------------------------------------
 
     def _run_loop(self, key: tuple, make: Callable[[], KrylovLoop], b: torch.Tensor,
-                  tol: float, max_iter: int):
-        """The Krylov loop ``make()`` on ``b`` to its stop: with
-        ``_graphs``, from its pieces captured at the first solve of ``key``
-        (kept in ``_captured[key]`` with their capture seconds), as one
-        graph launch (``_graphs == "steps"``: piece by piece), else
-        eagerly."""
+                  tol: float, max_iter: int, prepare: Optional[Callable] = None,
+                  finish: Optional[Callable] = None):
+        """The Krylov loop ``make()`` on ``b`` (on ``prepare(b)`` with
+        ``prepare``) to its stop: with ``_graphs``, from its pieces captured
+        at the first solve of ``key`` (kept in ``_captured[key]`` with their
+        capture seconds), as one graph launch (``_graphs == "steps"``: piece
+        by piece), else eagerly.  With ``finish``: ``(result, finish(b,
+        result))``, the field computed in the same launch
+        (``utils.graphs.CapturedLoop``)."""
         if not self._graphs:
-            return solve_loop(make(), b, tol, max_iter)
+            res = solve_loop(make(), b if prepare is None else prepare(b), tol, max_iter)
+            if finish is None:
+                return res
+            return res, finish(b, res[0] if _has_history(res) else res)
         if key not in self._captured:
-            self._captured[key] = CapturedLoop(make(), b, tol, max_iter)
+            self._captured[key] = CapturedLoop(make(), b, tol, max_iter, prepare, finish)
         return self._captured[key].run(b, tol, max_iter, one=self._graphs is True)
+
+    def _schur_ends(self):
+        """``(prepare, finish)`` of an interface solve (see ``_run_loop``):
+        the right-hand side ``interp(solve(f, 0))`` from ``f``, and the
+        recovery ``solve(f, gamma)`` from a state or result whose ``x`` is
+        ``gamma`` (flat in GMRES's state)."""
+        lvl = self._op
+
+        def prepare(f):
+            return lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
+
+        def finish(f, s):
+            x = s.x if s.x.dim() > 1 else s.x.reshape(lvl.num_ifaces, -1)
+            return lvl.patch_solve(f, x)
+
+        return prepare, finish
 
     def solve(
         self,
@@ -276,6 +300,38 @@ class PoissonSolver:
             return bicgstab_loop(A, M, red)
 
         return self._run_loop(("solve", krylov), make, b, tol, max_iter)
+
+    def solve_matrix(self, kind: str, A: Callable, b: torch.Tensor, method: str = "bicgstab",
+                     M: Optional[Callable] = None, weight: Optional[torch.Tensor] = None,
+                     tol: Optional[float] = None, max_iter: Optional[int] = None,
+                     prepare: Optional[Callable] = None, finish: Optional[Callable] = None):
+        """A Krylov solve (``method``: BiCGStab, CG in the inner product of
+        ``weight``, or GMRES) on a caller's operator ``A``, such as the
+        product of an assembled matrix (the CLI's ``--matrix-type crs`` and
+        ``pbm``), preconditioned by ``M``; ``b`` on the solver's device.
+        One graph launch per solve on one CUDA device, as the reference's
+        ``jax.jit(run)`` is one dispatch, under the key ``("matrix", kind,
+        method)``; ``prepare`` and ``finish`` as ``_run_loop``'s (then
+        ``(result, field)``).  The key's graph holds the ``A`` and ``M`` of
+        its first solve: a solve with another ``A`` captures anew (``M``
+        must be the same preconditioner, as the solver's own
+        ``_preconditioner()``)."""
+        tol = self.opts.tol if tol is None else tol
+        max_iter = self.opts.max_iter if max_iter is None else max_iter
+        red = self._allreduce
+        key = ("matrix", kind, method)
+        if self._matrix_ops.get(key) is not A:
+            self._captured.pop(key, None)
+            self._matrix_ops[key] = A
+
+        def make():
+            if method == "gmres":
+                return gmres_loop(A, M, GMRES_RESTART, red)
+            if method == "cg":
+                return cg_loop(A, M, None if weight is None else weight.to(b.dtype), red)
+            return bicgstab_loop(A, M, red)
+
+        return self._run_loop(key, make, b, tol, max_iter, prepare, finish)
 
     def solve_monitored(
         self,
@@ -301,33 +357,32 @@ class PoissonSolver:
         lvl = self._op
         f = self._as_field(f)
         weight = None
+        ends = ()
         if schur:
             M = self._schur_preconditioner(schur_preconditioner)
-            rhs = lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
+            ends = self._schur_ends()
 
             def A(g):
                 return g - lvl.schur_S(g)
 
         else:
-            A, rhs, M = lvl.apply, f, self._preconditioner()
+            A, M = lvl.apply, self._preconditioner()
             if method == "cg":
                 weight = self._volume_weight(self.opts.dtype)
         red = self._allreduce
-        if method == "gmres":
-            # the history's slots depend on max_iter, so it is in the key
-            key = ("monitored", "gmres", schur, schur_preconditioner, max_iter)
-            res, hist = self._run_loop(
-                key, lambda: gmres_loop(A, M, GMRES_RESTART, red,
-                                        max_iter + GMRES_RESTART + 1),
-                rhs, tol, max_iter)
-        elif method == "cg":
-            res, hist = cg_history(A, rhs, M=M, tol=tol, max_iter=max_iter,
-                                   weight=weight, allreduce=red)
-        else:
-            res, hist = residual_history(A, rhs, M=M, tol=tol, max_iter=max_iter,
-                                         allreduce=red)
-        u = lvl.patch_solve(f, res.x) if schur else res.x
-        r0 = res.r0_norm.cpu().numpy()
+
+        def make():
+            if method == "gmres":
+                return gmres_loop(A, M, GMRES_RESTART, red, max_iter + GMRES_RESTART + 1)
+            if method == "cg":
+                return cg_history_loop(A, M, weight, red, max_iter + 1)
+            return residual_history_loop(A, M, red, max_iter + 1)
+
+        # the history's slots depend on max_iter, so it is in the key
+        key = ("monitored", method, schur, schur_preconditioner, max_iter)
+        out = self._run_loop(key, make, f, tol, max_iter, *ends)
+        (res, hist), u = out if schur else (out, out[0].x)
+        r0 = hist[0]  # ||r0||, read with the history
         rel = np.asarray(hist) / (r0 if r0 > 0 else 1.0)
         return u, res, rel[: res.iterations + 1]
 
@@ -478,19 +533,20 @@ class PoissonSolver:
         lvl, red = self._op, self._allreduce
         M = self._schur_preconditioner(preconditioner)
         f = self._as_field(f)
-        b = lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
 
         def A(g):
             return g - lvl.schur_S(g)
 
+        # the right-hand side and the recovery run in the solve's launch
+        ends = self._schur_ends()
         if self.opts.krylov == "gmres":
-            res = self._run_loop(("schur", preconditioner, "gmres"),
-                                 lambda: gmres_loop(A, M, GMRES_RESTART, red), b, tol,
-                                 max_iter)
+            res, u = self._run_loop(("schur", preconditioner, "gmres"),
+                                    lambda: gmres_loop(A, M, GMRES_RESTART, red), f, tol,
+                                    max_iter, *ends)
         else:
-            res = self._run_loop(("schur", preconditioner), lambda: bicgstab_loop(A, M, red),
-                                 b, tol, max_iter)
-        return lvl.patch_solve(f, res.x), res
+            res, u = self._run_loop(("schur", preconditioner),
+                                    lambda: bicgstab_loop(A, M, red), f, tol, max_iter, *ends)
+        return u, res
 
     def _schur_preconditioner(self, preconditioner: Optional[str]) -> Optional[Callable]:
         """The interface preconditioner ``preconditioner`` (see
@@ -544,6 +600,11 @@ class PoissonSolver:
         out["error"] = float((_norm(err, red) / _norm(exact, red)).item())
         out["conservation"] = float((lvl.integrate(au) - lvl.integrate(f)).item())
         return out
+
+
+def _has_history(res) -> bool:
+    """Whether a loop's result is ``(KrylovResult, history)``."""
+    return isinstance(res, tuple) and not isinstance(res, KrylovResult)
 
 
 def _device_info(device, k, inner_total, rel, hist) -> dict:
@@ -660,27 +721,18 @@ class _RefineGraph:
         self.inner_tol.fill_(inner_tol)
         self.inner_max_iter.fill_(inner_max_iter)
         s, g = self.state, self.graphs
-        launched = one and self.f.is_cuda
-        if launched:
-            g.launch()
-        else:
-            g.replay()
-        u = s.u.clone()
         if not sync:
-            if launched:
-                snap = g.runs.clone()
-                ghost_stencil.defer(lambda: g.account(host_read(snap)[0]))
-            return u, {"outer_iterations": s.k.clone(),
-                       "inner_iterations": s.inner_total.clone(),
-                       "residual": s.rel.clone(),
-                       "outer_history": s.hist[:max_outer + 1].clone()}
-        # the passes (for the launch accounting) read with the results
-        got = host_read(s.k, s.inner_total, s.rel, s.hist, *((g.runs,) if launched else ()))
-        if launched:
-            g.account(got[4])
+            g.run(one, sync=False)
+            return s.u.clone(), {"outer_iterations": s.k.clone(),
+                                 "inner_iterations": s.inner_total.clone(),
+                                 "residual": s.rel.clone(),
+                                 "outer_history": s.hist[:max_outer + 1].clone()}
+        # the counts read with the passes (for the launch accounting)
+        _, got = g.run(one, s.k, s.inner_total, s.rel, s.hist)
         k = int(got[0][0])
-        return u, {"outer_iterations": k, "inner_iterations": int(got[1][0]),
-                   "residual": float(got[2][0]), "outer_history": got[3][:k + 1]}
+        return s.u.clone(), {"outer_iterations": k, "inner_iterations": int(got[1][0]),
+                             "residual": float(got[2][0]),
+                             "outer_history": got[3][:k + 1]}
 
 
 def shift_for_neumann(level: Level, f: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,12 @@ WHILE nodes: a guard kernel ahead of each WHILE node and one at the end of
 its body copy the loop's flag into the node's condition and count the
 passes.  A run is one graph launch; the host reads nothing until the
 caller asks for the counts.  Loops nest (the refinement's rounds around
-the inner Krylov loop, GMRES's cycles around its Arnoldi steps).
+the inner Krylov loop, GMRES's cycles around its Arnoldi steps), and a loop
+may run inside a piece (:class:`PieceLoop`: the batched patch BiCGStab in
+each smoothing of a V-cycle): its pass is captured on its own, and the
+piece is cut there, its parts and the loop taking its place, since the
+CUDA driver does not clone a captured graph that holds a WHILE node into
+another graph.
 
 The plain version of the WHILE node is ``krylov.run_loop``: the same
 pieces replayed one by one, each loop's guard read to the host before
@@ -30,17 +35,20 @@ count their launches on the host, where a graph does not pass: the
 launches of each piece are recorded at capture and added per replay, or,
 after a graph launch, times the passes the launch made (read with the
 results, or later by ``ghost_stencil.counters()``).  ``launches`` counts
-the guard kernel's runs, the WHILE-node passes and the graph launches.
+the guard kernel's runs, the WHILE-node passes and the graph launches;
+``inner`` the passes and runs of the loops inside pieces, in every mode.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import time
 import weakref
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import cuda_build
@@ -57,8 +65,9 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, inner):
+        for k in counts:
+            counts[k] = 0
 
 
 def build() -> ctypes.CDLL:
@@ -74,6 +83,7 @@ def build() -> ctypes.CDLL:
             "pps_graph_add_while": [vp, vp, vp, vp, pp, pp,
                                     ctypes.POINTER(ctypes.c_ulonglong)],
             "pps_graph_add_guard": [vp, vp, ctypes.c_ulonglong, vp, vp, pp],
+            "pps_capture_add_while": [vp, vp, vp, vp, pp, pp],
             "pps_graph_instantiate": [vp, pp],
             "pps_graph_launch": [vp, vp],
             "pps_graph_destroy": [vp, vp],
@@ -111,39 +121,125 @@ def _minus(after: list, before: list) -> list:
     return [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
 
 
+# set while a capture's warm-up call runs (``warming``), and while a piece
+# is captured, the function that cuts it at a loop that runs inside it
+_capture_state = {"warming": 0, "cut": None}
+
+
+def warming() -> bool:
+    """Whether a capture's warm-up call is running: the time at which a
+    loop that runs inside a piece captures its pass (:class:`PieceLoop`),
+    since no capture is in progress then."""
+    return _capture_state["warming"] > 0
+
+
+@contextlib.contextmanager
+def warm_up():
+    """The warm-up call of a capture (see :func:`warming`)."""
+    _capture_state["warming"] += 1
+    try:
+        yield
+    finally:
+        _capture_state["warming"] -= 1
+
+
+def capturing(t: torch.Tensor) -> bool:
+    """Whether work on ``t`` is being captured: ``t`` on a CUDA device
+    whose current stream is capturing."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def cut(loop: "PieceLoop") -> None:
+    """Inside the capture of a piece: end its current graph here, put
+    ``loop`` (whose static state the piece has just written) after it, and
+    capture what follows into a new graph (see :func:`capture`)."""
+    if _capture_state["cut"] is None:
+        raise RuntimeError("a loop inside a piece runs only under graphs.capture")
+    _capture_state["cut"](loop)
+
+
 def capture(fn, device: torch.device):
     """``fn`` (device work on static buffers on ``device`` only) captured
     as a CUDA graph with its own memory pool, after one warm-up call on a
     side stream, as torch requires (the warm-up also fills the lazy caches
-    ``fn`` reaches, such as the stencil libraries' loading); returns once
-    the warm-up is done.  ``(graph, launches)``: the stencil launches the
+    ``fn`` reaches, such as the stencil libraries' loading, and captures
+    the pass of each loop that runs inside ``fn``); returns once the
+    warm-up is done.  ``(graph, launches)``: the stencil launches the
     capture counted, one call's.  The graph keeps its nodes
     (``keep_graph``), so that it can be composed into another graph and
     read back (``raw_cuda_graph``); it is instantiated here too, for the
-    per-piece replay."""
+    per-piece replay.
+
+    A loop that runs inside ``fn`` (:class:`PieceLoop`) cuts it: the
+    CUDA driver refuses to clone a graph that holds a WHILE node into a
+    child-graph node (``cudaErrorNotSupported``), so each such loop ends
+    the graph being captured, and what follows it is captured into a new
+    graph of the same memory pool (replayed in the order of capture, as a
+    shared pool requires).  ``graph`` is then the list of the pieces
+    (``_Piece``) and loops in order, and ``launches`` the pieces' sum."""
     with torch.cuda.device(device):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), warm_up():
             fn()
         torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = ghost_stencil.counters()
-        # no garbage collection inside the capture (torch collects just
-        # before it): a collected graph's destruction (its exec's, or a
-        # GraphLoop's) is a call the capture forbids, and it invalidates it
+        items: list = []
+        pool = torch.cuda.graph_pool_handle()
+        open_ = {}
+
+        def begin():
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            open_["graph"], open_["before"] = graph, ghost_stencil.counters()
+            graph.capture_begin(pool=pool)
+
+        def end():
+            open_["graph"].capture_end()
+            items.append(_Piece(open_["graph"],
+                                _minus(ghost_stencil.counters(), open_["before"])))
+
+        def cut_here(loop):
+            end()
+            items.append(loop)
+            begin()
+
+        # as torch.cuda.graph does before a capture; then no garbage
+        # collection inside the capture: a collected graph's destruction
+        # (its exec's, or a GraphLoop's) is a call the capture forbids, and
+        # it invalidates it
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
         collect = gc.isenabled()
         gc.disable()
+        stream = torch.cuda.Stream()
+        prev, _capture_state["cut"] = _capture_state["cut"], cut_here
         try:
-            with torch.cuda.graph(graph):
-                fn()
+            with torch.cuda.stream(stream):
+                begin()
+                try:
+                    fn()
+                except BaseException:
+                    # end the capture the failure left open, then raise
+                    with contextlib.suppress(RuntimeError):
+                        open_["graph"].capture_end()
+                    raise
+                end()
         finally:
+            _capture_state["cut"] = prev
             if collect:
                 gc.enable()
-        launches = _minus(ghost_stencil.counters(), before)
-        graph.instantiate()
+        pieces = [item for item in items if isinstance(item, _Piece)]
+        for piece in pieces:
+            piece.graph.instantiate()
         torch.cuda.synchronize()
-    return graph, launches
+    if len(items) == 1:
+        return items[0]
+    total = [{} for _ in pieces[0].launches]
+    for piece in pieces:
+        for acc, d in zip(total, piece.launches):
+            for k, v in d.items():
+                acc[k] = acc.get(k, 0) + v
+    return items, total
 
 
 def _clone(state):
@@ -192,6 +288,88 @@ def _destroy(graph, exec_) -> None:
         _lib.pps_graph_destroy(*_doomed.pop())
 
 
+class PieceLoop:
+    """A loop that runs inside a captured piece, such as the batched patch
+    BiCGStab inside each smoothing of a V-cycle inside a Krylov step: the
+    counterpart of a ``lax.while_loop`` nested in the reference's jitted
+    program.  ``state`` (a NamedTuple of tensors with the pass count ``k``
+    and the guard ``go``, both 0-d) is copied into a static state, and
+    ``step`` (one pass, device work only, ending with the guard re-tested)
+    is captured once over it (:func:`capture`, during a warm-up, when no
+    capture is in progress).  ``graph`` and ``launches`` are the pass's.
+
+    Under the capture of a piece, :meth:`captured` writes a run's initial
+    state into the static state and cuts the piece there (:func:`cut`):
+    the loop becomes a WHILE node of the composed graph (``GraphLoop``),
+    between the piece's graph up to it and the one after it, so one launch
+    runs it on the card; the per-step replay reads its guard before every
+    pass.  ``largest``: the most passes of one run since it was zeroed."""
+
+    def __init__(self, state, step: Callable, device: torch.device):
+        self.state = _clone(state)
+        self.go = self.state.go
+        self.graph, self.launches = capture(lambda: _write(self.state, step(self.state)),
+                                            device)
+        self.largest = torch.zeros((), dtype=torch.int64, device=device)
+        self._runs = torch.zeros(1, dtype=torch.int64, device=device)
+        self._exec = None
+
+    def replay(self, state):
+        """A run from ``state`` outside a capture (the warm-up's): on the
+        card the loop alone as one graph launch, no host read; else the
+        captured pass replayed while the guard read to the host holds.  The
+        static state after it."""
+        _write(self.state, state)
+        if self.go.is_cuda:
+            self._launch()
+        else:
+            while read_flag(self.go):
+                self.graph.replay()
+                ghost_stencil.add_launches(self.launches)
+        return self.state
+
+    def _launch(self) -> None:
+        if self._exec is None:
+            build()
+            root, node, body = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_void_p()
+            handle, guard = ctypes.c_ulonglong(), ctypes.c_void_p()
+            _call("pps_graph_create", ctypes.byref(root))
+            _call("pps_graph_add_while", root, None, self.go.data_ptr(), self._runs.data_ptr(),
+                  ctypes.byref(node), ctypes.byref(body), ctypes.byref(handle))
+            _call("pps_graph_add_child", body, None, self.graph.raw_cuda_graph(),
+                  ctypes.byref(node))
+            _call("pps_graph_add_guard", body, node, handle.value, self.go.data_ptr(),
+                  self._runs.data_ptr(), ctypes.byref(guard))
+            exec_ = ctypes.c_void_p()
+            _call("pps_graph_instantiate", root, ctypes.byref(exec_))
+            self._exec = exec_.value
+            weakref.finalize(self, _destroy, root.value, self._exec)
+        _call("pps_graph_launch", self._exec,
+              torch.cuda.current_stream(self.go.device).cuda_stream)
+
+    def captured(self, state):
+        """Under the capture of a piece: a run from ``state`` as a loop of
+        the composed graph; the static state after it."""
+        _write(self.state, state)
+        cut(self)
+        torch.maximum(self.largest, self.state.k, out=self.largest)
+        return self.state
+
+
+#: the loops that run inside pieces (:class:`PieceLoop`, and the plain
+#: versions of their owners): ``passes`` and ``runs`` (entries), and the
+#: most passes of one run; reset with ``launches``
+inner = {"passes": 0, "runs": 0, "largest": 0}
+
+
+def note_inner(passes: int) -> None:
+    """Count one run of a loop inside a piece that made ``passes``
+    passes."""
+    inner["passes"] += passes
+    inner["runs"] += 1
+    inner["largest"] = max(inner["largest"], passes)
+
+
 class GraphLoop:
     """A program over a static state, its pieces captured once and run as
     one CUDA graph with WHILE nodes (:meth:`launch`) or piece by piece
@@ -202,24 +380,36 @@ class GraphLoop:
     ``body``: the pieces (``state -> state``) and ``krylov.While`` loops
     after it; ``template()``: a state (computed eagerly, here) whose copy
     is the static state; ``step``: the piece whose graph and launches are
-    :attr:`graph` and :attr:`launches` (the loop's step).  The launches of
-    the set-up are no solve's and are taken back.  ``capture_s``: the host
-    seconds of the set-up and the captures; ``build_s``: those of the
-    composition and instantiation, at the first :meth:`launch`."""
+    :attr:`graph` and :attr:`launches` (the loop's step).  A piece that
+    runs loops inside it (:class:`PieceLoop`) is cut at each: the parts and
+    the loops take its place in :attr:`tree` (the loops in the slots
+    listed in :attr:`inner`), and its graph is then the list of them.  The
+    launches of the set-up are no solve's and are taken back.
+    ``capture_s``: the host seconds of the set-up and the captures;
+    ``build_s``: those of the composition and instantiation, at the first
+    :meth:`launch`."""
 
     def __init__(self, inputs: tuple, init: Callable, body: tuple, template: Callable,
                  step: Callable, device: torch.device):
         t0 = time.perf_counter()
-        before = ghost_stencil.counters()
+        before, inner_before = ghost_stencil.counters(), dict(inner)
         self.inputs, self.device = inputs, torch.device(device)
-        self.state = _clone(template())
+        with warm_up():  # loops inside pieces run here without host reads
+            self.state = _clone(template())
         self.whiles: list = []
+        #: ``(slot, PieceLoop)`` of each loop run inside a piece; the slots
+        #: of the program's own loops, in order
+        self.inner: list = []
+        self.loop_slots: list = []
         self.pieces: dict = {}
-        self.init = self._capture(lambda _: init(*self.inputs))
-        self.tree = self._capture_body(body)
+        self.tree = self._capture(lambda _: init(*self.inputs))
+        self.init = self.tree[0]
+        self.tree += self._capture_body(body)
         self.graph, self.launches = self.pieces[step]
+        self.piece_loops = list({id(pl): pl for _, pl in self.inner}.values())
         self.runs = torch.zeros(len(self.whiles), dtype=torch.int64, device=self.device)
         ghost_stencil.add_launches(_minus(ghost_stencil.counters(), before), -1)
+        inner.update(inner_before)
         self.capture_s = time.perf_counter() - t0
         self.build_s = 0.0
         self.root = self._exec = None
@@ -228,11 +418,22 @@ class GraphLoop:
         self.bodies: dict = {}
         self.loop_nodes: dict = {}
 
-    def _capture(self, fn: Callable) -> _Piece:
+    def _capture(self, fn: Callable) -> list:
+        """``fn`` captured: its part of the tree (one piece, or the parts
+        and loops of a cut piece)."""
         graph, launched = capture(lambda: _write(self.state, fn(self.state)), self.device)
-        piece = _Piece(graph, launched)
-        self.pieces[fn] = piece
-        return piece
+        self.pieces[fn] = _Piece(graph, launched)
+        if not isinstance(graph, list):
+            return [_Piece(graph, launched)]
+        tree = []
+        for item in graph:
+            if isinstance(item, PieceLoop):
+                loop = _Loop(len(self.whiles), item.go, [_Piece(item.graph, item.launches)])
+                self.whiles.append(loop)
+                self.inner.append((loop.index, item))
+                item = loop
+            tree.append(item)
+        return tree
 
     def _capture_body(self, body: tuple) -> list:
         tree = []
@@ -240,10 +441,70 @@ class GraphLoop:
             if isinstance(item, While):
                 index = len(self.whiles)
                 self.whiles.append(item)
+                self.loop_slots.append(index)
                 tree.append(_Loop(index, item.guard(self.state), self._capture_body(item.body)))
             else:
-                tree.append(self._capture(item))
+                tree += self._capture(item)
         return tree
+
+    # -- a run ----------------------------------------------------------------
+
+    def run(self, one: bool, *extra: torch.Tensor, sync: bool = True):
+        """One run: one graph launch on the card with ``one`` (else piece by
+        piece, :meth:`replay`), then one host read of the passes, the
+        largest runs of the loops inside pieces and ``extra``, and the
+        launch accounting.  ``(runs, values)``: the passes per loop slot and
+        the values of ``extra`` read.  With ``sync=False`` nothing is read
+        (the accounting waits for the next ``ghost_stencil.counters()``);
+        ``(None, None)``."""
+        for pl in self.piece_loops:
+            pl.largest.zero_()
+        launched = one and self.device.type == "cuda"
+        if launched:
+            self.launch()
+            runs = None
+        else:
+            runs = self.replay()
+        counts = (([self.runs] if launched else [])
+                  + ([torch.stack([pl.largest for pl in self.piece_loops])]
+                     if self.piece_loops else []))
+        if not sync:
+            if counts:
+                snap = torch.cat(counts).clone()
+                ghost_stencil.defer(lambda: self._account(host_read(snap)[0], runs))
+            return None, None
+        if not counts and not extra:
+            return runs, []
+        got = host_read(*counts, *extra)
+        n = len(counts)
+        runs = self._account(np.concatenate(got[:n]) if n else np.zeros(0), runs)
+        return runs, got[n:]
+
+    def _account(self, values, runs):
+        """The accounting of a run from the counts read (``values``: the
+        passes per slot after a launch, then the largest runs); ``runs``:
+        the passes per slot of a replay (``None`` after a launch).  The
+        passes per slot."""
+        values = [int(v) for v in values]
+        if runs is None:
+            runs, values = values[:len(self.whiles)], values[len(self.whiles):]
+            self.account(runs)
+        else:
+            self._account_inner(self.tree, 1, runs)
+        if self.piece_loops:
+            inner["largest"] = max(inner["largest"], *values)
+        return runs
+
+    def _account_inner(self, tree: list, times: int, runs) -> None:
+        """The passes and runs of the loops inside pieces (``inner``)."""
+        slots = dict(self.inner)
+        for item in tree:
+            if isinstance(item, _Loop):
+                n = int(runs[item.index])
+                if item.index in slots:
+                    inner["passes"] += n
+                    inner["runs"] += times
+                self._account_inner(item.body, n, runs)
 
     # -- the plain version: piece by piece, guards read on the host ----------
 
@@ -252,7 +513,6 @@ class GraphLoop:
         launches added per replay), each loop's guard read to the host
         before every pass.  The passes per loop slot."""
         runs = [0] * len(self.whiles)
-        self._replay_piece(self.init)
         self._replay_tree(self.tree, runs)
         return runs
 
@@ -286,9 +546,8 @@ class GraphLoop:
 
     def account(self, runs) -> None:
         """Add the stencil launches and guard runs of a launch that made
-        ``runs`` passes per loop slot (host integers)."""
-        ghost_stencil.add_launches(self.init.launches)
-
+        ``runs`` passes per loop slot (host integers), and the passes and
+        runs of the loops inside pieces."""
         def walk(tree, times):
             for item in tree:
                 if isinstance(item, _Loop):
@@ -300,6 +559,7 @@ class GraphLoop:
                     ghost_stencil.add_launches(item.launches, times)
 
         walk(self.tree, 1)
+        self._account_inner(self.tree, 1, runs)
 
     def level_launches(self) -> dict:
         """Per graph level (``"root"`` or a loop slot): the stencil launches
@@ -323,7 +583,6 @@ class GraphLoop:
                 else:
                     add(level, item)
 
-        add("root", self.init)
         walk(self.tree, "root")
         return out
 
@@ -339,7 +598,6 @@ class GraphLoop:
             _call("pps_graph_add_zero", self.root, None, self.runs.data_ptr(),
                   len(self.whiles), ctypes.byref(node))
             dep = node.value
-        dep = self._add_child(self.root, dep, self.init)
         self._compose(self.root, self.tree, dep)
         exec_ = ctypes.c_void_p()
         try:
@@ -392,43 +650,58 @@ class CapturedLoop:
     ``loop.init(b, tol, max_iter)`` gives, and composed into one graph
     (:class:`GraphLoop`).  :meth:`run` is one graph launch followed by one
     read (the passes, hence the step count).  ``graph`` and ``launches``
-    are those of the loop's step, ``capture_s`` the set-up's seconds."""
+    are those of the loop's step, ``capture_s`` the set-up's seconds.
 
-    def __init__(self, loop: KrylovLoop, b: torch.Tensor, tol, max_iter: int):
-        self.loop = loop
+    With ``prepare`` the loop runs on ``prepare(b)``, computed in its init
+    piece, and with ``finish`` a last piece computes ``finish(b, state)``
+    (a field of ``b``'s shape and dtype; the state's ``x``), which
+    :meth:`run` returns beside the result: the Schur path's right-hand side
+    and recovery, so that they run in the solve's one launch."""
+
+    def __init__(self, loop: KrylovLoop, b: torch.Tensor, tol, max_iter: int,
+                 prepare: Optional[Callable] = None, finish: Optional[Callable] = None):
+        self.loop, self.finish = loop, finish
         self.b = b.clone()
         self.tol = _scalar(tol, b).clone()
         self.max_iter = torch.full((), max_iter, dtype=torch.int64, device=b.device)
-        self.graphs = GraphLoop((self.b, self.tol, self.max_iter), loop.init,
-                                program(loop), lambda: loop.init(self.b, tol, max_iter),
-                                loop.step, b.device)
+        init = loop.init
+        if prepare is not None:
+            def init(b, tol, max_iter):
+                return loop.init(prepare(b), tol, max_iter)
+        body = program(loop)
+        if finish is not None:
+            self.out = torch.empty_like(self.b)
+
+            def recover(s):
+                self.out.copy_(finish(self.b, s))
+                return s
+
+            body += (recover,)
+        self.graphs = GraphLoop((self.b, self.tol, self.max_iter), init, body,
+                                lambda: init(self.b, tol, max_iter), loop.step, b.device)
         self.state = self.graphs.state
         self.graph, self.launches = self.graphs.graph, self.graphs.launches
         self.capture_s = self.graphs.capture_s
 
     def run(self, b: torch.Tensor, tol, max_iter: int, one: bool = True):
         """The loop on ``b`` (cast to the loop's dtype) to its stop: on the
-        card with ``one``, one graph launch and one read; else piece by
+        card with ``one``, one graph launch and one read (the passes, hence
+        the step count, and the fields the result needs); else piece by
         piece (the CPU's way, and the per-step replay on the card)."""
         self.b.copy_(b)
         self.tol.fill_(tol)
         self.max_iter.fill_(max_iter)
-        count = self.loop.count
-        if one and self.b.is_cuda:
-            self.graphs.launch()
-            extra = (getattr(self.state, count),) if count else ()
-            got = host_read(self.graphs.runs, *extra)
-            runs = [int(v) for v in got[0]]
-            self.graphs.account(runs)
-            iterations = int(got[1][0]) if count else runs[0]
-        else:
-            runs = self.graphs.replay()
-            iterations = (int(host_read(getattr(self.state, count))[0][0]) if count
-                          else runs[0])
-        res = self.loop.result(self.state, iterations)
+        loop = self.loop
+        extra = [getattr(self.state, name) for name in ((loop.count,) if loop.count else ())
+                 + loop.read]
+        runs, got = self.graphs.run(one, *extra)
+        iterations = int(got[0][0]) if loop.count else runs[self.graphs.loop_slots[0]]
+        res = loop.result(self.state, iterations, *got[1 if loop.count else 0:])
         if isinstance(res, tuple) and not isinstance(res, KrylovResult):
-            return (_fresh(res[0]), *res[1:])
-        return _fresh(res)
+            res = (_fresh(res[0]), *res[1:])
+        else:
+            res = _fresh(res)
+        return res if self.finish is None else (res, self.out.clone())
 
     def _replay(self, state):
         """One replay of the step alone (its launches added)."""

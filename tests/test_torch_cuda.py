@@ -976,15 +976,26 @@ def test_captured_loop_with_a_new_step_limit_stops_where_eager_does(cuda):
 
 
 def test_capture_that_cannot_be_made_raises(cuda):
-    """The batched patch BiCGStab reads a flag per patch iteration, which a
-    capture forbids: its solver runs eagerly, and forcing a capture raises
-    instead of falling back to the eager loop."""
-    s, f, _ = _graph_solver(cuda, patch_solver="bcgs")
-    assert not s._graphs
-    s.solve(f, max_iter=3)
+    """An operator that reads a flag to the host on every call cannot be
+    captured: its eager solve runs, and its one-launch solve raises instead
+    of falling back to the eager loop.  (The batched patch BiCGStab, which
+    read a flag per pass, is a loop of the solve's graph now, see
+    ``test_one_launch_solve_matches_steps_and_eager``.)"""
+    s, f, _ = _graph_solver(cuda)
+
+    def A(u):
+        if bool(torch.isnan(u).any()):  # a host read on every call
+            raise ValueError("a non-finite iterate")
+        return s.apply(u)
+
+    M = s._preconditioner()
+    s._graphs = False
+    s.solve_matrix("host-read", A, f, M=M, max_iter=3)
     s._graphs = True
     with pytest.raises(RuntimeError):
-        s.solve(f, max_iter=3)
+        s.solve_matrix("host-read", A, f, M=M, max_iter=3)
+    s._graphs = False
+    assert s.solve_matrix("host-read", A, f, M=M, max_iter=3).iterations == 3
 
 
 # --- the solves as one graph launch (WHILE nodes) -----------------------------
@@ -995,6 +1006,11 @@ LOOP_SOLVES = {
     **GRAPH_SOLVES,
     "solve-gmres": ({"krylov": "gmres"}, "solve"),
     "schur-gmres": ({"precond_dtype": torch.float32, "krylov": "gmres"}, "schur"),
+    # the batched patch BiCGStab smooths the finest level (f64 cycle) and
+    # solves the Schur operator's patch systems: loops inside pieces
+    "solve-bcgs": ({"patch_solver": "bcgs"}, "solve"),
+    "refined-bcgs": ({"patch_solver": "bcgs"}, "refined"),
+    "schur-bcgs": ({"precond_dtype": torch.float32, "patch_solver": "bcgs"}, "schur"),
 }
 LOOP_CASES = [(2, c) for c in LOOP_SOLVES] + [(3, "refined-bicgstab"), (3, "solve-gmres")]
 
@@ -1237,3 +1253,205 @@ def test_nested_while_nodes_count_as_the_plain_loop(cuda, n, m):
     assert [int(t) for t in gl.state] == plain
     assert int(gl.state.k) == n and int(gl.state.total) == n * m
     assert graphs.launches == {"guard": 1 + n + n + n * m, "passes": n + n * m, "graph": 1}
+
+
+# --- loops inside captured pieces; the monitored and assembled-matrix solves --
+
+def test_while_node_added_in_a_capture_cannot_be_a_child_graph(cuda):
+    """The probe of a WHILE node added to a graph while torch captures it
+    (``pps_capture_add_while``): torch's replay of the captured graph runs
+    the loop, but the CUDA driver refuses to clone that graph into a
+    child-graph node (``cudaErrorNotSupported``), which is how
+    ``GraphLoop`` composes pieces; so a loop inside a piece cuts the piece
+    instead (``graphs.PieceLoop``)."""
+    import ctypes
+
+    from pressurepoissonsolver_torch.utils import graphs
+
+    x = torch.zeros((), dtype=torch.int64, device=cuda)
+    go = torch.ones((), dtype=torch.bool, device=cuda)
+    runs = torch.zeros(1, dtype=torch.int64, device=cuda)
+    y = torch.zeros((), dtype=torch.int64, device=cuda)
+
+    def body():
+        x.add_(1)
+        go.copy_(x < 5)
+
+    body_graph, _ = graphs.capture(body, cuda)
+
+    def piece():
+        x.zero_()
+        go.copy_(x < 5)
+        if torch.cuda.is_current_stream_capturing():
+            node, inner = ctypes.c_void_p(), ctypes.c_void_p()
+            graphs._call("pps_capture_add_while", torch.cuda.current_stream().cuda_stream,
+                         ctypes.c_void_p(body_graph.raw_cuda_graph()), go.data_ptr(),
+                         runs.data_ptr(), ctypes.byref(node), ctypes.byref(inner))
+        else:
+            while bool(go):
+                body()
+        y.copy_(10 * x)
+
+    graph, _ = graphs.capture(piece, cuda)
+    y.zero_()
+    runs.zero_()
+    graph.replay()
+    assert int(y) == 50 and int(runs[0]) == 5
+    root, node = ctypes.c_void_p(), ctypes.c_void_p()
+    graphs._call("pps_graph_create", ctypes.byref(root))
+    with pytest.raises(RuntimeError, match="CUDA error 801"):
+        graphs._call("pps_graph_add_child", root, None,
+                     ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.byref(node))
+    graphs._call("pps_graph_destroy", root, None)
+
+
+class _Inner(NamedTuple):
+    k: torch.Tensor
+    x: torch.Tensor
+    go: torch.Tensor
+
+
+class _Outer(NamedTuple):
+    y: torch.Tensor
+    j: torch.Tensor
+    go: torch.Tensor
+
+
+@pytest.mark.parametrize("m", [0, 1, 7])
+def test_loop_inside_a_piece_cuts_it(cuda, m):
+    """A loop inside a piece (``graphs.PieceLoop``, ``m`` passes of ``x +=
+    k + 1``) run in each of two rounds of an outer loop: the piece is cut
+    into its part before the loop, the loop and its part after it; one
+    graph launch gives the per-step replay's state and passes, the loop's
+    slot counting its passes over both rounds and its largest run ``m``."""
+    from pressurepoissonsolver_torch.krylov import While
+    from pressurepoissonsolver_torch.utils import graphs
+
+    mb = torch.full((), m, dtype=torch.int64, device=cuda)
+    zero = torch.zeros((), dtype=torch.int64, device=cuda)
+    holder = {}
+
+    def step(st):
+        k = st.k + 1
+        return _Inner(k, st.x + k, k < mb)
+
+    def inner(start):
+        st = _Inner(zero.clone(), start, zero < mb)
+        if graphs.capturing(start):
+            return holder["loop"].captured(st).x.clone()
+        loop = holder.get("loop")
+        if loop is None:
+            loop = holder["loop"] = graphs.PieceLoop(st, step, cuda)
+        return loop.replay(st).x.clone()
+
+    def round_(st):
+        j = st.j + 1
+        return _Outer(2 * inner(st.y) + 1, j, j < 2)
+
+    def init(_):
+        return _Outer(zero.clone(), zero.clone(), zero < 1)
+
+    body = (While(lambda st: st.go, (round_,)),)
+    gl = graphs.GraphLoop((mb,), init, body, lambda: init(mb), round_, cuda)
+    assert [type(t).__name__ for t in gl.tree[1].body] == ["_Piece", "_Loop", "_Piece"]
+    assert gl.inner == [(1, holder["loop"])]
+    graphs.reset_launches()
+    runs_plain, _ = gl.run(False)
+    plain = [int(t) for t in gl.state]
+    steps_inner = dict(graphs.inner)
+    graphs.reset_launches()
+    runs, _ = gl.run(True)
+    assert runs == runs_plain == [2, 2 * m]
+    assert [int(t) for t in gl.state] == plain
+    total = m * (m + 1) // 2
+    assert plain[0] == 2 * (2 * total + 1) + 1 + 2 * total  # y after two rounds
+    assert dict(graphs.inner) == steps_inner == {"passes": 2 * m, "runs": 2, "largest": m}
+    assert graphs.launches["graph"] == 1
+
+
+MATRIX_SOLVES = ("monitored-bicgstab", "monitored-cg", "monitored-schur", "crs", "schur-pbm",
+                 "monitored-bcgs")
+
+
+def _matrix_run(s, f, case, ops):
+    """One solve of ``case``: ``(u, counts)``."""
+    from pressurepoissonsolver_torch.matrix import assemble_composite, bcoo_matvec, pbm_matvec
+
+    if case.startswith("monitored"):
+        u, res, hist = s.solve_monitored(f, max_iter=100, schur=case == "monitored-schur",
+                                         schur_preconditioner="gmg")
+        return u, (res.iterations, len(hist), float(hist[-1]))
+    if case == "crs":
+        A = ops.setdefault("A", bcoo_matvec(assemble_composite(s.hierarchy.finest),
+                                            device=f.device))
+        res = s.solve_matrix("crs", A, f, M=s._preconditioner(), tol=1e-10, max_iter=100)
+        return res.x, (res.iterations,)
+    S = ops.setdefault("S", pbm_matvec(s.fine_level))
+    prepare, finish = s._schur_ends()
+    res, u = s.solve_matrix("schur-pbm", S, f, M=s._schur_preconditioner("gmg"), tol=1e-10,
+                            max_iter=100, prepare=prepare, finish=finish)
+    return u, (res.iterations,)
+
+
+@pytest.mark.parametrize("case", MATRIX_SOLVES)
+def test_one_launch_monitored_and_matrix_solves_match_eager(cuda, case):
+    """``solve_monitored`` (BiCGStab, CG, the Schur form, BiCGStab over bcgs
+    smoothing) and ``solve_matrix`` (the assembled CRS operator and the
+    probed pointer-block Schur operator) in turns one launch, per step and
+    eager: the same counts, history and iterate bit for bit, the same
+    stencil launches; one graph launch and one host read per one-launch
+    solve, under one key."""
+    from pressurepoissonsolver_torch import krylov
+    from pressurepoissonsolver_torch.utils import graphs
+
+    opts = {"krylov": "cg"} if case == "monitored-cg" else {}
+    if case == "monitored-bcgs":
+        opts["patch_solver"] = "bcgs"
+    if case in ("monitored-schur", "schur-pbm"):
+        opts["precond_dtype"] = torch.float32
+    s, f, exact = _graph_solver(cuda, **opts)
+    ops, out = {}, {}
+    for mode in (True, "steps", False, True):
+        s._graphs = mode
+        gs.reset_launches()
+        graphs.reset_launches()
+        reads = krylov.reads["host"]
+        u, counts = _matrix_run(s, f, case, ops)
+        reads = krylov.reads["host"] - reads
+        out.setdefault(mode, []).append((u, counts, gs.counters(), dict(graphs.launches),
+                                         reads))
+    assert len(s._captured) == 1
+    ref_u, ref_c, ref_l = out[False][0][:3]
+    for runs in out.values():
+        for u, counts, launched, _, _ in runs:
+            assert counts == ref_c and torch.equal(u, ref_u) and launched == ref_l
+    _, _, _, one, one_reads = out[True][1]
+    assert one["graph"] == 1 and one_reads == 1 and one["guard"] > one["passes"] > 0
+    assert s.report(ref_u, f, exact)["residual"] <= 1e-9
+
+
+def test_refinement_sync_false_with_bcgs_smoothing(cuda):
+    """``solve_refined(sync=False)`` on a solver whose cycle smooths with
+    the bcgs patch solves (loops inside the inner loop's pieces): no host
+    read inside the solve, the ``sync=True`` solve's iterate and counts,
+    and its stencil launches and patch passes read at the next
+    ``counters()``."""
+    from pressurepoissonsolver_torch import krylov
+    from pressurepoissonsolver_torch.utils import graphs
+
+    s, f, _ = _graph_solver(cuda, precond_dtype=torch.float64, patch_solver="bcgs")
+    u1, info1 = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    gs.reset_launches()
+    graphs.reset_launches()
+    s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    synced, inner = gs.counters(), dict(graphs.inner)
+    assert inner["passes"] > inner["runs"] > 0
+    gs.reset_launches()
+    graphs.reset_launches()
+    reads = krylov.reads["host"]
+    u2, info2 = s.solve_refined(f, tol=1e-10, inner_tol=1e-4, sync=False)
+    assert krylov.reads["host"] == reads
+    assert int(info2["outer_iterations"]) == info1["outer_iterations"]
+    assert int(info2["inner_iterations"]) == info1["inner_iterations"]
+    assert torch.equal(u1, u2)
+    assert gs.counters() == synced and dict(graphs.inner) == inner
