@@ -22,12 +22,27 @@
 // graph node (a launch of one thread on the device, a few microseconds), not
 // bytes: it reads one flag and updates one 8-byte counter.
 //
+// The stamp kernels are graph instrumentation too (utils/profiling.py,
+// ``device_spans``).  ``pps_stamp`` (one thread) takes the next slot of a
+// device buffer with ``atomicAdd`` and writes the span's id and
+// ``%globaltimer`` there, or, past the buffer's capacity, only counts
+// itself; launched on a stream that torch is capturing, it becomes a kernel
+// node of the piece, so stream order places its time between the nodes
+// before and after it, inside WHILE bodies too.  ``pps_stamp_clock`` is the
+// same kernel under another name: its record in a profiler trace pairs the
+// device's clock with the trace's.  ``pps_timer_probe`` reads the timer
+// back to back, to measure how often it ticks.  ``pps_graph_count_nodes``
+// counts the device nodes (kernel, memcpy, memset) of a captured graph, child
+// graphs included.
+//
 // Every function returns its cudaError_t (0 on success); the Python wrapper
 // raises on any other value with pps_graph_error_string.  The library links
 // the CUDA runtime statically; graph, node and stream handles are driver
 // objects of the primary context, which torch's runtime uses too.
 
 #include <cuda_runtime.h>
+
+#include <vector>
 
 extern "C" __global__ void pps_set_conditional(cudaGraphConditionalHandle handle,
                                                const bool* go, long long* runs) {
@@ -36,7 +51,67 @@ extern "C" __global__ void pps_set_conditional(cudaGraphConditionalHandle handle
   *runs += value;
 }
 
+__device__ __forceinline__ unsigned long long global_timer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// One entry of a stamp buffer: ``buf[2 i]`` the id, ``buf[2 i + 1]`` the
+// time in ns; ``*cursor`` ends as the number of stamps taken, kept or not.
+__device__ __forceinline__ void stamp(unsigned long long id, unsigned long long* buf,
+                                      unsigned long long* cursor, unsigned long long cap) {
+  const unsigned long long i = atomicAdd(cursor, 1ULL);
+  if (i < cap) {
+    buf[2 * i] = id;
+    buf[2 * i + 1] = global_timer();
+  }
+}
+
+extern "C" __global__ void pps_stamp(unsigned long long id, unsigned long long* buf,
+                                     unsigned long long* cursor, unsigned long long cap) {
+  stamp(id, buf, cursor, cap);
+}
+
+extern "C" __global__ void pps_stamp_clock(unsigned long long id, unsigned long long* buf,
+                                           unsigned long long* cursor,
+                                           unsigned long long cap) {
+  stamp(id, buf, cursor, cap);
+}
+
+extern "C" __global__ void pps_timer_probe(unsigned long long* out, int reads) {
+  for (int i = 0; i < reads; ++i) out[i] = global_timer();
+}
+
 namespace {
+
+cudaError_t count_nodes(cudaGraph_t g, long long* counts) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return err;
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(g, nodes.data(), &n);
+  if (err != cudaSuccess) return err;
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    if (err != cudaSuccess) return err;
+    if (type == cudaGraphNodeTypeKernel) {
+      counts[0] += 1;
+    } else if (type == cudaGraphNodeTypeMemcpy) {
+      counts[1] += 1;
+    } else if (type == cudaGraphNodeTypeMemset) {
+      counts[2] += 1;
+    } else if (type == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err != cudaSuccess) return err;
+      err = count_nodes(child, counts);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
 
 cudaError_t add_guard(cudaGraph_t graph, const cudaGraphNode_t* deps, size_t ndeps,
                       cudaGraphConditionalHandle handle, const bool* go,
@@ -189,6 +264,31 @@ int pps_graph_add_guard(void* graph, void* dep, unsigned long long handle, const
   cudaGraphNode_t d = static_cast<cudaGraphNode_t>(dep);
   return add_guard(static_cast<cudaGraph_t>(graph), d ? &d : nullptr, d ? 1 : 0, handle, go,
                    runs, reinterpret_cast<cudaGraphNode_t*>(node));
+}
+
+// A stamp (``clock``: the clock stamp) on ``stream``, eager or captured.
+// cudaLaunchKernel returns this launch's own error, not one an earlier call
+// left behind.
+int pps_stamp_launch(unsigned long long id, unsigned long long* buf,
+                     unsigned long long* cursor, unsigned long long cap, int clock,
+                     void* stream) {
+  void* args[] = {&id, &buf, &cursor, &cap};
+  const void* fn = clock ? reinterpret_cast<const void*>(pps_stamp_clock)
+                         : reinterpret_cast<const void*>(pps_stamp);
+  return cudaLaunchKernel(fn, dim3(1), dim3(1), args, 0, static_cast<cudaStream_t>(stream));
+}
+
+// ``reads`` back-to-back reads of the timer into ``out`` on ``stream``.
+int pps_timer_probe_launch(unsigned long long* out, int reads, void* stream) {
+  void* args[] = {&out, &reads};
+  return cudaLaunchKernel(reinterpret_cast<const void*>(pps_timer_probe), dim3(1), dim3(1),
+                          args, 0, static_cast<cudaStream_t>(stream));
+}
+
+// The kernel, memcpy and memset nodes of ``graph`` and of the child graphs
+// it holds, added to ``counts[0..2]``.
+int pps_graph_count_nodes(void* graph, long long* counts) {
+  return count_nodes(static_cast<cudaGraph_t>(graph), counts);
 }
 
 int pps_graph_instantiate(void* graph, void** exec) {

@@ -33,6 +33,8 @@ import numpy as np
 
 from . import geometry as geo
 from .geometry import Tree
+from .utils import profiling
+from .utils.profiling import span
 
 NBR_NONE = 0
 NBR_NORMAL = 1
@@ -280,6 +282,7 @@ class DomainHierarchy:
     children), and every level is padded with isolated dummy patches to a
     multiple of ``num_shards`` (``parallel.sharding.pad_level``)."""
 
+    @profiling.spanned("pps.domain.hierarchy", device=False)
     def __init__(self, tree: Tree, n: int, neumann=False, use_native: bool = True,
                  num_shards: int = 1, partition: str = "morton"):
         if partition != "morton":
@@ -305,11 +308,13 @@ class DomainHierarchy:
             if native is None:
                 pl, tables = extract_level(tree, lvl, n, nm), None
             elif isinstance(nm, bool):
-                pl, tables = native.build_level_native(tree, lvl, n, nm)
+                with span("pps.domain.native_tables", device=False):
+                    pl, tables = native.build_level_native(tree, lvl, n, nm)
             else:
                 # per-side spec: the native builder takes one flag, and the
                 # interface tables do not depend on the walls: post-fix them
-                pl, tables = native.build_level_native(tree, lvl, n, False)
+                with span("pps.domain.native_tables", device=False):
+                    pl, tables = native.build_level_native(tree, lvl, n, False)
                 pl.neumann = (pl.nbr_type == NBR_NONE) & nm[None, :]
             if num_shards > 1:
                 pl, tables = _shard_level(pl, tables, num_shards)

@@ -40,6 +40,8 @@ import torch
 
 from .domain import DomainHierarchy, parent_slots
 from .ops.level_ops import ActiveSmoother, Level, axis_matmul, kron_max_n, np_dtype
+from .utils import profiling
+from .utils.profiling import span
 
 
 @dataclass
@@ -144,6 +146,7 @@ class Transfer:
     cell-centered bi/trilinear prolongation (reference ``GMG::TriLinIntp``).
     """
 
+    @profiling.spanned("pps.gmg.transfer", device=False)
     def __init__(self, fine: Level, coarse: Level, prolong_mode: str = "constant"):
         if prolong_mode not in ("constant", "linear"):
             raise ValueError(f"prolong_mode={prolong_mode!r}: 'constant' or 'linear'")
@@ -314,7 +317,13 @@ def _fac_active_mask(transfer: Transfer, ring: int):
 class GMGCycle:
     """A V- or W-cycle over a level hierarchy, applied as ``u = M f``
     (``GMG/Cycle.h:34-127``): the input is a residual-style RHS; the
-    initial guess is zero on every level."""
+    initial guess is zero on every level.
+
+    Spans (``utils.profiling``): ``pps.gmg.vcycle`` (a cycle, V or W), per
+    level ``k`` ``pps.gmg.L{k}.smooth`` (the sweeps before, between or after
+    the coarse visits),
+    ``.residual``, ``.restrict`` and ``.prolong``, ``pps.gmg.coarse`` (the
+    coarsest level's solve), and at set-up ``pps.gmg.coarse_inverse``."""
 
     def __init__(self, levels: List[Level], transfers: List[Transfer], opts: CycleOpts):
         assert len(transfers) == len(levels) - 1
@@ -349,6 +358,7 @@ class GMGCycle:
                 self._aapply[k] = levels[k].active_smoother(
                     _expand_ring(levels[k].pl, mask, 1), build_solver=False)
 
+    @profiling.spanned("pps.gmg.coarse_inverse", device=False)
     def _build_coarse_direct(self) -> None:
         from .matrix import assemble_composite
 
@@ -363,7 +373,8 @@ class GMGCycle:
             Ainv.astype(np_dtype(lvl.dtype)), device=lvl.device)
 
     def apply(self, f: torch.Tensor) -> torch.Tensor:
-        return self._visit(0, f)
+        with span("pps.gmg.vcycle"):
+            return self._visit(0, f)
 
     def _pre(self, k: int) -> int:
         if k == 0 or self.opts.coarse_pre_sweeps <= 0:
@@ -374,36 +385,25 @@ class GMGCycle:
         lvl = self.levels[k]
         opts = self.opts
         if k == len(self.levels) - 1:
-            if self._coarse_inv is not None:
-                fg = lvl.gather(f)
-                sol = torch.mv(self._coarse_inv.to(f.dtype), fg.reshape(-1))
-                return lvl.local_rows(sol.reshape(fg.shape))
-            if opts.coarse_sweeps <= 0:
-                return torch.zeros_like(f)
-            u = lvl.smooth_zero(f)
-            for _ in range(opts.coarse_sweeps - 1):
-                u = lvl.smooth(f, u)
-            return u
-        pre = self._pre(k)
-        if pre <= 0 or self._skip[k]:
-            u = torch.zeros_like(f)
-        else:
-            if self._asmooth[k] is not None:
-                u = self._asmooth[k].smooth_zero(f)
-            else:
+            with span("pps.gmg.coarse"):
+                if self._coarse_inv is not None:
+                    fg = lvl.gather(f)
+                    sol = torch.mv(self._coarse_inv.to(f.dtype), fg.reshape(-1))
+                    return lvl.local_rows(sol.reshape(fg.shape))
+                if opts.coarse_sweeps <= 0:
+                    return torch.zeros_like(f)
                 u = lvl.smooth_zero(f)
-            for _ in range(pre - 1):
-                u = self._smooth(k, f, u)
+                for _ in range(opts.coarse_sweeps - 1):
+                    u = lvl.smooth(f, u)
+                return u
+        u = self._sweeps(k, f, None, self._pre(k))
         u = self._correct(k, f, u, first=True)
         if opts.cycle_type == "W":
             # the second coarse visit (GMG/WCycle.h:30-83), after the mid
             # sweeps; level k is visited 2^k times per cycle
-            for _ in range(opts.mid_sweeps):
-                u = self._smooth(k, f, u)
+            u = self._sweeps(k, f, u, opts.mid_sweeps)
             u = self._correct(k, f, u, first=False)
-        for _ in range(opts.post_sweeps):
-            u = self._smooth(k, f, u)
-        return u
+        return self._sweeps(k, f, u, opts.post_sweeps)
 
     def _residual(self, k: int, f, u, first: bool):
         """``f - A u`` on level ``k``; on the first pass of a level visit
@@ -411,26 +411,35 @@ class GMGCycle:
         nbr(active) only (or is ``f`` exactly when nothing was relaxed)."""
         if first and (self._skip[k] or self._pre(k) <= 0):
             return f  # u = 0: nothing was relaxed on this level yet
-        if first and self._aapply[k] is not None:
-            return f - self._aapply[k].apply_scattered(u)
-        return f - self.levels[k].apply(u)
+        with span(f"pps.gmg.L{k}.residual"):
+            if first and self._aapply[k] is not None:
+                return f - self._aapply[k].apply_scattered(u)
+            return f - self.levels[k].apply(u)
 
     def _correct(self, k: int, f, u, first: bool):
         """One coarse-grid correction: restrict the residual, visit the
         coarser level, prolong the correction back (``GMG/Cycle.h:56-80``)."""
         r = self._residual(k, f, u, first)
-        fc = self.transfers[k].restrict(r)
+        with span(f"pps.gmg.L{k}.restrict"):
+            fc = self.transfers[k].restrict(r)
         uc = self._visit(k + 1, fc)
-        return self.transfers[k].prolong_add(uc, u)
+        with span(f"pps.gmg.L{k}.prolong"):
+            return self.transfers[k].prolong_add(uc, u)
 
-    def _smooth(self, k: int, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        """One block-Jacobi sweep on level ``k``; under FAC active-set
-        smoothing only the active patches are updated."""
-        if self._asmooth[k] is not None:
-            return self._asmooth[k].smooth(f, u)
-        if self._skip[k]:
-            return u
-        return self.levels[k].smooth(f, u)
+    def _sweeps(self, k: int, f: torch.Tensor, u: Optional[torch.Tensor],
+                sweeps: int) -> torch.Tensor:
+        """``sweeps`` block-Jacobi sweeps on level ``k`` from ``u`` (from zero
+        with ``u`` None), in one span; under FAC active-set smoothing only
+        the active patches are updated."""
+        if sweeps <= 0 or self._skip[k]:
+            return torch.zeros_like(f) if u is None else u
+        smoother = self.levels[k] if self._asmooth[k] is None else self._asmooth[k]
+        with span(f"pps.gmg.L{k}.smooth"):
+            if u is None:
+                u, sweeps = smoother.smooth_zero(f), sweeps - 1
+            for _ in range(sweeps):
+                u = smoother.smooth(f, u)
+        return u
 
 
 def build_gmg(

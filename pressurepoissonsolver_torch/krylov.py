@@ -40,6 +40,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .utils.profiling import span
+
 Op = Callable[[torch.Tensor], torch.Tensor]
 #: a reduction hook: the sum of a rank-local partial over the solver's
 #: process group (``parallel.sharding.Comm.all_reduce``); ``None`` on one
@@ -54,6 +56,20 @@ def _dot(a: torch.Tensor, b: torch.Tensor, allreduce: Reduce = None) -> torch.Te
 
 def _norm(a: torch.Tensor, allreduce: Reduce = None) -> torch.Tensor:
     return torch.sqrt(_dot(a, a, allreduce))
+
+
+def _precond(M: Optional[Op], x: torch.Tensor) -> torch.Tensor:
+    """``M(x)`` in the span ``pps.krylov.precond`` (``x`` without ``M``)."""
+    if M is None:
+        return x
+    with span("pps.krylov.precond"):
+        return M(x)
+
+
+def _operator(A: Op, x: torch.Tensor) -> torch.Tensor:
+    """``A(x)`` in the span ``pps.krylov.operator``."""
+    with span("pps.krylov.operator"):
+        return A(x)
 
 
 def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -244,7 +260,7 @@ def bicgstab_init(A: Op, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     if x0 is None:
         x, r = torch.zeros_like(b), b  # b - A(0) = b
     else:
-        x, r = x0, b - A(x0)
+        x, r = x0, b - _operator(A, x0)
     return (BiCGStabState(x=x, r=r, p=r, rho=_dot(r, r, allreduce), rhat=r),
             _norm(r, allreduce))
 
@@ -253,12 +269,12 @@ def bicgstab_step(A: Op, M: Optional[Op], st: BiCGStabState,
                   allreduce: Reduce = None) -> BiCGStabState:
     """One BiCGStab iteration; launches device work only (no host read)."""
     x, r, p, rho, rhat = st
-    mp = p if M is None else M(p)
-    ap = A(mp)
+    mp = _precond(M, p)
+    ap = _operator(A, mp)
     alpha = _safe_div(rho, _dot(rhat, ap, allreduce))
     s = r - alpha * ap
-    ms = s if M is None else M(s)
-    as_ = A(ms)
+    ms = _precond(M, s)
+    as_ = _operator(A, ms)
     omega = _safe_div(_dot(as_, s, allreduce), _dot(as_, as_, allreduce))
     x = x + alpha * mp + omega * ms
     r = r - alpha * ap - omega * as_
@@ -419,11 +435,11 @@ def cg_loop(A: Op, M: Optional[Op] = None, weight: Optional[torch.Tensor] = None
         if x0 is None:
             x, r = torch.zeros_like(b), b  # b - A(0) = b
         else:
-            x, r = x0, b - A(x0)
+            x, r = x0, b - _operator(A, x0)
         r0 = wdot(r, r)
         tol_t = _scalar(tol, b)
         thr = tol_t * tol_t
-        z = r if M is None else M(r)
+        z = _precond(M, r)
         rz = wdot(r, z)
         max_iter, k = _count(b, max_iter), _count(b)
         return _CG(x, r, z, rz, r0, thr, max_iter, k,
@@ -431,11 +447,11 @@ def cg_loop(A: Op, M: Optional[Op] = None, weight: Optional[torch.Tensor] = None
 
     def step(s):
         x, r, p, rz = s[:4]
-        ap = A(p)
+        ap = _operator(A, p)
         alpha = rz / wdot(p, ap)
         x = x + alpha * p
         r = r - alpha * ap
-        z = r if M is None else M(r)
+        z = _precond(M, r)
         rz_new = wdot(r, z)
         p = z + (rz_new / rz) * p
         k = s.k + 1
@@ -498,7 +514,7 @@ def cg_history_loop(A: Op, M: Optional[Op] = None, weight: Optional[torch.Tensor
         wdot = _weighted_dot(weight, b.dtype, allreduce)
         x, r = torch.zeros_like(b), b  # b - A(0) = b
         r0_norm = torch.sqrt(wdot(r, r))
-        z = r if M is None else M(r)
+        z = _precond(M, r)
         tol, max_iter, k = _scalar(tol, b), _count(b, max_iter), _count(b)
         hist = torch.where(_slots(slots, b) == 0, r0_norm, b.new_zeros(slots))
         return _CGHistory(x, r, z, wdot(r, z), r0_norm, tol, max_iter, k, k < max_iter,
@@ -507,11 +523,11 @@ def cg_history_loop(A: Op, M: Optional[Op] = None, weight: Optional[torch.Tensor
     def step(s):
         wdot = _weighted_dot(weight, s.x.dtype, allreduce)
         x, r, p, rz = s[:4]
-        ap = A(p)
+        ap = _operator(A, p)
         alpha = _safe_div(rz, wdot(p, ap))
         x = x + alpha * p
         r = r - alpha * ap
-        z = r if M is None else M(r)
+        z = _precond(M, r)
         rz_new = wdot(r, z)
         p = z + _safe_div(rz_new, rz) * p
         k = s.k + 1
@@ -566,15 +582,15 @@ def richardson_loop(A: Op, M: Optional[Op] = None, allreduce: Reduce = None) -> 
         if x0 is None:
             x, r = torch.zeros_like(b), b
         else:
-            x, r = x0, b - A(x0)
+            x, r = x0, b - _operator(A, x0)
         r0_norm = _norm(r, allreduce)
         tol, max_iter, k = _scalar(tol, b), _count(b, max_iter), _count(b)
         return _Richardson(x, r, b, r0_norm, tol, max_iter, k,
                            _guard(k, max_iter, _norm(r, allreduce) / r0_norm, tol))
 
     def step(s):
-        x = s.x + (s.r if M is None else M(s.r))
-        r = s.b - A(x)
+        x = s.x + _precond(M, s.r)
+        r = s.b - _operator(A, x)
         k = s.k + 1
         return _Richardson(x, r, s.b, s.r0_norm, s.tol, s.max_iter, k,
                            _guard(k, s.max_iter, _norm(r, allreduce) / s.r0_norm,
@@ -665,10 +681,10 @@ def gmres_loop(A: Op, M: Optional[Op] = None, restart: int = 30,
         return t if allreduce is None else allreduce(t)
 
     def Af(v):
-        return A(v.reshape(ws["shape"])).reshape(-1)
+        return _operator(A, v.reshape(ws["shape"])).reshape(-1)
 
     def Mf(v):
-        return v if M is None else M(v.reshape(ws["shape"])).reshape(-1)
+        return v if M is None else _precond(M, v.reshape(ws["shape"])).reshape(-1)
 
     def pos(n, like):
         return torch.arange(n, device=like.device)

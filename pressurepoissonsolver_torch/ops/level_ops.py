@@ -40,6 +40,7 @@ import torch
 from .. import iface as iface_mod
 from ..domain import PatchLevel
 from ..matrix import _dense_case_templates
+from ..utils import profiling
 from . import transforms as tr
 from .ghost_stencil import ghost_stencil, ghost_stencil_3d
 from .patch_bcgs import PatchBicgstab
@@ -426,6 +427,7 @@ def _build_contrib_pipeline(
 class Level:
     """Device tables + core ops for one 2D or 3D refinement level."""
 
+    @profiling.spanned("pps.level.build", device=False)
     def __init__(self, patch_level: PatchLevel, dtype: torch.dtype = torch.float64,
                  *, device="cuda", iface_scheme: str = "bilinear",
                  patch_solver: str = "dft"):

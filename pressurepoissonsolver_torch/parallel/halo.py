@@ -35,8 +35,9 @@ kernel's no-gf mode on its rows while the exchange is in flight, then
 finishes the exchange and adds the face term (the reference gets the same
 schedule from an ``optimization_barrier`` between the exchange-independent
 base and the face correction).  The spans ``pps.halo.exchange_start`` and
-``pps.halo.exchange_finish`` mark the two ends of the exchange in a
-``torch.profiler`` trace.
+``pps.halo.exchange_finish`` (``utils.profiling.span``, host spans) mark the
+two ends of the exchange in a ``torch.profiler`` trace taken with spans on
+(``profiling.trace``, or ``profiling.enable()``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,6 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..domain import parent_slots
 from ..gmg import kron_to
@@ -53,6 +53,7 @@ from ..ops.ghost_stencil import add_ghost_faces
 from ..ops.level_ops import (_STENCIL, Level, _build_contrib_pipeline,
                              _build_solver_tables, _fold_faces_flat,
                              _spectral_apply, extract_faces, np_dtype)
+from ..utils.profiling import span
 from .rank_block import RankBlock
 from .sharding import Comm
 
@@ -398,10 +399,10 @@ class ShardedLevel(RankBlock):
             mix_scaled, _ = self._gf_direct_parts(u)
             return _STENCIL[self.D](u, mix_scaled, coef, h2)
         faces = extract_faces(u, self.D, self.n, self.face_depth)
-        with record_function("pps.halo.exchange_start"):
+        with span("pps.halo.exchange_start", device=False):
             started = self.exchange.start(faces.reshape(-1, self.m))
         out = _STENCIL[self.D](u, None, coef, h2)
-        with record_function("pps.halo.exchange_finish"):
+        with span("pps.halo.exchange_finish", device=False):
             buf = self.exchange.finish(started)
         return add_ghost_faces(out, self._mix_scaled(buf), h2)
 

@@ -30,9 +30,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..domain import PatchLevel
+from ..utils.profiling import span
 
 #: the mesh's one axis: patches
 AXIS = "p"
@@ -185,7 +185,7 @@ class Comm:
     def exchange_finish(self, pending: _Pending) -> torch.Tensor:
         """Wait for an exchange :meth:`exchange_start` posted; the received
         tensor, on the sender's device, ready for the current stream."""
-        with record_function("pps.halo.exchange_wait"):
+        with span("pps.halo.exchange_wait", device=False):
             for req in pending.reqs:
                 req.wait()
         if not self.host_staged:

@@ -71,7 +71,9 @@ from .krylov import (KrylovLoop, KrylovResult, While, _go, _norm, bicgstab_loop,
 from .matrix import schur_block_jacobi
 from .ops.level_ops import Level
 from .precond import poly_cheb, schwarz
+from .utils import profiling
 from .utils.graphs import CapturedLoop, GraphLoop
+from .utils.profiling import span
 
 # the restart length of every GMRES solve (the reference's gmres default)
 GMRES_RESTART = 30
@@ -105,6 +107,12 @@ class SolveOptions:
     comm: str = "auto"
 
 
+def _stamped() -> tuple:
+    """The suffix of a ``_captured`` key under ``profiling.device_spans``:
+    a graph captured with device stamps is never the timed one."""
+    return ("stamped",) if profiling.device_spans_on() else ()
+
+
 class PoissonSolver:
     """Composite-grid Poisson solver over a domain hierarchy, on ``device``
     (the CUDA card unless the caller asks for another).
@@ -118,6 +126,7 @@ class PoissonSolver:
     rank's block.  ``fine_level`` is then the global level on the host,
     whose tables the rank's engine took its rows from."""
 
+    @profiling.spanned("pps.solver.init", device=False)
     def __init__(
         self,
         hierarchy: DomainHierarchy,
@@ -258,6 +267,7 @@ class PoissonSolver:
             if finish is None:
                 return res
             return res, finish(b, res[0] if _has_history(res) else res)
+        key += _stamped()
         if key not in self._captured:
             self._captured[key] = CapturedLoop(make(), b, tol, max_iter, prepare, finish)
         return self._captured[key].run(b, tol, max_iter, one=self._graphs is True)
@@ -322,6 +332,7 @@ class PoissonSolver:
         key = ("matrix", kind, method)
         if self._matrix_ops.get(key) is not A:
             self._captured.pop(key, None)
+            self._captured.pop(key + ("stamped",), None)
             self._matrix_ops[key] = A
 
         def make():
@@ -386,6 +397,7 @@ class PoissonSolver:
         rel = np.asarray(hist) / (r0 if r0 > 0 else 1.0)
         return u, res, rel[: res.iterations + 1]
 
+    @profiling.spanned("pps.solver.solve_refined", solve=True)
     def solve_refined(
         self,
         f,
@@ -408,7 +420,10 @@ class PoissonSolver:
         (``outer_history`` 1-d, ``max_outer + 1`` slots, 1 where no round
         wrote) and no host read.  Elsewhere the rounds run on the host with
         the same rules, reading the relative residual once per round (the
-        plain version), and ``sync=False`` gives the same tensors.
+        plain version), and ``sync=False`` gives the same tensors.  The call
+        is the span ``pps.solver.solve_refined``, one solve; under
+        ``profiling.device_spans`` its graph is captured with stamps, under
+        its own key.
 
         The inner operator is the cycle's finest level when it has the
         preconditioner dtype, else a bilinear level of that dtype: with the
@@ -441,7 +456,7 @@ class PoissonSolver:
 
         f = self._as_field(f)
         if self._graphs:
-            key = ("refined", inner)
+            key = ("refined", inner) + _stamped()
             entry = self._captured.get(key)
             if entry is None or entry.slots < max_outer + 1:
                 entry = self._captured[key] = _RefineGraph(
@@ -679,26 +694,27 @@ class _RefineGraph:
             return s._replace(inner=inner.step(s.inner))
 
         def end(s):
-            x = s.inner.x
-            e = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
-            u_new = s.u + e.to(s.u.dtype)
-            r = self.f - apply64(u_new)
-            rel_new = _norm(r, red) / s.fnorm
-            breakdown = ~torch.isfinite(rel_new)
-            improved = rel_new < s.best_rel
-            k = s.k + 1
-            stagnated = ((k > 3) & (rel_new > 0.5 * s.best_rel)
-                         & (rel_new > 10 * self.tol))
-            stop = breakdown | (rel_new <= self.tol) | stagnated | (k >= self.max_outer)
-            # on breakdown, fall back to the best iterate so far
-            rel = torch.where(breakdown, s.best_rel, rel_new)
-            at = torch.arange(slots, device=dev) == k
-            return s._replace(
-                u=torch.where(breakdown, s.best_u, u_new), r=r,
-                best_u=torch.where(improved, u_new, s.best_u),
-                best_rel=torch.where(improved, rel_new, s.best_rel), rel=rel, k=k,
-                inner_total=s.inner_total + s.inner.k, go=~stop,
-                hist=torch.where(at, rel, s.hist))
+            with span("pps.solver.round_end"):
+                x = s.inner.x
+                e = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+                u_new = s.u + e.to(s.u.dtype)
+                r = self.f - apply64(u_new)
+                rel_new = _norm(r, red) / s.fnorm
+                breakdown = ~torch.isfinite(rel_new)
+                improved = rel_new < s.best_rel
+                k = s.k + 1
+                stagnated = ((k > 3) & (rel_new > 0.5 * s.best_rel)
+                             & (rel_new > 10 * self.tol))
+                stop = breakdown | (rel_new <= self.tol) | stagnated | (k >= self.max_outer)
+                # on breakdown, fall back to the best iterate so far
+                rel = torch.where(breakdown, s.best_rel, rel_new)
+                at = torch.arange(slots, device=dev) == k
+                return s._replace(
+                    u=torch.where(breakdown, s.best_u, u_new), r=r,
+                    best_u=torch.where(improved, u_new, s.best_u),
+                    best_rel=torch.where(improved, rel_new, s.best_rel), rel=rel, k=k,
+                    inner_total=s.inner_total + s.inner.k, go=~stop,
+                    hist=torch.where(at, rel, s.hist))
 
         def template():
             s = init(self.f)

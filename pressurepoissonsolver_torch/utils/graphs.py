@@ -35,8 +35,21 @@ count their launches on the host, where a graph does not pass: the
 launches of each piece are recorded at capture and added per replay, or,
 after a graph launch, times the passes the launch made (read with the
 results, or later by ``ghost_stencil.counters()``).  ``launches`` counts
-the guard kernel's runs, the WHILE-node passes and the graph launches;
-``inner`` the passes and runs of the loops inside pieces, in every mode.
+the guard kernel's runs, the WHILE-node passes and the graph launches,
+and ``nodes`` the device nodes that ran (each piece's kernel, memcpy and
+memset nodes, counted at its capture with :func:`count_nodes`, times its
+passes; in a launch also the guard kernels and the memset that zeroes the
+pass counters); ``inner`` the passes and runs of the loops inside pieces,
+in every mode.
+
+Each captured piece is the device span ``pps.graphs.piece.<label>``
+(``utils.profiling``; the label is the piece function's name, ``.1``,
+``.2``, ... on the parts after a cut), stamped as its first and last node
+when it is captured under ``profiling.device_spans``: the gaps between two
+pieces are then the WHILE guards and the child-graph transitions.  The
+host spans ``pps.graphs.capture`` (a program's pieces captured),
+``pps.graphs.build`` (composed and instantiated), ``pps.graphs.launch``
+and ``pps.graphs.replay`` time the set-up and the runs on the host.
 """
 
 from __future__ import annotations
@@ -55,11 +68,13 @@ from .. import cuda_build
 from ..krylov import (KrylovLoop, KrylovResult, While, _scalar, host_read, program,
                       read_flag)
 from ..ops import ghost_stencil
+from . import profiling
+from .profiling import span
 
 #: ``guard``: runs of the guard kernel (one ahead of each entry of a WHILE
 #: node, one per pass); ``passes``: WHILE-node passes; ``graph``: graph
-#: launches of whole solves
-launches = {"guard": 0, "passes": 0, "graph": 0}
+#: launches of whole solves; ``nodes``: device nodes run (module docstring)
+launches = {"guard": 0, "passes": 0, "graph": 0, "nodes": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -89,6 +104,10 @@ def build() -> ctypes.CDLL:
             "pps_graph_destroy": [vp, vp],
             "pps_graph_driver_version": [ctypes.POINTER(ctypes.c_int)],
             "pps_graph_runtime_version": [ctypes.POINTER(ctypes.c_int)],
+            "pps_graph_count_nodes": [vp, vp],
+            "pps_stamp_launch": [ctypes.c_ulonglong, vp, vp, ctypes.c_ulonglong,
+                                 ctypes.c_int, vp],
+            "pps_timer_probe_launch": [vp, ctypes.c_int, vp],
         }
         for name, args in sig.items():
             fn = getattr(lib, name)
@@ -116,14 +135,38 @@ def cuda_versions() -> tuple:
     return d.value, r.value
 
 
+def count_nodes(graph) -> int:
+    """The device nodes of a captured graph: its kernel, memcpy and memset
+    nodes, those of its child graphs included, read through the CUDA
+    driver; a graph that is not a ``torch.cuda.CUDAGraph`` (an emulation's)
+    gives its own ``nodes``, else 0."""
+    if not isinstance(graph, torch.cuda.CUDAGraph):
+        return int(getattr(graph, "nodes", 0))
+    counts = (ctypes.c_longlong * 3)()
+    _call("pps_graph_count_nodes", graph.raw_cuda_graph(), counts)
+    return sum(counts)
+
+
 def _minus(after: list, before: list) -> list:
     """The launches between two ``ghost_stencil.counters()``."""
     return [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
 
 
-# set while a capture's warm-up call runs (``warming``), and while a piece
-# is captured, the function that cuts it at a loop that runs inside it
-_capture_state = {"warming": 0, "cut": None}
+# set while a capture's warm-up call runs (``warming``), while a piece is
+# captured, the function that cuts it at a loop that runs inside it, and the
+# label of the pieces captured now
+_capture_state = {"warming": 0, "cut": None, "label": "piece"}
+
+
+@contextlib.contextmanager
+def labelled(label: str):
+    """The pieces captured in the block are the spans
+    ``pps.graphs.piece.<label>``."""
+    prev, _capture_state["label"] = _capture_state["label"], label
+    try:
+        yield
+    finally:
+        _capture_state["label"] = prev
 
 
 def warming() -> bool:
@@ -186,13 +229,18 @@ def capture(fn, device: torch.device):
         items: list = []
         pool = torch.cuda.graph_pool_handle()
         open_ = {}
+        label = "pps.graphs.piece." + _capture_state["label"]
 
         def begin():
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             open_["graph"], open_["before"] = graph, ghost_stencil.counters()
             graph.capture_begin(pool=pool)
+            part = len(items) // 2  # a piece and a loop per cut
+            open_["span"] = span(f"{label}.{part}" if part else label)
+            open_["span"].__enter__()
 
         def end():
+            open_["span"].__exit__(None, None, None)
             open_["graph"].capture_end()
             items.append(_Piece(open_["graph"],
                                 _minus(ghost_stencil.counters(), open_["before"])))
@@ -219,7 +267,10 @@ def capture(fn, device: torch.device):
                 try:
                     fn()
                 except BaseException:
-                    # end the capture the failure left open, then raise
+                    # end the span and the capture the failure left open,
+                    # then raise
+                    with contextlib.suppress(RuntimeError):
+                        open_["span"].__exit__(None, None, None)
                     with contextlib.suppress(RuntimeError):
                         open_["graph"].capture_end()
                     raise
@@ -233,7 +284,7 @@ def capture(fn, device: torch.device):
             piece.graph.instantiate()
         torch.cuda.synchronize()
     if len(items) == 1:
-        return items[0]
+        return items[0].graph, items[0].launches
     total = [{} for _ in pieces[0].launches]
     for piece in pieces:
         for acc, d in zip(total, piece.launches):
@@ -263,6 +314,7 @@ def _write(dst, src) -> None:
 class _Piece(NamedTuple):
     graph: object  # the captured torch.cuda.CUDAGraph
     launches: list  # its stencil launches
+    nodes: int = 0  # its device nodes (count_nodes)
 
 
 class _Loop(NamedTuple):
@@ -308,8 +360,9 @@ class PieceLoop:
     def __init__(self, state, step: Callable, device: torch.device):
         self.state = _clone(state)
         self.go = self.state.go
-        self.graph, self.launches = capture(lambda: _write(self.state, step(self.state)),
-                                            device)
+        with labelled("patch_pass"):
+            self.graph, self.launches = capture(
+                lambda: _write(self.state, step(self.state)), device)
         self.largest = torch.zeros((), dtype=torch.int64, device=device)
         self._runs = torch.zeros(1, dtype=torch.int64, device=device)
         self._exec = None
@@ -389,6 +442,7 @@ class GraphLoop:
     ``build_s``: those of the composition and instantiation, at the first
     :meth:`launch`."""
 
+    @profiling.spanned("pps.graphs.capture", device=False)
     def __init__(self, inputs: tuple, init: Callable, body: tuple, template: Callable,
                  step: Callable, device: torch.device):
         t0 = time.perf_counter()
@@ -402,10 +456,10 @@ class GraphLoop:
         self.inner: list = []
         self.loop_slots: list = []
         self.pieces: dict = {}
-        self.tree = self._capture(lambda _: init(*self.inputs))
+        self.tree = self._capture(lambda _: init(*self.inputs), "init")
         self.init = self.tree[0]
         self.tree += self._capture_body(body)
-        self.graph, self.launches = self.pieces[step]
+        self.graph, self.launches = self.pieces[step][:2]
         self.piece_loops = list({id(pl): pl for _, pl in self.inner}.values())
         self.runs = torch.zeros(len(self.whiles), dtype=torch.int64, device=self.device)
         ghost_stencil.add_launches(_minus(ghost_stencil.counters(), before), -1)
@@ -418,20 +472,26 @@ class GraphLoop:
         self.bodies: dict = {}
         self.loop_nodes: dict = {}
 
-    def _capture(self, fn: Callable) -> list:
-        """``fn`` captured: its part of the tree (one piece, or the parts
-        and loops of a cut piece)."""
-        graph, launched = capture(lambda: _write(self.state, fn(self.state)), self.device)
-        self.pieces[fn] = _Piece(graph, launched)
+    def _capture(self, fn: Callable, label: str) -> list:
+        """``fn`` captured (its pieces labelled ``label``): its part of the
+        tree (one piece, or the parts and loops of a cut piece)."""
+        with labelled(label):
+            graph, launched = capture(lambda: _write(self.state, fn(self.state)),
+                                      self.device)
         if not isinstance(graph, list):
-            return [_Piece(graph, launched)]
+            self.pieces[fn] = piece = _Piece(graph, launched, count_nodes(graph))
+            return [piece]
+        self.pieces[fn] = _Piece(graph, launched)
         tree = []
         for item in graph:
             if isinstance(item, PieceLoop):
-                loop = _Loop(len(self.whiles), item.go, [_Piece(item.graph, item.launches)])
+                loop = _Loop(len(self.whiles), item.go,
+                             [_Piece(item.graph, item.launches, count_nodes(item.graph))])
                 self.whiles.append(loop)
                 self.inner.append((loop.index, item))
                 item = loop
+            else:
+                item = item._replace(nodes=count_nodes(item.graph))
             tree.append(item)
         return tree
 
@@ -444,7 +504,7 @@ class GraphLoop:
                 self.loop_slots.append(index)
                 tree.append(_Loop(index, item.guard(self.state), self._capture_body(item.body)))
             else:
-                tree += self._capture(item)
+                tree += self._capture(item, getattr(item, "__name__", "piece"))
         return tree
 
     # -- a run ----------------------------------------------------------------
@@ -510,15 +570,17 @@ class GraphLoop:
 
     def replay(self) -> list:
         """One run piece by piece: each piece's graph replayed (its
-        launches added per replay), each loop's guard read to the host
-        before every pass.  The passes per loop slot."""
+        launches and nodes added per replay), each loop's guard read to the
+        host before every pass.  The passes per loop slot."""
         runs = [0] * len(self.whiles)
-        self._replay_tree(self.tree, runs)
+        with span("pps.graphs.replay", device=False):
+            self._replay_tree(self.tree, runs)
         return runs
 
     def _replay_piece(self, piece: _Piece) -> None:
         piece.graph.replay()
         ghost_stencil.add_launches(piece.launches)
+        launches["nodes"] += piece.nodes
 
     def _replay_tree(self, tree: list, runs: list) -> None:
         for item in tree:
@@ -540,24 +602,29 @@ class GraphLoop:
             self._build()
         while _doomed:
             _lib.pps_graph_destroy(*_doomed.pop())
-        _call("pps_graph_launch", self._exec,
-              torch.cuda.current_stream(self.device).cuda_stream)
+        with span("pps.graphs.launch", device=False):
+            _call("pps_graph_launch", self._exec,
+                  torch.cuda.current_stream(self.device).cuda_stream)
         launches["graph"] += 1
 
     def account(self, runs) -> None:
-        """Add the stencil launches and guard runs of a launch that made
-        ``runs`` passes per loop slot (host integers), and the passes and
-        runs of the loops inside pieces."""
+        """Add the stencil launches, guard runs and device nodes of a launch
+        that made ``runs`` passes per loop slot (host integers), and the
+        passes and runs of the loops inside pieces."""
         def walk(tree, times):
             for item in tree:
                 if isinstance(item, _Loop):
                     n = int(runs[item.index])
                     launches["guard"] += times + n
+                    launches["nodes"] += times + n
                     launches["passes"] += n
                     walk(item.body, n)
                 else:
                     ghost_stencil.add_launches(item.launches, times)
+                    launches["nodes"] += item.nodes * times
 
+        if self.whiles:
+            launches["nodes"] += 1  # the memset that zeroes the pass counters
         walk(self.tree, 1)
         self._account_inner(self.tree, 1, runs)
 
@@ -586,6 +653,7 @@ class GraphLoop:
         walk(self.tree, "root")
         return out
 
+    @profiling.spanned("pps.graphs.build", device=False)
     def _build(self) -> None:
         t0 = time.perf_counter()
         build()

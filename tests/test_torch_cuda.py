@@ -619,7 +619,7 @@ def test_trace_and_op_report_on_card(cuda, tmp_path):
     lvl = Level(_hierarchy().finest, torch.float32, device=cuda)
     u = torch.randn((lvl.P, 8, 8), device=cuda)
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("pps_card_apply"):
+        with profiling.span("pps_card_apply"):
             lvl.apply(u)
     with open(tmp_path / "trace.json") as fh:
         events = json.load(fh)["traceEvents"]
@@ -1217,8 +1217,9 @@ def test_nested_while_nodes_count_as_the_plain_loop(cuda, n, m):
     """Two nested loops of counter pieces (``n`` rounds of ``m`` steps,
     both read from input buffers) as one graph launch against the plain
     version (each guard read on the host): the same state and passes,
-    zero passes where a guard is false after its init, and the guard
-    kernel run once ahead of each loop's entry and once per pass."""
+    zero passes where a guard is false after its init, the guard kernel
+    run once ahead of each loop's entry and once per pass, and the device
+    nodes that ran (``launches["nodes"]``)."""
     from pressurepoissonsolver_torch.krylov import While
     from pressurepoissonsolver_torch.utils import graphs
 
@@ -1252,7 +1253,16 @@ def test_nested_while_nodes_count_as_the_plain_loop(cuda, n, m):
     assert runs == runs_plain == [n, n * m]
     assert [int(t) for t in gl.state] == plain
     assert int(gl.state.k) == n and int(gl.state.total) == n * m
-    assert graphs.launches == {"guard": 1 + n + n + n * m, "passes": n + n * m, "graph": 1}
+    # the device nodes: each piece's per run, the guard kernels and the
+    # memset of the pass counters
+    init_p, outer = gl.tree
+    begin_p, inner, end_p = outer.body
+    (step_p,) = inner.body
+    nodes = (init_p.nodes + n * (begin_p.nodes + end_p.nodes) + n * m * step_p.nodes
+             + (1 + n + n + n * m) + 1)
+    assert graphs.launches == {"guard": 1 + n + n + n * m, "passes": n + n * m, "graph": 1,
+                               "nodes": nodes}
+    assert min(p.nodes for p in (init_p, begin_p, step_p, end_p)) > 0
 
 
 # --- loops inside captured pieces; the monitored and assembled-matrix solves --
@@ -1455,3 +1465,188 @@ def test_refinement_sync_false_with_bcgs_smoothing(cuda):
     assert int(info2["inner_iterations"]) == info1["inner_iterations"]
     assert torch.equal(u1, u2)
     assert gs.counters() == synced and dict(graphs.inner) == inner
+
+
+# --- spans: device stamps, graph nodes, the clock offset ----------------------
+
+def _stamped_refined(cuda):
+    """A small 2D ``solve_refined``: its one-launch answer, then the same
+    solve stamped (after the solve that captures the stamped graph) with its
+    device record and info."""
+    from pressurepoissonsolver_torch.utils import profiling
+
+    s, f, _ = _graph_solver(cuda, 2, precond_dtype=torch.float32)
+    u0, _ = _graph_run(s, f, "refined")
+    with profiling.device_spans(cuda):
+        _graph_run(s, f, "refined")
+    with profiling.device_spans(cuda) as rec:
+        u1, info = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    return s, f, u0, u1, info, rec
+
+
+def test_stamps_inside_while_bodies_count_passes_times_stamps_per_pass(cuda):
+    """A stamped one-launch solve is bit for bit the unstamped one; its
+    stamps inside the WHILE bodies number the passes times the stamps of a
+    pass: a V-cycle and an operator apply per preconditioned product, two
+    per inner iteration, a round's pieces per round."""
+    s, _, u0, u1, info, rec = _stamped_refined(cuda)
+    assert torch.equal(u0, u1) and rec.overflow == 0
+    assert sorted(s._captured) == [("refined", "bicgstab"), ("refined", "bicgstab", "stamped")]
+    sp = rec.spans()
+    names = [x.name for x in sp]
+    outer, inner = info["outer_iterations"], info["inner_iterations"]
+    assert names.count("pps.solver.solve_refined") == 1
+    assert names.count("pps.graphs.piece.step") == inner
+    assert names.count("pps.gmg.vcycle") == names.count("pps.krylov.operator") == 2 * inner
+    for piece in ("begin", "end"):
+        assert names.count(f"pps.graphs.piece.{piece}") == outer
+    assert names.count("pps.solver.round_end") == outer
+    levels = sum(x.name.startswith("pps.gmg.L") or x.name == "pps.gmg.coarse" for x in sp)
+    assert levels > 0 and levels % (2 * inner) == 0
+    assert len(rec.entries) == 2 * len(sp)  # no clock stamp without a profiler
+    for x in sp:
+        assert x.t0_ns <= x.t1_ns and x.self_ns >= 0
+
+
+def test_a_graph_captured_with_tracing_off_holds_no_stamp_node(cuda):
+    """Every piece of the graph ``solve_refined`` captures with tracing off
+    is free of stamp kernels; each piece of the stamped graph holds at least
+    its own two."""
+    from chip_smoke import graph_kernel_names
+
+    s, *_ = _stamped_refined(cuda)
+
+    def names(entry):
+        return [graph_kernel_names(p.graph) for p in entry.graphs.pieces.values()]
+
+    for kernels in names(s._captured[("refined", "bicgstab")]):
+        assert kernels and not any("pps_stamp" in k for k in kernels)
+    for kernels in names(s._captured[("refined", "bicgstab", "stamped")]):
+        assert kernels.count("pps_stamp") >= 2
+
+
+# A profiler session in a process that has run many (the card tests before
+# these) may record no kernel at all, or lose some records; the two tests
+# that read a trace record by record take theirs in a fresh process.
+_CLOCK_TRACE = """
+import json, sys, time
+import torch
+from torch.profiler import ProfilerActivity, profile
+from pressurepoissonsolver_torch.utils import profiling
+
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.device_spans("cuda") as rec:
+        for _ in range(4):
+            time.sleep(0.01)
+            rec.clock_ordinals.append(profiling.device_clock_offset())
+prof.export_chrome_trace(sys.argv[1])
+with open(sys.argv[1]) as fh:
+    events = json.load(fh)["traceEvents"]
+offsets = rec.clock_offsets(events)
+print(json.dumps({
+    "starts": sorted(e["ts"] for e in events if e.get("name") == profiling.CLOCK_KERNEL
+                     and str(e.get("cat", "")).lower() == "kernel"),
+    "mapped": [rec.trace_us(t, offsets) for t in rec.clocks()] if offsets else None,
+    "offsets": offsets}))
+"""
+
+_REPLAY_TRACE = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from pressurepoissonsolver_torch import krylov
+from pressurepoissonsolver_torch.domain import DomainHierarchy
+from pressurepoissonsolver_torch.geometry import refined_tree
+from pressurepoissonsolver_torch.gmg import CycleOpts
+from pressurepoissonsolver_torch.problems import get_problem, init_problem
+from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
+from pressurepoissonsolver_torch.utils import graphs, profiling
+
+h = DomainHierarchy(refined_tree(2, 4, 2), n=8)
+gmg = CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active", coarse_direct_max_dof=64)
+s = PoissonSolver(h, SolveOptions(tol=1e-10, gmg=gmg, precond_dtype=torch.float32),
+                  device="cuda")
+f = torch.as_tensor(init_problem(h.finest, get_problem("trig", 2))[0], device="cuda")
+
+def counted():
+    graphs.reset_launches()
+    reads = krylov.reads["host"]
+    s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    return dict(graphs.launches), krylov.reads["host"] - reads
+
+s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+one, _ = counted()
+s._graphs = "steps"
+steps, reads = counted()
+profiling.enable()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    torch.cuda.synchronize()
+prof.export_chrome_trace(sys.argv[1])
+with open(sys.argv[1]) as fh:
+    events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+(a, b), = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat") == "user_annotation" and e["name"] == "pps.graphs.replay"]
+launched = {e["args"]["correlation"]: e["ts"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "correlation" in e.get("args", {})}
+inside = [e["cat"] for e in events
+          if str(e.get("cat", "")).lower() in ("kernel", "gpu_memcpy", "gpu_memset")
+          and a <= launched.get(e.get("args", {}).get("correlation"), -1) <= b]
+print(json.dumps({"one": one, "steps": steps, "reads": reads, "inside": len(inside),
+                  "memcpy": inside.count("gpu_memcpy")}))
+"""
+
+
+def _fresh(code: str, tmp_path) -> dict:
+    """``code`` run in a fresh process on the card; the JSON it prints."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path / "trace.json")],
+                         cwd=root, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=root))
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    print(got)
+    return got
+
+
+def test_clock_offset_agrees_with_the_profiler_record(cuda, tmp_path):
+    """The offsets of the first and the last clock stamp (interpolated
+    between them: the two clocks drift by a few µs over tens of ms) map
+    each clock stamp's ``%globaltimer`` onto the exported trace's clock
+    within 5 µs of its own kernel record."""
+    got = _fresh(_CLOCK_TRACE, tmp_path)
+    assert len(got["starts"]) == 6 and got["mapped"] is not None
+    for mapped, ts in zip(got["mapped"], got["starts"]):
+        assert abs(mapped - ts) < 5.0
+
+
+def test_node_counter_matches_the_replay_trace(cuda, tmp_path):
+    """``launches["nodes"]`` of a one-launch solve is the device records of
+    the same solve replayed piece by piece inside ``GraphLoop.replay`` (each
+    piece's nodes, and a host read, one device-to-host copy, for each guard
+    kernel) and one more, the memset that zeroes the pass counters."""
+    got = _fresh(_REPLAY_TRACE, tmp_path)
+    one, steps = got["one"], got["steps"]
+    assert one["nodes"] == steps["nodes"] + one["guard"] + 1 and got["reads"] == one["guard"] + 1
+    assert got["inside"] == one["nodes"] - 1 and got["memcpy"] >= one["guard"]
+
+
+def test_stamp_clock_resolution(cuda):
+    """The stamps' clock ticks, with and without a profiler session; its
+    step is printed for the record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pressurepoissonsolver_torch.utils import profiling
+
+    bare = profiling.stamp_resolution_ns(cuda)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        traced = profiling.stamp_resolution_ns(cuda)
+    print("stamp resolution", bare, traced)
+    for r in (bare, traced):
+        assert 0 < r["min_step_ns"] <= 1100 and r["distinct"] > 1

@@ -1,5 +1,5 @@
 """The port's profiling layer on the CPU: ``utils.profiling`` (``time_op``,
-``op_report``, ``trace`` / ``annotate``, the memory-rate table) and
+``op_report``, ``trace`` / ``span``, the memory-rate table) and
 ``scripts/profile_ops.level_breakdown``, held to the reference's row names
 and byte counts.  Device times come only from the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
@@ -119,7 +119,7 @@ def test_trace_writes_a_file_with_the_annotation(tmp_path):
     u = torch.ones((lvl.P, 4, 4), dtype=torch.float64)
     logdir = str(tmp_path / "trace")
     with profiling.trace(logdir) as where:
-        with profiling.annotate("pps_apply_region"):
+        with profiling.span("pps_apply_region"):
             lvl.apply(u)
     assert where == logdir
     with open(tmp_path / "trace" / "trace.json") as fh:
