@@ -32,6 +32,9 @@ Phases, any failure of which raises and exits non-zero:
    at the bench size (timed), and the bench Schur solve
    (``solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")``) held
    to the reference and to the composite solve's solution, then profiled;
+   the block-Jacobi sweep kernel (``csrc/patch_sweep.cu``) against its
+   plain version at the benchmark's level shapes (``SWEEP_SHAPES``),
+   timed cold and warm against its bound (``sweep_kernels``);
 4. 3D: the same for the 3D kernel and the 3D FAC solve of
    ``scripts/bench3d.py`` with its defaults, on a generated mesh
    (``refined_tree(3, 3, 2)`` refined once, n=32, 624 patches, 20,447,232
@@ -159,7 +162,6 @@ Phases, any failure of which raises and exits non-zero:
    "device": {...}}``.
 """
 
-import concurrent.futures
 import contextlib
 import io
 import json
@@ -330,6 +332,10 @@ FACES_REPLACES = "pressurepoissonsolver_tpu/parallel/halo.py:626"
 # counterpart; it stands for the condition of the reference's lax.while_loop
 GUARD_SOURCE = "pressurepoissonsolver_torch/csrc/graph_loop.cu"
 GUARD_REPLACES = "pressurepoissonsolver_tpu/krylov.py:213"
+# the block-Jacobi sweep kernel: a kernel of the port with no Pallas
+# counterpart; it stands for the reference's sweep as XLA ops
+SWEEP_SOURCE = "pressurepoissonsolver_torch/csrc/patch_sweep.cu"
+SWEEP_REPLACES = "pressurepoissonsolver_tpu/ops/level_ops.py::_spectral_apply"
 # patch shapes (P, n) off the main path, checked against the plain version;
 # n=6 in f32 and n=1 take the kernels' one-element-per-thread path
 ODD_SHAPES = {2: [(37, 12), (37, 6), (3, 1)], 3: [(37, 6), (3, 1)]}
@@ -433,6 +439,130 @@ def check_kernels(torch, gs, timer, card, bw, D, shapes):
                            "bound_by": bound_by, "library_ms": None,
                            "vector_width": width}
     return table
+
+
+# (label, level slots, active slots or None, n) of the sweep kernel's
+# timed shapes: level 0 of the benchmark's 2D cells (divide 2 and 4) and
+# level 2 of the divide-4 cell (its FAC active set, 16 x the divide-2
+# level's 5,824 slots and 624 active); at f32, full Dirichlet-type slots
+SWEEP_SHAPES = [("2d-L0", 8320, None, 16), ("d4-L0", 133120, None, 16),
+                ("d4-L2-active", 93184, 9984, 16)]
+
+
+def sweep_bytes(P, Pa, n, itemsize, gf=True):
+    """Bytes one sweep must move: f of the solved slots, their gf, h2,
+    code and rows of lam, the base of the other slots and the slot map
+    (an active set), and u written once."""
+    Pa = P if Pa is None else Pa
+    cells = n * n
+    per_solved = (cells + (4 * n if gf else 0) + 2) * itemsize + 3 * 4
+    routed = 0 if Pa == P else (P - Pa) * cells * itemsize + 8 * P
+    return Pa * per_solved + routed + P * cells * itemsize
+
+
+def sweep_kernels(torch, timer, card, bw, shapes=SWEEP_SHAPES) -> dict:
+    """The sweep kernel against its plain version (the fold, the spectral
+    solves and the routing as PyTorch ops) at ``shapes``, f32, a full sweep
+    with faces (``Level.smooth``) and, for an active set, from a base
+    (``ActiveSmoother.smooth``): max |kernel - plain| within 1e-5 of
+    max|u|, the untouched slots bit for bit the base; device ms cold (the
+    inputs rotated over copies exceeding 4x the L2) and warm, kernel and
+    plain, against the bound (``sweep_bytes`` at ``bw``, or 8n flops a
+    solved cell at 67 TFLOP/s).  Runs alone::
+
+        python3 -c "import torch, chip_smoke as c; from
+        pressurepoissonsolver_torch.utils import profiling, timer;
+        c.sweep_kernels(torch, timer, profiling.card_line(),
+        profiling._device_bw('cuda'))"
+    """
+    import types
+
+    from pressurepoissonsolver_torch.ops import patch_sweep
+    from pressurepoissonsolver_torch.ops.level_ops import _build_solver_tables
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    table = {}
+    for label, P, Pa, n in shapes:
+        na = P if Pa is None else Pa
+        act = np.sort(rng.choice(P, na, replace=False)) if Pa is not None else np.arange(P)
+        pl = types.SimpleNamespace(D=2, n=n, neumann=np.zeros((P, 4), dtype=bool),
+                                   spacings=np.full((P, 2), 1.0 / (16 * n)))
+        st = _build_solver_tables(pl, torch.float32, act, dev)
+        route = None
+        if Pa is not None:
+            inv = np.full(P, na, dtype=np.int64)
+            inv[act] = np.arange(na)
+            route = patch_sweep.Route(
+                torch.as_tensor(act, device=dev), torch.as_tensor(inv, device=dev),
+                torch.as_tensor(np.isin(np.arange(P), act).reshape(P, 1, 1), device=dev))
+
+        def inputs():
+            f = torch.randn(P, n, n, device=dev)
+            gf = torch.randn(na, 4, n, device=dev)
+            h2 = torch.full((na, 2), float((16 * n) ** 2), device=dev)
+            return [st, f, gf, h2, route, None if Pa is None else torch.randn_like(f)]
+
+        args = inputs()
+        got = patch_sweep.sweep(*args)
+        ref = patch_sweep.sweep_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        line = f"kernel patch_sweep {label} float32 P={P} active={na} n={n} [{card}]"
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"{line}: max_abs_err={err:.3e} max|u|={scale:.3e}")
+        if route is not None:
+            keep = ~route.mask.reshape(-1)
+            assert torch.equal(got[keep], args[5][keep]), line
+        nbytes = sweep_bytes(P, Pa, n, 4)
+        bound_ms = 1e3 * max(nbytes / bw, 8 * n * na * n * n / PEAK_FLOPS["float32"])
+        k = timer.cold_sets(nbytes)
+        sets = [args] + [inputs() for _ in range(k - 1)]
+        row = {"max_abs_err": err, "bound_ms": bound_ms, "bytes": nbytes}
+        for name, fn in (("kernel", patch_sweep.sweep), ("plain", patch_sweep.sweep_plain)):
+            row[f"{name}_ms"] = timer.cold_median_ms(fn, sets)
+            row[f"{name}_warm_ms"] = timer.cuda_median_ms(lambda: fn(*args), reps=50,
+                                                          hold=True)
+        del sets
+        print(f"{line}: max_abs_err={err:.3e} max|u|={scale:.3e}; device ms cold "
+              f"({k} sets of {nbytes / 1e6:.1f} MB): kernel {row['kernel_ms']:.5f} "
+              f"({100 * bound_ms / row['kernel_ms']:.1f}% of the bound, "
+              f"{nbytes / (row['kernel_ms'] * 1e-3) / 1e9:.0f} GB/s) plain "
+              f"{row['plain_ms']:.5f}; warm: kernel {row['kernel_warm_ms']:.5f} plain "
+              f"{row['plain_warm_ms']:.5f}; bound {bound_ms:.5f} ms", flush=True)
+        print("SWEEP_JSON " + json.dumps({"label": label, "P": P, "active": na, "n": n,
+                                          "card": card, **row}), flush=True)
+        table[label] = row
+        del args, got, ref
+    return table
+
+
+def sweep_solve(torch, port, gs) -> dict:
+    """The sweep kernel's launches in a main-path solve: ``solve_refined``
+    (one graph launch) of a 2D adaptive mesh at the cells' n=16 with their
+    cycle (f32 V(2,1), FAC active sets), every launch count set to 0 just
+    before it and read just after; every sweep takes the kernel."""
+    from pressurepoissonsolver_torch.ops import patch_sweep
+
+    hier = port.DomainHierarchy(port.refined_tree(2, 4, 2), n=16)
+    opts = port.SolveOptions(
+        tol=1e-10, dtype=torch.float64, precond_dtype=torch.float32,
+        gmg=port.CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
+                             coarse_direct_max_dof=64))
+    solver = port.PoissonSolver(hier, opts, device="cuda")
+    f, exact = port.init_problem(hier.finest, port.get_problem("trig", 2))
+    gs.reset_launches()
+    patch_sweep.reset_launches()
+    u, info = solver.solve_refined(f, tol=1e-10, inner_tol=1e-4)
+    counts = patch_sweep.sweeps()
+    rep = solver.report(u, f, exact)
+    print(f"sweep solve (n=16, one graph launch): outer {info['outer_iterations']} inner "
+          f"{info['inner_iterations']} residual {rep['residual']:.3e}; sweeps {counts}",
+          flush=True)
+    assert rep["residual"] <= 1e-10, rep
+    assert counts["kernel"]["float32"] > 0 and not any(counts["plain"].values()), counts
+    return counts
 
 
 def stencil_args(torch, rng, D, P, n, dtype):
@@ -2081,8 +2211,8 @@ def kron_op_times(torch, port, card, bw):
     memory rate and the flops over 67 TFLOP/s.  The rows."""
     from pressurepoissonsolver_torch.geometry import uniform_tree
     from pressurepoissonsolver_torch.gmg import Transfer
-    from pressurepoissonsolver_torch.ops.level_ops import (Level, _build_solver_tables,
-                                                          _spectral_apply)
+    from pressurepoissonsolver_torch.ops.level_ops import Level, _build_solver_tables
+    from pressurepoissonsolver_torch.ops.patch_sweep import _spectral_apply
     from pressurepoissonsolver_torch.utils import profiling
 
     t0 = time.perf_counter()
@@ -3022,18 +3152,17 @@ def piece_loop_cells(torch, port, cli, gs, timer, card, head):
     return rows
 
 
-def build_kernels(gs, cuda_build) -> None:
-    """Phase 2: one nvcc per kernel source, all started together."""
+def build_kernels(cuda_build) -> None:
+    """Phase 2: one nvcc per kernel library, all started together
+    (``cuda_build.build_all``)."""
     from pressurepoissonsolver_torch.utils import graphs
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
-        for fut in [pool.submit(gs.build, 2), pool.submit(gs.build, 3),
-                    pool.submit(gs.build_faces), pool.submit(graphs.build)]:
-            fut.result()
-    print(f"built the four kernel libraries in {time.perf_counter() - t0:.2f} s",
+    cuda_build.build_all()
+    print(f"built the six kernel libraries in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for lib in ("ghost_stencil", "ghost_stencil_3d", "ghost_faces", "graph_loop"):
+    for lib in ("ghost_stencil", "ghost_stencil_3d", "ghost_faces", "graph_loop",
+                "patch_sweep_f32", "patch_sweep_f64"):
         info = cuda_build.build_info[lib]
         print(f"  {lib}: nvcc {info['seconds']:.2f} s", flush=True)
         for line in info["log"].splitlines():
@@ -3086,7 +3215,7 @@ def main() -> None:
           f"{driver_version()} (cuDriverGetVersion)", flush=True)
 
     # phase 2
-    build_kernels(gs, cuda_build)
+    build_kernels(cuda_build)
 
     # phase 3: 2D (the kernel is checked at the bench solver's shapes)
     solver, f, exact, _ = setup_bench(
@@ -3094,6 +3223,8 @@ def main() -> None:
         CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active",
                   coarse_direct_max_dof=4096))
     tables = {2: check_kernels(torch, gs, timer, card, bw, 2, stencil_shapes(solver))}
+    sweep_table = sweep_kernels(torch, timer, card, bw)
+    sweep_counts = sweep_solve(torch, port, gs)
     solve_small(torch, port)
     u_ir, launches2 = solve_bench(torch, solver, f, exact, gs, timer, card)
     launches = {2: launches2}
@@ -3189,6 +3320,23 @@ def main() -> None:
             **{k: v for k, v in guard_table.items()
                if not k.endswith("_turns") and k != "body_sweep_ms"},
             "library_ms": None,
+        }
+    ] + [
+        {
+            "name": "patch_sweep_float32",
+            "route": "cuda",
+            "source": SWEEP_SOURCE,
+            "replaces": SWEEP_REPLACES,
+            # the sweeps of the main-path solve at n=16 (sweep_solve)
+            "launches": sweep_counts["kernel"]["float32"],
+            "plain_launches": sweep_counts["plain"]["float32"],
+            # cold, at the d4 cell's level-0 shape; every shape below
+            "ms": sweep_table["d4-L0"]["kernel_ms"],
+            "warm_ms": sweep_table["d4-L0"]["kernel_warm_ms"],
+            "plain_ms": sweep_table["d4-L0"]["plain_ms"],
+            "bound_ms": sweep_table["d4-L0"]["bound_ms"],
+            "max_abs_err": sweep_table["d4-L0"]["max_abs_err"],
+            "shapes": sweep_table,
         }
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,6 +10,7 @@ source is rebuilt and an unchanged one is loaded as it is.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -44,13 +45,16 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile ``sources`` (file names under ``csrc/``) into
-    ``lib<name>-<hash>.so`` unless it exists, and load it."""
+def load_library(name: str, sources: Sequence[str],
+                 defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """Compile ``sources`` (file names under ``csrc/``), with the macros
+    ``defines`` (``-D`` arguments), into ``lib<name>-<hash>.so`` unless it
+    exists, and load it."""
     if name in _libs:
         return _libs[name]
     paths = [CSRC / s for s in sources]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in paths:
         h.update(p.read_bytes())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -58,7 +62,7 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     info = {"seconds": 0.0, "log": ""}
     if not out.exists():
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+        cmd = [find_nvcc(), *flags, "-o", str(tmp), *map(str, paths)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         info["seconds"] = time.perf_counter() - t0
@@ -72,3 +76,18 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     build_info[name] = info
     _libs[name] = lib
     return lib
+
+
+def build_all() -> None:
+    """Build (or load) every kernel library of the package side by side,
+    one nvcc per library in a thread of its own: the port's set-up on a
+    card calls it before its first launch, so that a fresh checkout waits
+    for the slowest build rather than for their sum."""
+    from .ops import ghost_stencil, patch_sweep
+    from .utils import graphs
+
+    jobs = (lambda: ghost_stencil.build(2), lambda: ghost_stencil.build(3),
+            ghost_stencil.build_faces, graphs.build, patch_sweep.build)
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        for fut in [pool.submit(job) for job in jobs]:
+            fut.result()

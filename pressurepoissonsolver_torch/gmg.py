@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from .domain import DomainHierarchy, parent_slots
-from .ops.level_ops import ActiveSmoother, Level, axis_matmul, kron_max_n, np_dtype
+from .ops.level_ops import ActiveSmoother, Level, kron_max_n, np_dtype
+from .ops.patch_sweep import axis_matmul
 from .utils import profiling
 from .utils.profiling import span
 

@@ -76,7 +76,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns = {}  # (D, dtype) -> ctypes function
 
 
-def _counters() -> tuple:
+def counter_dicts() -> tuple:
     """Every additive launch counter (``last_width`` is not one)."""
     return (*_COUNTS.values(), *widths.values(), *launches_nogf.values(),
             *launches_faces.values())
@@ -84,7 +84,7 @@ def _counters() -> tuple:
 
 def reset_launches() -> None:
     _pending.clear()
-    for counts in _counters():
+    for counts in counter_dicts():
         for k in counts:
             counts[k] = 0
 
@@ -116,13 +116,13 @@ def counters() -> list:
     the pending reports are read."""
     while _pending:
         _pending.pop(0)()
-    return [dict(c) for c in _counters()]
+    return [dict(c) for c in counter_dicts()]
 
 
 def add_launches(delta: list, sign: int = 1) -> None:
     """Add ``sign`` times the launches ``delta`` (the difference of two
     :func:`counters`) to the counters."""
-    for c, d in zip(_counters(), delta):
+    for c, d in zip(counter_dicts(), delta):
         for k, v in d.items():
             c[k] += sign * v
 

@@ -163,8 +163,7 @@ class GatheredLevel(RankBlock):
             return self.smooth_zero(f)
         faces, faces_g = self._faces(u)
         own = faces.reshape(self.Pl, 2 * self.D, self.face_depth, self.m)[:, :, 0]
-        gf = self._w_own.to(u.dtype) * own + self._mix_scaled(faces_g)
-        return self._solve(self._fold(f, gf))
+        return self.sweep(f, self._w_own.to(u.dtype) * own + self._mix_scaled(faces_g))
 
     # -- the Schur path on the block-sharded interface vector ------------------
 

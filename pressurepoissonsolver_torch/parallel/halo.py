@@ -49,10 +49,10 @@ import torch
 
 from ..domain import parent_slots
 from ..gmg import kron_to
+from ..ops import patch_sweep
 from ..ops.ghost_stencil import add_ghost_faces
 from ..ops.level_ops import (_STENCIL, Level, _build_contrib_pipeline,
-                             _build_solver_tables, _fold_faces_flat,
-                             _spectral_apply, extract_faces, np_dtype)
+                             _build_solver_tables, extract_faces, np_dtype)
 from ..utils.profiling import span
 from .rank_block import RankBlock
 from .sharding import Comm
@@ -409,8 +409,7 @@ class ShardedLevel(RankBlock):
     def smooth(self, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """One block-Jacobi sweep of spectral patch solves."""
         mix_scaled, own = self._gf_direct_parts(u)
-        gf = self._gfw_own_me.to(u.dtype) * own + mix_scaled
-        return self._solve(self._fold(f, gf))
+        return self.sweep(f, self._gfw_own_me.to(u.dtype) * own + mix_scaled)
 
     # -- the Schur path on the owner-sharded interface vector -----------------
 
@@ -458,17 +457,16 @@ class ShardedActiveSmoother:
         self._act = torch.as_tensor(act, device=dev)
         inv = np.full(Pl, self.Pa, dtype=np.int64)  # pad row: untouched
         inv[act] = np.arange(self.Pa)
-        self._inv = torch.as_tensor(inv, device=dev)
         mask = np.zeros(Pl, dtype=bool)
         mask[act] = True
-        self._mask = torch.as_tensor(mask.reshape((Pl,) + (1,) * D), device=dev)
+        self._route = patch_sweep.Route(
+            self._act, torch.as_tensor(inv, device=dev),
+            torch.as_tensor(mask.reshape((Pl,) + (1,) * D), device=dev))
         self._gfi = torch.as_tensor(sl._ifidx_me[act].reshape(-1).astype(np.int64),
                                     device=dev)
         self._h2a = sl.h2inv.index_select(0, self._act)
         self._coefa = sl.ghost_coef.index_select(0, self._act)
-        self._st = None
-        if self.Pa:
-            self._st = _build_solver_tables(sl.pl, sl.dtype, act + sl._rows.start, dev)
+        self._st = _build_solver_tables(sl.pl, sl.dtype, act + sl._rows.start, dev)
 
     def _gf_act(self, u: torch.Tensor) -> torch.Tensor:
         """``[Pa, 2D, m]`` traces of the active patches (the exchange runs on
@@ -476,24 +474,13 @@ class ShardedActiveSmoother:
         gamma_pad = self.sl._interp_local(u)
         return gamma_pad.index_select(0, self._gfi).reshape(self.Pa, 2 * self.D, self.m)
 
-    def _scatter(self, sol: torch.Tensor, base):
-        pad = sol.new_zeros((1,) + tuple(sol.shape[1:]))
-        routed = torch.cat([sol, pad], dim=0).index_select(0, self._inv)
-        return routed if base is None else torch.where(self._mask, routed, base)
-
     def smooth(self, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        gf = self._gf_act(u)
-        if not self.Pa:
-            return u
-        fa = _fold_faces_flat(f.index_select(0, self._act), gf, self._h2a,
-                              self.D, self.n)
-        return self._scatter(_spectral_apply(self._st, fa, self.D, self.n), u)
+        """One sweep of this rank's active patches from ``u``, which its
+        other patches keep (``patch_sweep.sweep``)."""
+        return patch_sweep.sweep(self._st, f, self._gf_act(u), self._h2a, self._route, u)
 
     def smooth_zero(self, f: torch.Tensor) -> torch.Tensor:
-        if not self.Pa:
-            return torch.zeros_like(f)
-        sol = _spectral_apply(self._st, f.index_select(0, self._act), self.D, self.n)
-        return self._scatter(sol, None)
+        return patch_sweep.sweep(self._st, f, None, self._h2a, self._route)
 
     def apply_scattered(self, u: torch.Tensor) -> torch.Tensor:
         """``A u`` on the active subset, through the ghost-stencil kernel,
@@ -504,7 +491,7 @@ class ShardedActiveSmoother:
             return torch.zeros_like(u)
         out = _STENCIL[self.D](u.index_select(0, self._act), gf,
                                self._coefa.to(u.dtype), self._h2a.to(u.dtype))
-        return self._scatter(out, None)
+        return patch_sweep._scatter(out, self._route, None)
 
 
 class ShardedTransfer:

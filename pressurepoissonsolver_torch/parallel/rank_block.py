@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.level_ops import Level, _build_solver_tables, _fold_faces_flat, _spectral_apply
+from ..ops import patch_sweep
+from ..ops.level_ops import Level, _build_solver_tables
 from .sharding import Comm, row_block
 
 
@@ -51,14 +52,19 @@ class RankBlock:
                                         np.arange(level.P, dtype=np.int64)[rows], device)
 
     def _fold(self, fc: torch.Tensor, gf: torch.Tensor) -> torch.Tensor:
-        return _fold_faces_flat(fc, gf, self.h2inv, self.D, self.n)
+        return patch_sweep._fold_faces_flat(fc, gf, self.h2inv, self.D, self.n)
 
     def _solve(self, fc: torch.Tensor) -> torch.Tensor:
-        return _spectral_apply(self._st, fc, self.D, self.n)
+        return patch_sweep._spectral_apply(self._st, fc, self.D, self.n)
+
+    def sweep(self, f: torch.Tensor, gf) -> torch.Tensor:
+        """One block-Jacobi sweep of this rank's rows with the traces ``gf``
+        (``None``: a zero iterate's), ``patch_sweep.sweep``."""
+        return patch_sweep.sweep(self._st, f, gf, self.h2inv)
 
     def smooth_zero(self, f: torch.Tensor) -> torch.Tensor:
         """``smooth(f, 0)``: no traces, no collective, the local solves."""
-        return self._solve(f)
+        return self.sweep(f, None)
 
     def gamma_zeros(self, dtype=None) -> torch.Tensor:
         return torch.zeros((self._gamma_rows, self.m), dtype=dtype or self.dtype,

@@ -32,7 +32,8 @@ import torch.distributed as dist
 from ..bench import bench_tree
 from ..domain import DomainHierarchy
 from ..gmg import CycleOpts, build_gmg
-from ..ops.level_ops import Level, _spectral_apply, extract_faces
+from ..ops.level_ops import Level, extract_faces
+from ..ops.patch_sweep import _spectral_apply
 from ..utils import profiling
 
 

@@ -63,6 +63,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import cuda_build
 from .domain import DomainHierarchy
 from .gmg import CycleOpts, build_gmg
 from .krylov import (KrylovLoop, KrylovResult, While, _go, _norm, bicgstab_loop,
@@ -160,6 +161,8 @@ class PoissonSolver:
                 o.krylov = "bicgstab"
             if o.inner_krylov == "cg":
                 o.inner_krylov = "bicgstab"
+        if self.device.type == "cuda":
+            cuda_build.build_all()  # the kernel libraries, side by side
         # with a mesh the global levels stay on the host: a rank's device
         # holds only its rows and tables (parallel.halo.ShardedLevel,
         # parallel.gathered.GatheredLevel)

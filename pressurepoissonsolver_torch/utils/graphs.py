@@ -30,11 +30,12 @@ driver refuses, or a build that fails, raises; there is no fallback.
 
 Inputs (the right-hand side, ``tol``, the step limits) are static buffers
 copied in before a run, so no new value needs a new capture.  Results are
-fresh tensors, never views of the graph's buffers.  The stencil wrappers
-count their launches on the host, where a graph does not pass: the
-launches of each piece are recorded at capture and added per replay, or,
-after a graph launch, times the passes the launch made (read with the
-results, or later by ``ghost_stencil.counters()``).  ``launches`` counts
+fresh tensors, never views of the graph's buffers.  The stencil and sweep
+wrappers count their launches on the host (:func:`counters`), where a
+graph does not pass: the launches of each piece are recorded at capture
+and added per replay, or, after a graph launch, times the passes the
+launch made (read with the results, or later by
+``ghost_stencil.counters()``).  ``launches`` counts
 the guard kernel's runs, the WHILE-node passes and the graph launches,
 and ``nodes`` the device nodes that ran (each piece's kernel, memcpy and
 memset nodes, counted at its capture with :func:`count_nodes`, times its
@@ -67,7 +68,7 @@ import torch
 from .. import cuda_build
 from ..krylov import (KrylovLoop, KrylovResult, While, _scalar, host_read, program,
                       read_flag)
-from ..ops import ghost_stencil
+from ..ops import ghost_stencil, patch_sweep
 from . import profiling
 from .profiling import span
 
@@ -147,8 +148,29 @@ def count_nodes(graph) -> int:
     return sum(counts)
 
 
+def _counts() -> tuple:
+    """Every launch counter a captured piece accounts for: the stencil
+    kernels' (``ghost_stencil``) and the sweep kernel's (``patch_sweep``)."""
+    return (*ghost_stencil.counter_dicts(), patch_sweep.launches, patch_sweep.plain)
+
+
+def counters() -> list:
+    """A copy of every launch counter (:func:`_counts`), after the launches
+    counted on the card and not read yet (``ghost_stencil.counters()``)."""
+    ghost_stencil.counters()
+    return [dict(c) for c in _counts()]
+
+
+def add_launches(delta: list, sign: int = 1) -> None:
+    """Add ``sign`` times the launches ``delta`` (the difference of two
+    :func:`counters`) to the counters."""
+    for c, d in zip(_counts(), delta):
+        for k, v in d.items():
+            c[k] += sign * v
+
+
 def _minus(after: list, before: list) -> list:
-    """The launches between two ``ghost_stencil.counters()``."""
+    """The launches between two :func:`counters`."""
     return [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
 
 
@@ -233,7 +255,7 @@ def capture(fn, device: torch.device):
 
         def begin():
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            open_["graph"], open_["before"] = graph, ghost_stencil.counters()
+            open_["graph"], open_["before"] = graph, counters()
             graph.capture_begin(pool=pool)
             part = len(items) // 2  # a piece and a loop per cut
             open_["span"] = span(f"{label}.{part}" if part else label)
@@ -243,7 +265,7 @@ def capture(fn, device: torch.device):
             open_["span"].__exit__(None, None, None)
             open_["graph"].capture_end()
             items.append(_Piece(open_["graph"],
-                                _minus(ghost_stencil.counters(), open_["before"])))
+                                _minus(counters(), open_["before"])))
 
         def cut_here(loop):
             end()
@@ -378,7 +400,7 @@ class PieceLoop:
         else:
             while read_flag(self.go):
                 self.graph.replay()
-                ghost_stencil.add_launches(self.launches)
+                add_launches(self.launches)
         return self.state
 
     def _launch(self) -> None:
@@ -446,7 +468,7 @@ class GraphLoop:
     def __init__(self, inputs: tuple, init: Callable, body: tuple, template: Callable,
                  step: Callable, device: torch.device):
         t0 = time.perf_counter()
-        before, inner_before = ghost_stencil.counters(), dict(inner)
+        before, inner_before = counters(), dict(inner)
         self.inputs, self.device = inputs, torch.device(device)
         with warm_up():  # loops inside pieces run here without host reads
             self.state = _clone(template())
@@ -462,7 +484,7 @@ class GraphLoop:
         self.graph, self.launches = self.pieces[step][:2]
         self.piece_loops = list({id(pl): pl for _, pl in self.inner}.values())
         self.runs = torch.zeros(len(self.whiles), dtype=torch.int64, device=self.device)
-        ghost_stencil.add_launches(_minus(ghost_stencil.counters(), before), -1)
+        add_launches(_minus(counters(), before), -1)
         inner.update(inner_before)
         self.capture_s = time.perf_counter() - t0
         self.build_s = 0.0
@@ -579,7 +601,7 @@ class GraphLoop:
 
     def _replay_piece(self, piece: _Piece) -> None:
         piece.graph.replay()
-        ghost_stencil.add_launches(piece.launches)
+        add_launches(piece.launches)
         launches["nodes"] += piece.nodes
 
     def _replay_tree(self, tree: list, runs: list) -> None:
@@ -620,7 +642,7 @@ class GraphLoop:
                     launches["passes"] += n
                     walk(item.body, n)
                 else:
-                    ghost_stencil.add_launches(item.launches, times)
+                    add_launches(item.launches, times)
                     launches["nodes"] += item.nodes * times
 
         if self.whiles:
@@ -774,6 +796,6 @@ class CapturedLoop:
     def _replay(self, state):
         """One replay of the step alone (its launches added)."""
         self.graph.replay()
-        ghost_stencil.add_launches(self.launches)
+        add_launches(self.launches)
         return state
 

@@ -543,7 +543,7 @@ def kron_battery(mesh, tmp):
         res["kron"] = {
             "level": sf._st.kron is not None and reads_kron(lambda: sf.smooth_zero(f),
                                                             sf._st.kron),
-            "active": None if sm._st is None else (
+            "active": None if not sm.Pa else (
                 sm._st.kron is not None and reads_kron(lambda: sm.smooth_zero(uc),
                                                        sm._st.kron)),
             **{mode: res.pop(mode) for mode in ("constant", "linear")}}

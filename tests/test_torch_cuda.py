@@ -14,7 +14,9 @@ refinement loop included (bit-equal iterates, equal counts and launches,
 one graph launch and one host read per solve, none with
 ``solve_refined(sync=False)``, zero steps on a zero right-hand side, the
 step limits, new inputs without a new capture, the stencil nodes of each
-WHILE body against the accounting).
+WHILE body against the accounting); the block-Jacobi sweep kernel
+(``csrc/patch_sweep.cu``) against its plain version, for every wall set,
+n, dtype, full and active sweeps, and its nodes inside WHILE bodies.
 
 Every test here needs a card and skips without one (the CUDA kernel has no
 CPU mode).  This file imports no JAX, so it runs on a machine without it;
@@ -33,7 +35,9 @@ from pressurepoissonsolver_torch.domain import DomainHierarchy
 from pressurepoissonsolver_torch.geometry import refined_tree
 from pressurepoissonsolver_torch.gmg import CycleOpts, build_gmg
 from pressurepoissonsolver_torch.ops import ghost_stencil as gs
+from pressurepoissonsolver_torch.ops import patch_sweep
 from pressurepoissonsolver_torch.ops.level_ops import ActiveSmoother, Level, extract_faces
+from pressurepoissonsolver_torch.ops.patch_sweep import _spectral_apply
 from pressurepoissonsolver_torch.problems import get_problem, init_problem
 from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
 
@@ -792,7 +796,9 @@ def _kron_and_axis(monkeypatch, build):
 @pytest.mark.parametrize("D", [2, 3])
 def test_kron_spectral_solve_on_card_matches_per_axis(cuda, monkeypatch, D, neumann):
     """The Kronecker patch solves of a level and of an active-set subset on
-    CUDA tensors at n=16, f32, against the per-axis form."""
+    CUDA tensors at n=16, f32, against the per-axis form (the plain
+    chain's solves, ``_spectral_apply``: a 2D sweep on the card takes the
+    sweep kernel, which has neither)."""
     h = DomainHierarchy(refined_tree(D, *KRON_MESHES[D]), n=16, neumann=neumann)
 
     def build():
@@ -803,8 +809,10 @@ def test_kron_spectral_solve_on_card_matches_per_axis(cuda, monkeypatch, D, neum
     assert lk._st.kron is not None and ak._st.kron is not None and la._st.kron is None
     f = torch.as_tensor(np.random.default_rng(D).standard_normal((lk.P,) + (16,) * D),
                         dtype=torch.float32, device=cuda)
-    assert _rel(la.smooth_zero(f), lk.smooth_zero(f)) <= RTOL["f32"]
-    assert _rel(aa.smooth_zero(f), ak.smooth_zero(f)) <= RTOL["f32"]
+    assert _rel(_spectral_apply(la._st, f, D, 16), _spectral_apply(lk._st, f, D, 16)) <= RTOL["f32"]
+    fa = f.index_select(0, ak._act)
+    assert (_rel(_spectral_apply(aa._st, fa, D, 16), _spectral_apply(ak._st, fa, D, 16))
+            <= RTOL["f32"])
 
 
 @pytest.mark.parametrize("mode", ["constant", "linear"])
@@ -1017,18 +1025,20 @@ LOOP_CASES = [(2, c) for c in LOOP_SOLVES] + [(3, "refined-bicgstab"), (3, "solv
 
 def _counted(s, f, how, **kw):
     """One solve with every launch counter set to 0 just before it:
-    ``(u, counts, stencil counters, graph_loop counters, host reads made
-    inside the solve)``."""
+    ``(u, counts, kernel counters (``graphs.counters()``: the stencils' and
+    the sweep's), graph_loop counters, host reads made inside the
+    solve)``."""
     from pressurepoissonsolver_torch import krylov
     from pressurepoissonsolver_torch.utils import graphs
 
     gs.reset_launches()
+    patch_sweep.reset_launches()
     graphs.reset_launches()
     reads = krylov.reads["host"]
     u, counts = _graph_run(s, f, how, **kw)
     reads = krylov.reads["host"] - reads
     torch.cuda.synchronize()
-    return u, counts, gs.counters(), dict(graphs.launches), reads
+    return u, counts, graphs.counters(), dict(graphs.launches), reads
 
 
 @pytest.mark.parametrize("D, case", LOOP_CASES)
@@ -1650,3 +1660,149 @@ def test_stamp_clock_resolution(cuda):
     print("stamp resolution", bare, traced)
     for r in (bare, traced):
         assert 0 < r["min_step_ns"] <= 1100 and r["distinct"] > 1
+
+
+# -- the block-Jacobi sweep kernel: csrc/patch_sweep.cu --------------------------
+
+# wall sets whose patches take every transform kind: Dirichlet (DST-II /
+# DST-III), Neumann (DCT-II / DCT-III, the coarsest patch pinned), and two
+# mixed sets (DCT-IV / DST-IV axes; an x axis Neumann at both ends)
+SWEEP_WALLS = {"dirichlet": False, "neumann": True, "mixed": ["x_lo", "y_hi"],
+               "mixed-x": ["x_lo", "x_hi", "y_hi"]}
+
+
+def _sweep_kernel_takes(launch):
+    """``launch()``, which must be one launch of the sweep kernel."""
+    before = patch_sweep.sweeps()
+    out = launch()
+    torch.cuda.synchronize()
+    after = patch_sweep.sweeps()
+    assert after["plain"] == before["plain"]
+    assert sum(after["kernel"].values()) == sum(before["kernel"].values()) + 1
+    return out
+
+
+@pytest.mark.parametrize("walls", list(SWEEP_WALLS))
+@pytest.mark.parametrize("n", [8, 16, 32])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_patch_sweep_kernel_matches_plain(cuda, dt, n, walls):
+    """On every level of a small mesh: ``Level.smooth`` / ``smooth_zero``
+    and ``ActiveSmoother.smooth`` / ``smooth_zero`` (an empty active set,
+    a random one, every slot) launch the sweep kernel once and agree with
+    the plain version on the same CUDA tensors to 1e-5 (f32) / 1e-12 (f64)
+    of max|u|; the slots outside an active set keep ``u`` (or 0) bit for
+    bit."""
+    h = DomainHierarchy(refined_tree(2, 3, 1), n=n, neumann=SWEEP_WALLS[walls])
+    rng = np.random.default_rng(n)
+    pinned = False
+    for pl in h.levels:
+        lvl = Level(pl, dtype=DTYPES[dt], device=cuda)
+        assert lvl._st.sweep is not None
+        pinned |= any(g.pin_dc for g in lvl._st.groups)
+        f, u = (torch.as_tensor(rng.standard_normal((lvl.P, n, n)), dtype=DTYPES[dt],
+                                device=cuda) for _ in range(2))
+        gf = lvl._gf_faces(u)
+        got = _sweep_kernel_takes(lambda: lvl.smooth(f, u))
+        assert _rel(patch_sweep.sweep_plain(lvl._st, f, gf, lvl.h2inv), got) <= RTOL[dt]
+        got = _sweep_kernel_takes(lambda: lvl.smooth_zero(f))
+        assert _rel(patch_sweep.sweep_plain(lvl._st, f, None, lvl.h2inv), got) <= RTOL[dt]
+        for mask in (np.zeros(lvl.P, bool), rng.random(lvl.P) < 0.4, np.ones(lvl.P, bool)):
+            sm = ActiveSmoother(lvl, mask)
+            assert sm._st.sweep is not None
+            gfa = sm._gamma_faces(u) if sm.num_sub_ifaces else None
+            for base in (u, None):
+                got = _sweep_kernel_takes(
+                    lambda: sm.smooth(f, u) if base is not None else sm.smooth_zero(f))
+                ref = patch_sweep.sweep_plain(sm._st, f, gfa if base is not None else None,
+                                              sm._h2inv_act, sm._route, base)
+                keep = torch.as_tensor(~mask, device=cuda)
+                want = torch.zeros_like(u) if base is None else u
+                assert torch.equal(got[keep], want[keep])
+                if mask.any():
+                    assert _rel(ref, got) <= RTOL[dt]
+    assert pinned == (walls == "neumann")
+
+
+def test_patch_sweep_kernel_on_a_misaligned_or_strided_field(cuda):
+    """A field at an element offset (not 16-byte aligned), or a strided
+    one, is copied and swept by the kernel: one launch, the result of the
+    aligned field's sweep bit for bit."""
+    lvl = Level(_hierarchy()[0], dtype=torch.float32, device=cuda)
+    buf = torch.randn(lvl.P * 64 + 1, device=cuda)
+    f = buf[1:].view(lvl.P, 8, 8)
+    u = torch.randn(lvl.P, 8, 16, device=cuda)[:, :, ::2]
+    assert f.data_ptr() % 16 and not u.is_contiguous()
+    want = lvl.smooth(f.clone(), u.contiguous())
+    got = _sweep_kernel_takes(lambda: lvl.smooth_zero(f))
+    assert torch.equal(got, lvl.smooth_zero(f.clone()))
+    sm = ActiveSmoother(lvl, np.arange(lvl.P) % 3 == 0)
+    assert torch.equal(_sweep_kernel_takes(lambda: sm.smooth(f, u)),
+                       sm.smooth(f.clone(), u.contiguous()))
+    assert torch.equal(lvl.smooth(f, u), want)
+
+
+def test_patch_sweep_kernel_refuses_another_dtype_or_device(cuda):
+    """A sweep of a level whose tables carry the kernel's, on a field of
+    another dtype than the tables' or on another device, raises: no
+    version is chosen for it."""
+    lvl = Level(_hierarchy()[0], dtype=torch.float32, device=cuda)
+    f = torch.randn(lvl.P, 8, 8, device=cuda)
+    with pytest.raises(TypeError):
+        lvl.smooth_zero(f.double())
+    with pytest.raises(TypeError):
+        patch_sweep.sweep(lvl._st, f, None, lvl.h2inv.double())
+    with pytest.raises(TypeError):
+        patch_sweep.sweep(lvl._st, f, lvl._gf_faces(f).cpu(), lvl.h2inv)
+
+
+def _sweep_index():
+    """The place of the sweep kernel's counter in ``graphs.counters()``."""
+    from pressurepoissonsolver_torch.utils import graphs
+
+    return next(i for i, c in enumerate(graphs._counts()) if c is patch_sweep.launches)
+
+
+def _level_sweeps(gl) -> dict:
+    """Per level of a composed ``GraphLoop`` (``"root"`` or a loop slot):
+    the sweep kernel launches the accounting adds per pass, from the
+    pieces directly in it."""
+    idx, out = _sweep_index(), {}
+
+    def walk(tree, level):
+        out.setdefault(level, 0)
+        for item in tree:
+            if hasattr(item, "body"):
+                walk(item.body, item.index)
+            else:
+                out[level] += sum(item.launches[idx].values())
+
+    walk(gl.tree, "root")
+    return out
+
+
+def test_patch_sweep_kernel_counts_once_per_pass_of_a_while_body(cuda):
+    """A one-launch IR solve (f32 V-cycle at n=8: level 0's full sweeps and
+    the active sets' sweeps inside the inner Krylov loop's WHILE body)
+    counts the sweep kernel's launches as the eager solve does, and the
+    per-step replay too; the sweep kernel nodes of each level of the
+    composed graph are the launches the accounting adds per pass of it."""
+    from chip_smoke import graph_nodes
+
+    opts, how = LOOP_SOLVES["refined-bicgstab"]
+    s, f, _ = _graph_solver(cuda, 2, **opts)
+    counted = {}
+    for mode in (True, False, "steps", True):
+        s._graphs = mode
+        u, counts, launched, _, _ = _counted(s, f, how)
+        counted.setdefault(mode, []).append((u, counts, launched[_sweep_index()]))
+    ref = counted[False][0]
+    assert ref[2]["float32"] > 0
+    for runs in counted.values():
+        for u, counts, sweeps in runs:
+            assert counts == ref[1] and torch.equal(u, ref[0]) and sweeps == ref[2]
+    gl = s._captured[next(iter(s._captured))].graphs
+    want = _level_sweeps(gl)
+    levels = {"root": gl.root, **gl.bodies}
+    got = {level: sum("patch_sweep_kernelI" in name for name in graph_nodes(raw)[0])
+           for level, raw in levels.items()}
+    assert got == want and sum(want.values()) > 0

@@ -20,7 +20,7 @@ import torch
 
 import pressurepoissonsolver_tpu.gmg as jgmg
 import pressurepoissonsolver_torch.gmg as tgmg
-from pressurepoissonsolver_torch.ops.level_ops import axis_matmul
+from pressurepoissonsolver_torch.ops.patch_sweep import axis_matmul
 
 from _torch_parity import DTYPES, MESH, RTOL, field, hierarchies, rel_err
 

@@ -34,6 +34,7 @@ import pressurepoissonsolver_tpu.ops.level_ops as jlo
 import pressurepoissonsolver_torch.cli as tcli
 import pressurepoissonsolver_torch.gmg as tgmg
 import pressurepoissonsolver_torch.ops.level_ops as tlo
+import pressurepoissonsolver_torch.ops.patch_sweep as tps
 
 from _torch_dist import World, kron_hierarchy, kron_inputs, reads_kron
 from _torch_parity import DTYPES, MESH, RTOL, field, hierarchies, rel_err
@@ -121,7 +122,7 @@ def test_spectral_apply_matches_reference(D, walls, which):
             assert ([g.pin_dc for g in tl._st.groups] == [True] if which == "coarsest"
                     else len(tl._st.groups) > 1)
         ref = jax.jit(lambda x: jlo._spectral_apply(jl._st, x, D, jl.n))(jnp.asarray(f))
-        got = tlo._spectral_apply(tl._st, torch.from_numpy(f), D, tl.n)
+        got = tps._spectral_apply(tl._st, torch.from_numpy(f), D, tl.n)
     assert got.dtype == torch.float32 and rel_err(ref, got) <= RTOL["f32"]
 
 

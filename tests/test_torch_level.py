@@ -18,6 +18,7 @@ import torch
 
 import pressurepoissonsolver_tpu.ops.level_ops as jlo
 import pressurepoissonsolver_torch.ops.level_ops as tlo
+import pressurepoissonsolver_torch.ops.patch_sweep as tps
 
 from _torch_parity import DTYPES, RTOL, field, hierarchies, rel_err
 
@@ -108,10 +109,10 @@ def test_smooth_and_spectral_solve(dt, k):
     _check(dt, jax.jit(jl.smooth)(jnp.asarray(f), jnp.asarray(u)), tl.smooth(tf, tu))
     _check(dt, jax.jit(jl.smooth_zero)(jnp.asarray(f)), tl.smooth_zero(tf))
     _check(dt, jax.jit(jl._spectral_solve)(jnp.asarray(f)),
-           tlo._spectral_apply(tl._st, tf, 2, 8))
+           tps._spectral_apply(tl._st, tf, 2, 8))
     fold = jax.jit(lambda f, u: jlo._fold_faces_flat(
         f, jl._gf_faces(u), jl.h2inv, 2, 8, mm=False))(jnp.asarray(f), jnp.asarray(u))
-    _check(dt, fold, tlo._fold_faces_flat(tf, tl._gf_faces(tu), tl.h2inv, 2, 8))
+    _check(dt, fold, tps._fold_faces_flat(tf, tl._gf_faces(tu), tl.h2inv, 2, 8))
 
 
 @pytest.mark.parametrize("dt,k", CASES, ids=IDS)

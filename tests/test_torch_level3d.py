@@ -18,6 +18,7 @@ import torch
 
 import pressurepoissonsolver_tpu.ops.level_ops as jlo
 import pressurepoissonsolver_torch.ops.level_ops as tlo
+import pressurepoissonsolver_torch.ops.patch_sweep as tps
 
 from _torch_parity import DTYPES, MESH, RTOL, hierarchies, rel_err
 
@@ -116,12 +117,12 @@ def test_smooth_fold_and_spectral_solve_3d(dt, k):
     _check(dt, jax.jit(jl.smooth)(jnp.asarray(f), jnp.asarray(u)), tl.smooth(tf, tu))
     _check(dt, jax.jit(jl.smooth_zero)(jnp.asarray(f)), tl.smooth_zero(tf))
     _check(dt, jax.jit(jl._spectral_solve)(jnp.asarray(f)),
-           tlo._spectral_apply(tl._st, tf, D, N))
+           tps._spectral_apply(tl._st, tf, D, N))
     # the fold against the reference's pad-spread sum, with random faces
     gf = np.random.default_rng(30 + k).standard_normal((jl.P, 6, N * N)).astype(f.dtype)
     fold = jax.jit(lambda f, g: jlo._fold_faces_flat(f, g, jl.h2inv, D, N))(
         jnp.asarray(f), jnp.asarray(gf))
-    _check(dt, fold, tlo._fold_faces_flat(tf, torch.from_numpy(gf), tl.h2inv, D, N))
+    _check(dt, fold, tps._fold_faces_flat(tf, torch.from_numpy(gf), tl.h2inv, D, N))
 
 
 @pytest.mark.parametrize("dt", ["f32", "f64"])
