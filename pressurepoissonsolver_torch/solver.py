@@ -277,17 +277,20 @@ class PoissonSolver:
 
     def _schur_ends(self):
         """``(prepare, finish)`` of an interface solve (see ``_run_loop``):
-        the right-hand side ``interp(solve(f, 0))`` from ``f``, and the
-        recovery ``solve(f, gamma)`` from a state or result whose ``x`` is
-        ``gamma`` (flat in GMRES's state)."""
+        the right-hand side ``interp(solve(f, 0))`` from ``f`` (the span
+        ``pps.solver.schur_rhs``), and the recovery ``solve(f, gamma)`` from
+        a state or result whose ``x`` is ``gamma``, flat in GMRES's state
+        (``pps.solver.schur_recover``)."""
         lvl = self._op
 
         def prepare(f):
-            return lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
+            with span("pps.solver.schur_rhs"):
+                return lvl.interpolate(lvl.patch_solve(f, lvl.gamma_zeros(f.dtype)))
 
         def finish(f, s):
-            x = s.x if s.x.dim() > 1 else s.x.reshape(lvl.num_ifaces, -1)
-            return lvl.patch_solve(f, x)
+            with span("pps.solver.schur_recover"):
+                x = s.x if s.x.dim() > 1 else s.x.reshape(lvl.num_ifaces, -1)
+                return lvl.patch_solve(f, x)
 
         return prepare, finish
 
@@ -529,6 +532,7 @@ class PoissonSolver:
 
         return M
 
+    @profiling.spanned("pps.solver.solve_schur", solve=True)
     def solve_schur(
         self,
         f,
@@ -545,7 +549,9 @@ class PoissonSolver:
         ``"cheb"`` (Chebyshev polynomial of ``S``), ``"blockjacobi"`` (the
         inverse diagonal blocks of the probed ``I - S``) or ``"gmg"`` (the
         Woodbury V-cycle).  A preconditioner is built once per solver and
-        kept.  Returns ``(u, KrylovResult)``."""
+        kept.  The call is the span ``pps.solver.solve_schur``, one solve;
+        under ``profiling.device_spans`` its graph is captured with stamps,
+        under its own key.  Returns ``(u, KrylovResult)``."""
         tol = self.opts.tol if tol is None else tol
         max_iter = self.opts.max_iter if max_iter is None else max_iter
         lvl, red = self._op, self._allreduce

@@ -150,8 +150,12 @@ def count_nodes(graph) -> int:
 
 def _counts() -> tuple:
     """Every launch counter a captured piece accounts for: the stencil
-    kernels' (``ghost_stencil``) and the sweep kernel's (``patch_sweep``)."""
-    return (*ghost_stencil.counter_dicts(), patch_sweep.launches, patch_sweep.plain)
+    kernels' (``ghost_stencil``), the sweep kernel's (``patch_sweep``) and
+    the patch solves' (``level_ops.solved``)."""
+    from ..ops import level_ops  # which imports this module
+
+    return (*ghost_stencil.counter_dicts(), patch_sweep.launches, patch_sweep.plain,
+            level_ops.solved)
 
 
 def counters() -> list:

@@ -35,7 +35,7 @@ from pressurepoissonsolver_torch.domain import DomainHierarchy
 from pressurepoissonsolver_torch.geometry import refined_tree
 from pressurepoissonsolver_torch.gmg import CycleOpts, build_gmg
 from pressurepoissonsolver_torch.ops import ghost_stencil as gs
-from pressurepoissonsolver_torch.ops import patch_sweep
+from pressurepoissonsolver_torch.ops import level_ops, patch_sweep
 from pressurepoissonsolver_torch.ops.level_ops import ActiveSmoother, Level, extract_faces
 from pressurepoissonsolver_torch.ops.patch_sweep import _spectral_apply
 from pressurepoissonsolver_torch.problems import get_problem, init_problem
@@ -1025,15 +1025,16 @@ LOOP_CASES = [(2, c) for c in LOOP_SOLVES] + [(3, "refined-bicgstab"), (3, "solv
 
 def _counted(s, f, how, **kw):
     """One solve with every launch counter set to 0 just before it:
-    ``(u, counts, kernel counters (``graphs.counters()``: the stencils' and
-    the sweep's), graph_loop counters, host reads made inside the
-    solve)``."""
+    ``(u, counts, kernel counters (``graphs.counters()``: the stencils',
+    the sweep's and the patch solves'), graph_loop counters, host reads made
+    inside the solve)``."""
     from pressurepoissonsolver_torch import krylov
     from pressurepoissonsolver_torch.utils import graphs
 
     gs.reset_launches()
     patch_sweep.reset_launches()
     graphs.reset_launches()
+    level_ops.reset_solved()
     reads = krylov.reads["host"]
     u, counts = _graph_run(s, f, how, **kw)
     reads = krylov.reads["host"] - reads
@@ -1533,6 +1534,62 @@ def test_a_graph_captured_with_tracing_off_holds_no_stamp_node(cuda):
         assert kernels and not any("pps_stamp" in k for k in kernels)
     for kernels in names(s._captured[("refined", "bicgstab", "stamped")]):
         assert kernels.count("pps_stamp") >= 2
+
+
+def test_a_one_launch_schur_solve_at_n16_nests_its_spans_and_counts_its_patch_solves(cuda):
+    """``solve_schur`` at n=16 on a small graded mesh, one graph launch a
+    solve: stamped, it is bit for bit the unstamped solve, and its device
+    spans nest as ``pps.solver.solve_schur`` > ``pps.krylov.operator`` >
+    ``pps.level.schur_S`` > ``pps.level.patch_solve`` and
+    ``pps.level.interpolate``; the patch-solve counter of a one-launch solve
+    is the ``2k + 2`` passes its ``k`` iterations imply, each over every
+    patch; the graph captured with tracing off holds no stamp node, each
+    piece of the stamped one its own two at least."""
+    from chip_smoke import graph_kernel_names
+    from pressurepoissonsolver_torch.utils import graphs, profiling
+
+    h = DomainHierarchy(refined_tree(2, 3, 1), n=16)
+    s = PoissonSolver(h, SolveOptions(tol=1e-10, gmg=GRAPH_GMG, precond_dtype=torch.float32),
+                      device=cuda)
+    f = torch.as_tensor(init_problem(h.finest, get_problem("trig", 2))[0], device=cuda)
+    u0, (k,) = _graph_run(s, f, "schur")
+    assert s._graphs is True and k > 0
+    level_ops.reset_solved()
+    graphs.reset_launches()
+    u1, (k1,) = _graph_run(s, f, "schur")
+    assert graphs.launches["graph"] == 1 and k1 == k and torch.equal(u0, u1)
+    passes = 2 * k + 2
+    assert level_ops.patch_solves() == {"passes": passes,
+                                        "patches": passes * h.finest.num_patches}
+    with profiling.device_spans(cuda):
+        _graph_run(s, f, "schur")
+    with profiling.device_spans(cuda) as rec:
+        u2, _ = _graph_run(s, f, "schur")
+    assert torch.equal(u0, u2) and rec.overflow == 0
+    sp = rec.spans()
+    names = [x.name for x in sp]
+    assert names.count("pps.solver.solve_schur") == 1 and sp[0].name == "pps.solver.solve_schur"
+    assert names.count("pps.level.schur_S") == names.count("pps.krylov.operator") == 2 * k
+    assert names.count("pps.level.patch_solve") == 2 * k + 2
+    for i, x in enumerate(sp):
+        if x.name != "pps.level.schur_S":
+            continue
+        up, j = [], i
+        while sp[j].parent >= 0:
+            j = sp[j].parent
+            up.append(sp[j].name)
+        assert up[0] == "pps.krylov.operator" and up[-1] == "pps.solver.solve_schur"
+        assert [y.name for y in sp if y.parent == i] == ["pps.level.patch_solve",
+                                                           "pps.level.interpolate"]
+        assert sp[i].t0_ns <= sp[i].t1_ns and sp[i].self_ns >= 0
+
+    def kernels(key):
+        return [graph_kernel_names(p.graph) for p in s._captured[key].graphs.pieces.values()]
+
+    for names_ in kernels(("schur", "gmg")):
+        assert names_ and not any("pps_stamp" in n for n in names_)
+    for names_ in kernels(("schur", "gmg", "stamped")):
+        assert names_.count("pps_stamp") >= 2
 
 
 # A profiler session in a process that has run many (the card tests before

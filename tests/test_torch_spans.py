@@ -350,3 +350,104 @@ def test_a_while_body_of_pieces_is_counted_per_pass(emulated):
     g.account(runs)
     assert graphs.launches["nodes"] == (init_p.nodes + 3 * (half_p.nodes + count_p.nodes)
                                         + (1 + 3) + 1)
+
+
+def _schur(s, f):
+    return s.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
+
+
+def _ancestors(sp, i):
+    out = []
+    while sp[i].parent >= 0:
+        i = sp[i].parent
+        out.append(sp[i].name)
+    return out
+
+
+@pytest.mark.parametrize("mode", [False, True])
+def test_a_stamped_schur_solve_nests_its_spans(emulated, mode):
+    """An interface solve's spans, eager and through the emulated capture:
+    one ``pps.solver.solve_schur`` a solve at the root, its two ends once,
+    and per iteration two operator applies (each ``pps.level.schur_S``
+    over one ``pps.level.patch_solve`` and one ``pps.level.interpolate``)
+    and two Woodbury preconditioner applies (each one V-cycle and one
+    interpolation); the answer bitwise the unstamped one's."""
+    s, f = _solver()
+    s._graphs = mode
+    u0, r0 = _schur(s, f)
+    with profiling.device_spans("cpu"):  # captures the stamped graph
+        _schur(s, f)
+    with profiling.device_spans("cpu") as rec:
+        u1, r1 = _schur(s, f)
+    assert torch.equal(u0, u1) and r0.iterations == r1.iterations > 0
+    k = r1.iterations
+    sp = rec.spans()
+    names = [x.name for x in sp]
+    assert names[0] == "pps.solver.solve_schur" and names.count(names[0]) == 1
+    assert {x.solve for x in sp} == {0}
+    assert names.count("pps.solver.schur_rhs") == names.count("pps.solver.schur_recover") == 1
+    for name in ("pps.krylov.operator", "pps.level.schur_S", "pps.krylov.precond",
+                 "pps.gmg.vcycle"):
+        assert names.count(name) == 2 * k, name
+    assert names.count("pps.level.patch_solve") == 2 * k + 2
+    assert names.count("pps.level.interpolate") == 4 * k + 1
+    for i, x in enumerate(sp):
+        if x.name == "pps.level.schur_S":
+            up = _ancestors(sp, i)
+            assert up[0] == "pps.krylov.operator" and up[-1] == "pps.solver.solve_schur"
+            kids = [y.name for y in sp if y.parent == i]
+            assert kids == ["pps.level.patch_solve", "pps.level.interpolate"]
+        if x.name == "pps.gmg.vcycle":
+            assert _ancestors(sp, i)[0] == "pps.krylov.precond"
+    if mode:
+        assert sorted(s._captured) == [("schur", "gmg"), ("schur", "gmg", "stamped")]
+        pieces = {x.name for x in sp if x.name.startswith("pps.graphs.piece.")}
+        assert pieces == {f"pps.graphs.piece.{n}" for n in ("init", "step", "recover")}
+        rhs = names.index("pps.solver.schur_rhs")
+        assert sp[sp[rhs].parent].name == "pps.graphs.piece.init"
+    else:
+        assert s._captured == {}
+
+
+@pytest.mark.parametrize("mode", [False, True])
+def test_the_patch_solve_counter_counts_each_pass(emulated, mode):
+    """``level_ops.solved``: an interface solve of ``k`` iterations makes
+    ``2k + 2`` patch-solve passes (two operator applies an iteration, the
+    right-hand side and the recovery), each over every patch; the counter
+    zeroes, and a read is a copy."""
+    from pressurepoissonsolver_torch.ops import level_ops
+
+    s, f = _solver()
+    s._graphs = mode
+    _schur(s, f)  # captures, where it does
+    level_ops.reset_solved()
+    assert level_ops.patch_solves() == {"passes": 0, "patches": 0}
+    _, r = _schur(s, f)
+    got = level_ops.patch_solves()
+    assert got["passes"] == 2 * r.iterations + 2
+    assert got["patches"] == got["passes"] * s.fine_level.P
+    got["passes"] = -1
+    assert level_ops.solved["passes"] == 2 * r.iterations + 2
+    level_ops.reset_solved()
+    assert level_ops.solved == {"passes": 0, "patches": 0}
+
+
+def test_the_patch_solve_counter_is_in_the_launch_accounting():
+    """The counter is one of the counters a captured piece accounts for, so
+    a graph launch adds a piece's patch solves times its passes."""
+    from pressurepoissonsolver_torch.ops import level_ops
+
+    assert any(c is level_ops.solved for c in graphs._counts())
+    level_ops.reset_solved()
+    delta = [{k: 0 for k in c} for c in graphs._counts()]
+    delta[-1] = {"passes": 1, "patches": 19}
+    graphs.add_launches(delta, 3)
+    assert level_ops.patch_solves() == {"passes": 3, "patches": 57}
+    level_ops.reset_solved()
+
+
+def test_schur_spans_off_record_nothing():
+    """With spans off an interface solve records no span and no stamp."""
+    s, f = _solver()
+    _schur(s, f)
+    assert profiling.host_spans() == [] and not profiling.device_spans_on()
