@@ -34,7 +34,12 @@ Phases, any failure of which raises and exits non-zero:
    to the reference and to the composite solve's solution, then profiled;
    the block-Jacobi sweep kernel (``csrc/patch_sweep.cu``) against its
    plain version at the benchmark's level shapes (``SWEEP_SHAPES``),
-   timed cold and warm against its bound (``sweep_kernels``);
+   timed cold and warm against its bound (``sweep_kernels``); the grid
+   transfers' kernel (``csrc/transfer.cu``) against the plain chain on the
+   benchmark cells' hierarchies (``TRANSFER_SHAPES``), timed cold and warm
+   against its byte bound, and the plain chain at the 2D cell's last
+   transfer profiled kernel by kernel (``transfer_kernels``); a main-path
+   solve at n=16 whose every sweep and transfer takes its kernel;
 4. 3D: the same for the 3D kernel and the 3D FAC solve of
    ``scripts/bench3d.py`` with its defaults, on a generated mesh
    (``refined_tree(3, 3, 2)`` refined once, n=32, 624 patches, 20,447,232
@@ -336,6 +341,10 @@ GUARD_REPLACES = "pressurepoissonsolver_tpu/krylov.py:213"
 # counterpart; it stands for the reference's sweep as XLA ops
 SWEEP_SOURCE = "pressurepoissonsolver_torch/csrc/patch_sweep.cu"
 SWEEP_REPLACES = "pressurepoissonsolver_tpu/ops/level_ops.py::_spectral_apply"
+# the grid transfers' kernel: a kernel of the port with no Pallas
+# counterpart; it stands for the reference's transfers as XLA ops
+TRANSFER_SOURCE = "pressurepoissonsolver_torch/csrc/transfer.cu"
+TRANSFER_REPLACES = "pressurepoissonsolver_tpu/gmg.py::Transfer"
 # patch shapes (P, n) off the main path, checked against the plain version;
 # n=6 in f32 and n=1 take the kernels' one-element-per-thread path
 ODD_SHAPES = {2: [(37, 12), (37, 6), (3, 1)], 3: [(37, 6), (3, 1)]}
@@ -441,6 +450,177 @@ def check_kernels(torch, gs, timer, card, bw, D, shapes):
     return table
 
 
+# the transfer kernel: the benchmark cells' 2D mesh (benchmark/configs/
+# poisson2d-amr*.json: 16 x 16 leaves, the leaves inside the corner squares
+# of these sides refined once each, 2:1 balanced, then every leaf divided)
+# at n=16; (label, divide, transfer) of its timed shapes: transfers 0-3 of
+# the divide-4 cell (the first three mostly pass-through rows, the fourth
+# all parents) and 0 and 6 of the divide-2 cell (6: 64 -> 16 patches, the
+# last before the coarse solve)
+CELL_CORNERS = (0.375, 0.1875, 0.0625)
+TRANSFER_SHAPES = [("d4-T0", 4, 0), ("d4-T1", 4, 1), ("d4-T2", 4, 2), ("d4-T3", 4, 3),
+                   ("2d-T0", 2, 0), ("2d-T6", 2, 6)]
+
+
+def cell_tree(divide):
+    """The benchmark cells' 2D mesh at ``divide``, built with the port's
+    own geometry (``CELL_CORNERS``) and read back from a mesh file, as the
+    benchmark hands it to the program (the file sets the tree's levels)."""
+    from pressurepoissonsolver_torch import geometry
+
+    t = geometry.uniform_tree(2, 5)
+    for side in CELL_CORNERS:
+        for nid in sorted(t.leaves()):
+            node = t.nodes[nid]
+            if not node.has_children() and np.all(node.starts + node.lengths <= side):
+                geometry._refine_with_balance(t, nid)
+    for _ in range(divide):
+        t.refine_leaves()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.bin")
+        t.to_file(path)
+        return geometry.Tree.from_file(path, 2)
+
+
+def level_stub(torch, pl, dtype, device):
+    """What ``gmg.Transfer`` reads of a level, without building one."""
+    return types.SimpleNamespace(pl=pl, P=pl.num_patches, D=pl.D, n=pl.n, dtype=dtype,
+                                 device=torch.device(device))
+
+
+def transfer_bytes(P_out, P_in, n, itemsize, prolong):
+    """Bytes one transfer must move: restriction the fine field read and the
+    coarse one written, with its ``[Pc, 5]`` table; prolong-add ``u`` read,
+    the result written and the coarse field read, with its ``[Pf, 2]``
+    table (``P_out`` the output's slots, ``P_in`` the other field's)."""
+    cells = n * n * itemsize
+    if prolong:
+        return 2 * P_out * cells + P_in * cells + 8 * P_out
+    return P_in * cells + P_out * cells + 20 * P_out
+
+
+def profile_kernels(torch, fn, reps=3):
+    """``fn()`` ``reps`` times under ``torch.profiler``: per kernel of the
+    last call, in launch order, its name, device microseconds, grid and
+    block, read from the exported trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    per = len(kernels) // reps if reps else 0
+    return [{"name": e["name"], "us": e["dur"], "grid": e.get("args", {}).get("grid"),
+             "block": e.get("args", {}).get("block")} for e in kernels[-per:]] if per else []
+
+
+def transfer_kernels(torch, timer, card, bw, shapes=TRANSFER_SHAPES) -> dict:
+    """The transfer kernel against the plain chain (``Transfer.restrict_plain``
+    / ``prolong_add_plain``) on the transfers of ``shapes``, f32, both
+    directions, constant prolongation (the cells' cycle): the restriction
+    within 1e-6 of max|out|, the prolong-add bit for bit; device ms cold
+    (inputs rotated over copies exceeding 4x the L2) and warm, kernel and
+    plain, against the byte bound (``transfer_bytes`` at ``bw``); then the
+    f64 and linear instances checked at the 2D shapes, and the plain chain
+    at the 2D cell's last transfer profiled kernel by kernel (GEMM tiles,
+    grids, split-K).  Runs alone::
+
+        python3 -c "import torch, chip_smoke as c; from
+        pressurepoissonsolver_torch.utils import profiling, timer;
+        c.transfer_kernels(torch, timer, profiling.card_line(),
+        profiling._device_bw('cuda'))"
+    """
+    from pressurepoissonsolver_torch.domain import DomainHierarchy
+    from pressurepoissonsolver_torch.gmg import Transfer
+    from pressurepoissonsolver_torch.ops import transfer
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    hier = {d: DomainHierarchy(cell_tree(d), n=16) for d in sorted({d for _, d, _ in shapes})}
+    print(f"transfer kernel: cell hierarchies {[[pl.num_patches for pl in h.levels] for h in hier.values()]} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    table = {}
+    for label, divide, k in shapes:
+        h = hier[divide]
+        n = h.levels[k].n
+        for dtype, modes in ((torch.float32, ("constant",)),
+                             (torch.float64, ("constant", "linear")),
+                             (torch.float32, ("linear",))):
+            for mode in modes:
+                timed = dtype == torch.float32 and mode == "constant"
+                if not timed and divide == 4:
+                    continue  # the other instances at the 2D shapes only
+                fine, coarse = (level_stub(torch, h.levels[i], dtype, dev) for i in (k, k + 1))
+                t = Transfer(fine, coarse, prolong_mode=mode)
+                assert t._kt is not None, label
+
+                def inputs():
+                    return [torch.randn(fine.P, n, n, device=dev, dtype=dtype),
+                            torch.randn(coarse.P, n, n, device=dev, dtype=dtype)]
+
+                x, c = inputs()
+                before = transfer.transfers()
+                got_r, got_p = t.restrict(x), t.prolong_add(c, x)
+                torch.cuda.synchronize()
+                after = transfer.transfers()
+                name = str(dtype).replace("torch.", "")
+                assert after["kernel"][name] == before["kernel"][name] + 2, label
+                assert after["plain"] == before["plain"], label
+                ref_r, ref_p = t.restrict_plain(x), t.prolong_add_plain(c, x)
+                err_r = float((got_r - ref_r).abs().max() / ref_r.abs().max())
+                err_p = float((got_p - ref_p).abs().max() / ref_p.abs().max())
+                line = (f"kernel transfer {label} {name} {mode} Pf={fine.P} Pc={coarse.P} n={n} "
+                        f"[{card}]: restrict max|err|/max = {err_r:.3e}, prolong_add "
+                        f"{err_p:.3e}")
+                tol = 1e-6 if dtype == torch.float32 else 1e-14
+                if not (err_r <= tol and (err_p == 0 if mode == "constant" else err_p <= tol)):
+                    raise AssertionError(line)
+                if not timed:
+                    print(line, flush=True)
+                    continue
+                row = {"Pf": fine.P, "Pc": coarse.P, "n": n, "max_rel_err_restrict": err_r}
+                for op, P_out, P_in, fn_k, fn_p in (
+                        ("restrict", coarse.P, fine.P, lambda a, b: t.restrict(a),
+                         lambda a, b: t.restrict_plain(a)),
+                        ("prolong", fine.P, coarse.P, lambda a, b: t.prolong_add(b, a),
+                         lambda a, b: t.prolong_add_plain(b, a))):
+                    nbytes = transfer_bytes(P_out, P_in, n, 4, op == "prolong")
+                    sets = [[x, c]] + [inputs() for _ in range(timer.cold_sets(nbytes) - 1)]
+                    r = {"bytes": nbytes, "bound_ms": 1e3 * nbytes / bw}
+                    for which, fn in (("kernel", fn_k), ("plain", fn_p)):
+                        r[f"{which}_ms"] = timer.cold_median_ms(fn, sets)
+                        r[f"{which}_warm_ms"] = timer.cuda_median_ms(lambda: fn(x, c), reps=50,
+                                                                     hold=True)
+                    row[op] = r
+                    del sets
+                    line += (f"; {op} device ms cold: kernel {r['kernel_ms']:.5f} "
+                             f"({100 * r['bound_ms'] / r['kernel_ms']:.1f}% of the bound "
+                             f"{r['bound_ms']:.5f}, {nbytes / 1e6:.1f} MB) plain "
+                             f"{r['plain_ms']:.5f}; warm kernel {r['kernel_warm_ms']:.5f} "
+                             f"plain {r['plain_warm_ms']:.5f}")
+                print(line, flush=True)
+                print("TRANSFER_JSON " + json.dumps({"label": label, "card": card, **row}),
+                      flush=True)
+                table[label] = row
+                if label == "2d-T6":
+                    for op, fn in (("restrict", lambda: t.restrict_plain(x)),
+                                   ("prolong", lambda: t.prolong_add_plain(c, x))):
+                        ks = profile_kernels(torch, fn)
+                        print(f"plain {op} at {label} (Pf={fine.P}, Pc={coarse.P}), kernel by "
+                              f"kernel: " + json.dumps(ks), flush=True)
+                        row[f"plain_{op}_kernels"] = ks
+                del x, c, got_r, got_p, ref_r, ref_p
+    return table
+
+
 # (label, level slots, active slots or None, n) of the sweep kernel's
 # timed shapes: level 0 of the benchmark's 2D cells (divide 2 and 4) and
 # level 2 of the divide-4 cell (its FAC active set, 16 x the divide-2
@@ -539,11 +719,12 @@ def sweep_kernels(torch, timer, card, bw, shapes=SWEEP_SHAPES) -> dict:
 
 
 def sweep_solve(torch, port, gs) -> dict:
-    """The sweep kernel's launches in a main-path solve: ``solve_refined``
-    (one graph launch) of a 2D adaptive mesh at the cells' n=16 with their
-    cycle (f32 V(2,1), FAC active sets), every launch count set to 0 just
-    before it and read just after; every sweep takes the kernel."""
-    from pressurepoissonsolver_torch.ops import patch_sweep
+    """The sweep and transfer kernels' launches in a main-path solve:
+    ``solve_refined`` (one graph launch) of a 2D adaptive mesh at the cells'
+    n=16 with their cycle (f32 V(2,1), FAC active sets), every launch count
+    set to 0 just before it and read just after; every sweep and every
+    transfer takes its kernel.  ``{"sweeps": ..., "transfers": ...}``."""
+    from pressurepoissonsolver_torch.ops import patch_sweep, transfer
 
     hier = port.DomainHierarchy(port.refined_tree(2, 4, 2), n=16)
     opts = port.SolveOptions(
@@ -554,14 +735,16 @@ def sweep_solve(torch, port, gs) -> dict:
     f, exact = port.init_problem(hier.finest, port.get_problem("trig", 2))
     gs.reset_launches()
     patch_sweep.reset_launches()
+    transfer.reset_launches()
     u, info = solver.solve_refined(f, tol=1e-10, inner_tol=1e-4)
-    counts = patch_sweep.sweeps()
+    counts = {"sweeps": patch_sweep.sweeps(), "transfers": transfer.transfers()}
     rep = solver.report(u, f, exact)
     print(f"sweep solve (n=16, one graph launch): outer {info['outer_iterations']} inner "
-          f"{info['inner_iterations']} residual {rep['residual']:.3e}; sweeps {counts}",
+          f"{info['inner_iterations']} residual {rep['residual']:.3e}; {counts}",
           flush=True)
     assert rep["residual"] <= 1e-10, rep
-    assert counts["kernel"]["float32"] > 0 and not any(counts["plain"].values()), counts
+    for c in counts.values():
+        assert c["kernel"]["float32"] > 0 and not any(c["plain"].values()), counts
     return counts
 
 
@@ -2201,7 +2384,9 @@ def kron_op_flops(op, form, D, n):
 
 def kron_op_times(torch, port, card, bw):
     """Phase 8 (b): the spectral patch solve of the finest level and its
-    ``restrict`` and ``prolong_add`` (constant) on the Kronecker form (the
+    plain ``restrict`` and ``prolong_add`` (constant; ``restrict_plain`` /
+    ``prolong_add_plain``, the chain the transfer kernel replaces on a
+    2D card level) on the Kronecker form (the
     knob raised to n at n=32) against the per-axis form (knob 0), f32, on
     uniform trees of ``KRON_OP_TREES``: the two forms agree within 1e-5 of
     max|out|; device ms cold (inputs rotated beyond the L2) and warm, in
@@ -2243,9 +2428,9 @@ def kron_op_times(torch, port, card, bw):
                 ops[form] = {
                     "spectral": (lambda v, st=st: _spectral_apply(st, v, D, n),
                                  3 * field + nbytes(mats[0]), fine.P),
-                    "restrict": (t.restrict, field + uc.numel() * 4 + nbytes(mats[1]),
+                    "restrict": (t.restrict_plain, field + uc.numel() * 4 + nbytes(mats[1]),
                                  fine.P),
-                    "prolong": (lambda v, t=t: t.prolong_add(uc, v),
+                    "prolong": (lambda v, t=t: t.prolong_add_plain(uc, v),
                                 2 * field + uc.numel() * 4 + nbytes(mats[2]), fine.P)}
             B = profiling.rotation_buffers("cuda", field)
             for op in ("spectral", "restrict", "prolong"):
@@ -3159,10 +3344,10 @@ def build_kernels(cuda_build) -> None:
 
     t0 = time.perf_counter()
     cuda_build.build_all()
-    print(f"built the six kernel libraries in {time.perf_counter() - t0:.2f} s",
+    print(f"built the seven kernel libraries in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for lib in ("ghost_stencil", "ghost_stencil_3d", "ghost_faces", "graph_loop",
-                "patch_sweep_f32", "patch_sweep_f64"):
+                "patch_sweep_f32", "patch_sweep_f64", "transfer"):
         info = cuda_build.build_info[lib]
         print(f"  {lib}: nvcc {info['seconds']:.2f} s", flush=True)
         for line in info["log"].splitlines():
@@ -3224,7 +3409,9 @@ def main() -> None:
                   coarse_direct_max_dof=4096))
     tables = {2: check_kernels(torch, gs, timer, card, bw, 2, stencil_shapes(solver))}
     sweep_table = sweep_kernels(torch, timer, card, bw)
-    sweep_counts = sweep_solve(torch, port, gs)
+    transfer_table = transfer_kernels(torch, timer, card, bw)
+    solve_counts = sweep_solve(torch, port, gs)
+    sweep_counts = solve_counts["sweeps"]
     solve_small(torch, port)
     u_ir, launches2 = solve_bench(torch, solver, f, exact, gs, timer, card)
     launches = {2: launches2}
@@ -3338,6 +3525,24 @@ def main() -> None:
             "max_abs_err": sweep_table["d4-L0"]["max_abs_err"],
             "shapes": sweep_table,
         }
+    ] + [
+        {
+            "name": f"transfer_{op}_float32",
+            "route": "cuda",
+            "source": TRANSFER_SOURCE,
+            "replaces": TRANSFER_REPLACES,
+            # the transfers of the main-path solve at n=16 (sweep_solve),
+            # restrictions and prolong-adds together
+            "launches": solve_counts["transfers"]["kernel"]["float32"],
+            "plain_launches": solve_counts["transfers"]["plain"]["float32"],
+            # cold, at the d4 cell's first transfer; every shape below
+            "ms": transfer_table["d4-T0"][op]["kernel_ms"],
+            "warm_ms": transfer_table["d4-T0"][op]["kernel_warm_ms"],
+            "plain_ms": transfer_table["d4-T0"][op]["plain_ms"],
+            "bound_ms": transfer_table["d4-T0"][op]["bound_ms"],
+            "shapes": {label: row[op] for label, row in transfer_table.items()},
+        }
+        for op in ("restrict", "prolong")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -83,11 +83,11 @@ def build_all() -> None:
     one nvcc per library in a thread of its own: the port's set-up on a
     card calls it before its first launch, so that a fresh checkout waits
     for the slowest build rather than for their sum."""
-    from .ops import ghost_stencil, patch_sweep
+    from .ops import ghost_stencil, patch_sweep, transfer
     from .utils import graphs
 
     jobs = (lambda: ghost_stencil.build(2), lambda: ghost_stencil.build(3),
-            ghost_stencil.build_faces, graphs.build, patch_sweep.build)
+            ghost_stencil.build_faces, graphs.build, patch_sweep.build, transfer.build)
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         for fut in [pool.submit(job) for job in jobs]:
             fut.result()

@@ -2,10 +2,13 @@
 
 Port of ``pressurepoissonsolver_tpu.gmg`` (the reference's ``GMG::*``
 layer, SURVEY.md §2.7).  Transfers between a fine and a coarse
-:class:`~pressurepoissonsolver_torch.ops.level_ops.Level` are row gathers
-driven by host-precomputed parent-slot tables followed by small per-axis
-matmuls (in f32 at ``n <= kron_max_n()``, the reference's Kronecker form:
-one ``[n^2, n^2]`` matmul per orthant in 2D, a z matmul and one in 3D):
+:class:`~pressurepoissonsolver_torch.ops.level_ops.Level` are driven by
+host-precomputed parent-slot tables.  Between 2D levels on a card (n a
+multiple of 4, f32 or f64) each transfer is one launch of the kernel of
+:mod:`.ops.transfer`; the plain chain, which the CPU, 3D and other n run,
+is row gathers followed by small per-axis matmuls (in f32 at ``n <=
+kron_max_n()``, the reference's Kronecker form: one ``[n^2, n^2]`` matmul
+per orthant in 2D, a z matmul and one in 3D):
 
 * Restriction (``GMG::AvgRstr``, ``GMG/AvgRstr.h:53-113``): each fine patch
   average-pools 2^D cells into one and adds the result into its orthant
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from .domain import DomainHierarchy, parent_slots
+from .ops import transfer
 from .ops.level_ops import ActiveSmoother, Level, kron_max_n, np_dtype
 from .ops.patch_sweep import axis_matmul
 from .utils import profiling
@@ -145,6 +149,12 @@ class Transfer:
     ``prolong_mode``: ``"constant"`` — piecewise-constant injection
     (reference ``GMG::DrctIntp``, the factory default); ``"linear"`` —
     cell-centered bi/trilinear prolongation (reference ``GMG::TriLinIntp``).
+
+    On a CUDA tensor, a transfer between 2D levels on a card at n a
+    multiple of 4 in f32 or f64 (``ops.transfer.kernel_fits``) is one
+    kernel launch (:mod:`.ops.transfer`); every other transfer runs the
+    plain chain (``restrict_plain`` / ``prolong_add_plain``), counted in
+    ``ops.transfer.plain`` on a card.
     """
 
     @profiling.spanned("pps.gmg.transfer", device=False)
@@ -202,15 +212,17 @@ class Transfer:
         Pf, Pc = fine.P, coarse.P
         child_slot = np.full((Pc, 1 << D), Pf, dtype=np.int64)
         pt_slot = np.full(Pc, Pf, dtype=np.int64)
-        for i in range(Pf):
-            ps = pslots[i]
-            if ps < 0:
-                continue  # padded dummy patch
-            if passthrough[i]:
-                pt_slot[ps] = i
-            else:
-                child_slot[ps, orth[i]] = i
+        real = pslots >= 0  # not a padded dummy patch
+        sel = np.where(real & passthrough)[0]
+        pt_slot[pslots[sel]] = sel
+        sel = np.where(real & ~passthrough)[0]
+        child_slot[pslots[sel], orth[sel]] = sel
         self._pt_slot = up(pt_slot)
+        # the kernel's tables (ops.transfer), where it fits
+        self._kt = None
+        if transfer.kernel_fits(D, n, fine.dtype, dev):
+            self._kt = transfer.transfer_tables(child_slot, pt_slot, pslots, orth, n,
+                                                prolong_mode == "linear", dev)
         # parent-compact restriction: on pass-through-heavy coarse levels
         # most child_slot rows are padding — pool over just the parent rows
         # and route back with one row gather
@@ -249,9 +261,27 @@ class Transfer:
         return blk.reshape(blk_flat.shape[0], -1)
 
     def restrict(self, fine_u: torch.Tensor) -> torch.Tensor:
-        """Cell-averaging restriction into a new coarse-level vector: per
-        orthant, gather the full child patches by the coarse-side child
-        table and accumulate them through the averaging matrices."""
+        """Cell-averaging restriction into a new coarse-level vector: one
+        kernel launch where the transfer has the kernel's tables and the
+        field is on the card, else :meth:`restrict_plain`."""
+        if self._kt is not None and fine_u.is_cuda:
+            return transfer.restrict(self._kt, fine_u)
+        transfer.count_plain(fine_u)
+        return self.restrict_plain(fine_u)
+
+    def prolong_add(self, coarse_u: torch.Tensor, fine_u: torch.Tensor) -> torch.Tensor:
+        """Prolongation (constant or linear) added into ``fine_u``, as a new
+        tensor: one kernel launch where the transfer has the kernel's tables
+        and the fields are on the card, else :meth:`prolong_add_plain`."""
+        if self._kt is not None and fine_u.is_cuda:
+            return transfer.prolong_add(self._kt, coarse_u, fine_u)
+        transfer.count_plain(fine_u)
+        return self.prolong_add_plain(coarse_u, fine_u)
+
+    def restrict_plain(self, fine_u: torch.Tensor) -> torch.Tensor:
+        """The plain version of :meth:`restrict`: per orthant, gather the
+        full child patches by the coarse-side child table and accumulate
+        them through the averaging matrices."""
         Pf = fine_u.shape[0]
         cells = self._cells
         fine_flat = torch.cat(
@@ -268,10 +298,10 @@ class Transfer:
         out = assembled + fine_flat.index_select(0, self._pt_slot)
         return out.reshape((-1,) + tuple(fine_u.shape[1:]))
 
-    def prolong_add(self, coarse_u: torch.Tensor, fine_u: torch.Tensor) -> torch.Tensor:
-        """Prolongation (constant or linear), added into ``fine_u``: compute
-        each orthant group's blocks, stack them with the pass-through rows,
-        and route rows to fine slots with one precomputed row gather."""
+    def prolong_add_plain(self, coarse_u: torch.Tensor, fine_u: torch.Tensor) -> torch.Tensor:
+        """The plain version of :meth:`prolong_add`: compute each orthant
+        group's blocks, stack them with the pass-through rows, and route
+        rows to fine slots with one precomputed row gather."""
         cells = self._cells
         cflat = coarse_u.reshape(coarse_u.shape[0], cells)
         parts = [

@@ -68,7 +68,7 @@ import torch
 from .. import cuda_build
 from ..krylov import (KrylovLoop, KrylovResult, While, _scalar, host_read, program,
                       read_flag)
-from ..ops import ghost_stencil, patch_sweep
+from ..ops import ghost_stencil, patch_sweep, transfer
 from . import profiling
 from .profiling import span
 
@@ -150,12 +150,13 @@ def count_nodes(graph) -> int:
 
 def _counts() -> tuple:
     """Every launch counter a captured piece accounts for: the stencil
-    kernels' (``ghost_stencil``), the sweep kernel's (``patch_sweep``) and
-    the patch solves' (``level_ops.solved``)."""
+    kernels' (``ghost_stencil``), the sweep kernel's (``patch_sweep``), the
+    transfers' (``transfer``) and, last, the patch solves'
+    (``level_ops.solved``)."""
     from ..ops import level_ops  # which imports this module
 
     return (*ghost_stencil.counter_dicts(), patch_sweep.launches, patch_sweep.plain,
-            level_ops.solved)
+            transfer.launches, transfer.plain, level_ops.solved)
 
 
 def counters() -> list:

@@ -16,7 +16,11 @@ one graph launch and one host read per solve, none with
 step limits, new inputs without a new capture, the stencil nodes of each
 WHILE body against the accounting); the block-Jacobi sweep kernel
 (``csrc/patch_sweep.cu``) against its plain version, for every wall set,
-n, dtype, full and active sweeps, and its nodes inside WHILE bodies.
+n, dtype, full and active sweeps, and its nodes inside WHILE bodies; the
+grid transfers' kernel (``csrc/transfer.cu``) against the plain chain on
+every transfer of the benchmark cells' hierarchy at divide 0 and 1, both
+prolongation modes and dtypes, its copies of strided inputs and its
+refusals, and the transfers of one-launch solves all on the kernel.
 
 Every test here needs a card and skips without one (the CUDA kernel has no
 CPU mode).  This file imports no JAX, so it runs on a machine without it;
@@ -35,7 +39,7 @@ from pressurepoissonsolver_torch.domain import DomainHierarchy
 from pressurepoissonsolver_torch.geometry import refined_tree
 from pressurepoissonsolver_torch.gmg import CycleOpts, build_gmg
 from pressurepoissonsolver_torch.ops import ghost_stencil as gs
-from pressurepoissonsolver_torch.ops import level_ops, patch_sweep
+from pressurepoissonsolver_torch.ops import level_ops, patch_sweep, transfer
 from pressurepoissonsolver_torch.ops.level_ops import ActiveSmoother, Level, extract_faces
 from pressurepoissonsolver_torch.ops.patch_sweep import _spectral_apply
 from pressurepoissonsolver_torch.problems import get_problem, init_problem
@@ -1026,13 +1030,14 @@ LOOP_CASES = [(2, c) for c in LOOP_SOLVES] + [(3, "refined-bicgstab"), (3, "solv
 def _counted(s, f, how, **kw):
     """One solve with every launch counter set to 0 just before it:
     ``(u, counts, kernel counters (``graphs.counters()``: the stencils',
-    the sweep's and the patch solves'), graph_loop counters, host reads made
-    inside the solve)``."""
+    the sweep's, the transfers' and the patch solves'), graph_loop counters,
+    host reads made inside the solve)``."""
     from pressurepoissonsolver_torch import krylov
     from pressurepoissonsolver_torch.utils import graphs
 
     gs.reset_launches()
     patch_sweep.reset_launches()
+    transfer.reset_launches()
     graphs.reset_launches()
     level_ops.reset_solved()
     reads = krylov.reads["host"]
@@ -1863,3 +1868,107 @@ def test_patch_sweep_kernel_counts_once_per_pass_of_a_while_body(cuda):
     got = {level: sum("patch_sweep_kernelI" in name for name in graph_nodes(raw)[0])
            for level, raw in levels.items()}
     assert got == want and sum(want.values()) > 0
+
+
+# -- the grid transfers' kernel: csrc/transfer.cu ---------------------------------
+
+def _cell_transfers(cuda, divide, dtype, mode):
+    """Every transfer of the V-cycle on the benchmark cells' 2D hierarchy
+    at ``divide`` (n=16), on stand-in levels (``chip_smoke.level_stub``)."""
+    from chip_smoke import cell_tree, level_stub
+
+    from pressurepoissonsolver_torch.gmg import Transfer
+
+    h = DomainHierarchy(cell_tree(divide), n=16)
+    levels = [pl for pl in h.levels if pl.num_patches * 256 > 4096] + [
+        next(pl for pl in h.levels if pl.num_patches * 256 <= 4096)]
+    stubs = [level_stub(torch, pl, dtype, cuda) for pl in levels]
+    return [Transfer(stubs[k], stubs[k + 1], prolong_mode=mode) for k in range(len(stubs) - 1)]
+
+
+def _transfer_kernel_takes(launch):
+    """``launch()``, which must be one launch of the transfer kernel and no
+    plain transfer."""
+    before = transfer.transfers()
+    out = launch()
+    torch.cuda.synchronize()
+    after = transfer.transfers()
+    assert after["plain"] == before["plain"]
+    assert sum(after["kernel"].values()) == sum(before["kernel"].values()) + 1
+    return out
+
+
+@pytest.mark.parametrize("divide", [0, 1])
+@pytest.mark.parametrize("mode", ["constant", "linear"])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_transfer_kernel_matches_plain(cuda, dt, mode, divide):
+    """On every transfer of the cells' V-cycle (pass-through, parent-compact
+    and all-parent transfers): ``restrict`` and ``prolong_add`` launch the
+    kernel once each and agree with the plain chain on the same CUDA
+    tensors, within 1e-6 (f32) / 1e-14 (f64) of max|out|, the constant
+    prolong-add bit for bit."""
+    rng = np.random.default_rng(divide)
+    tol = {"f32": 1e-6, "f64": 1e-14}[dt]
+    ts = _cell_transfers(cuda, divide, DTYPES[dt], mode)
+    assert len(ts) == 5 + divide and any(t._r_inv is not None for t in ts)
+    for t in ts:
+        assert t._kt is not None
+        x, u = (torch.as_tensor(rng.standard_normal((t.fine.P, 16, 16)), dtype=DTYPES[dt],
+                                device=cuda) for _ in range(2))
+        c = torch.as_tensor(rng.standard_normal((t.coarse.P, 16, 16)), dtype=DTYPES[dt],
+                            device=cuda)
+        got = _transfer_kernel_takes(lambda: t.restrict(x))
+        assert _rel(t.restrict_plain(x), got) <= tol
+        got = _transfer_kernel_takes(lambda: t.prolong_add(c, u))
+        ref = t.prolong_add_plain(c, u)
+        if mode == "constant":
+            assert torch.equal(got, ref)
+        else:
+            assert _rel(ref, got) <= tol
+
+
+def test_transfer_kernel_copies_strided_inputs_and_refuses_others(cuda):
+    """A field at an element offset (not 16-byte aligned) or a strided one is
+    copied and transferred by the kernel, bit for bit as its contiguous
+    copy; a field of another dtype than f32 / f64, fields of two dtypes, a
+    field on the CPU beside one on the card, or another shape raise."""
+    t = _cell_transfers(cuda, 0, torch.float32, "constant")[0]
+    P, Pc = t.fine.P, t.coarse.P
+    x = torch.randn(P * 256 + 1, device=cuda)[1:].view(P, 16, 16)
+    u = torch.randn(P, 16, 32, device=cuda)[:, :, ::2]
+    c = torch.randn(Pc, 32, 16, device=cuda)[:, ::2]
+    assert x.data_ptr() % 16 and not u.is_contiguous() and not c.is_contiguous()
+    got = _transfer_kernel_takes(lambda: t.restrict(x))
+    assert torch.equal(got, t.restrict(x.clone()))
+    got = _transfer_kernel_takes(lambda: t.prolong_add(c, u))
+    assert torch.equal(got, t.prolong_add(c.contiguous(), u.contiguous()))
+    x = x.clone()
+    with pytest.raises(TypeError):
+        t.restrict(x.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        t.prolong_add(c.double(), x)
+    with pytest.raises(TypeError):
+        t.prolong_add(c.cpu(), x)
+    with pytest.raises(ValueError):
+        t.restrict(x[1:])
+    with pytest.raises(ValueError):
+        t.prolong_add(c[:, :8], x)
+
+
+@pytest.mark.parametrize("case", ["refined-bicgstab", "schur-gmg"])
+def test_one_launch_solve_runs_every_transfer_on_the_kernel(cuda, case):
+    """A one-launch ``solve_refined`` (the f32 V-cycle of the IR cells) and
+    ``solve_schur`` (the Woodbury V-cycle) count every transfer as a kernel
+    launch and none as plain, as many as the eager solve launches."""
+    opts, how = LOOP_SOLVES[case]
+    s, f, _ = _graph_solver(cuda, 2, **opts)
+    counted = {}
+    for mode in (True, False, True):
+        s._graphs = mode
+        u, counts, _, _, _ = _counted(s, f, how)
+        counted.setdefault(mode, []).append((u, counts, transfer.transfers()))
+    ref = counted[False][0][2]
+    assert ref["kernel"]["float32"] > 0 and not any(ref["plain"].values())
+    for runs in counted.values():
+        for u, counts, got in runs:
+            assert got == ref and torch.equal(u, counted[False][0][0])
