@@ -733,9 +733,7 @@ def sweep_solve(torch, port, gs) -> dict:
                              coarse_direct_max_dof=64))
     solver = port.PoissonSolver(hier, opts, device="cuda")
     f, exact = port.init_problem(hier.finest, port.get_problem("trig", 2))
-    gs.reset_launches()
-    patch_sweep.reset_launches()
-    transfer.reset_launches()
+    reset_counters()
     u, info = solver.solve_refined(f, tol=1e-10, inner_tol=1e-4)
     counts = {"sweeps": patch_sweep.sweeps(), "transfers": transfer.transfers()}
     rep = solver.report(u, f, exact)
@@ -875,7 +873,7 @@ def timed_solves(torch, solver, f, exact, card, label, gs, D, **kw):
     launch count set to 0 just before them; the last solution, its info
     and report, and the ``D``-dimensional kernel's launches per dtype and
     per width as read just after the solves."""
-    gs.reset_launches()
+    reset_counters()
     times = []
     for rep_i in range(4):
         torch.cuda.synchronize()
@@ -962,7 +960,7 @@ def check_identity(torch, solver, gs, card):
     relative to the folded right-hand side ``f - G g`` the solve sees (its
     ghost terms ``2 g / h^2`` dwarf f)."""
     rng = np.random.default_rng(SEED + 2)
-    gs.reset_launches()
+    reset_counters()
     for lvl, rtol in ((solver.fine_level, 1e-12), (solver._fine_low, 1e-5)):
         f = torch.as_tensor(rng.standard_normal((lvl.P,) + lvl.pl.ns_shape),
                             dtype=lvl.dtype, device="cuda")
@@ -1004,7 +1002,7 @@ def schur_small(torch, port, gs, card):
         solver = port.PoissonSolver(hier, port.SolveOptions(
             tol=1e-10, dtype=torch.float64, precond_dtype=pdtype,
             gmg=port.CycleOpts(**SCHUR_SMALL_GMG), **kw), device="cuda")
-        gs.reset_launches()
+        reset_counters()
         if prec == "solve":
             res = solver.solve(f, max_iter=300)
             u = res.x
@@ -1038,7 +1036,7 @@ def solve_bench_schur(torch, solver, f, exact, u_ir, gs, card):
     (timed) and a profile of one Schur solve."""
     from pressurepoissonsolver_torch import matrix
 
-    gs.reset_launches()
+    reset_counters()
     times = []
     for rep_i in range(3):
         torch.cuda.synchronize()
@@ -1090,7 +1088,7 @@ def schur_small_3d(torch, port, gs, card):
     solver = port.PoissonSolver(hier, port.SolveOptions(
         tol=1e-10, dtype=torch.float64, precond_dtype=torch.float32), device="cuda")
     f, exact = port.init_problem(hier.finest, port.get_problem("trig", 3))
-    gs.reset_launches()
+    reset_counters()
     u, res = solver.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
     torch.cuda.synchronize()
     launches, widths = dict(gs.launches_3d), dict(gs.widths[3])
@@ -1140,7 +1138,7 @@ def cli_run(torch, cli, gs, D, argv):
     directory of ``argv``'s ``--out-json``), printed lines, and the
     ``D``-dimensional kernel's launches per dtype and per width, and the
     other dimension's launches."""
-    gs.reset_launches()
+    reset_counters()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(D, argv, device="cuda")
@@ -1340,7 +1338,7 @@ def bench_2d(torch, gs, card, warm_f32_ms):
     kernel, so neither is faster than its warm time."""
     from pressurepoissonsolver_torch import bench
 
-    gs.reset_launches()
+    reset_counters()
     out, ret = run_json(bench.main)
     torch.cuda.synchronize()
     # counters() also reads the launches its sync=False solves left on the card
@@ -1375,7 +1373,7 @@ def bench_3d(torch, port, gs, card, tmp):
     tree.refine_leaves()
     mesh = os.path.join(tmp, "bench3d_mesh.bin")
     tree.to_file(mesh)
-    gs.reset_launches()
+    reset_counters()
     with environ(PPS_BENCH3D_MESH=mesh):
         out, _ = run_json(bench3d.main)
     torch.cuda.synchronize()
@@ -1555,7 +1553,7 @@ def sharded_world1(torch, port, gs, card, u_ir, u_schur):
             assert not any(gs.launches_nogf[2].values()), "world 1 split an apply"
             assert not any(gs.launches_faces[2].values()), "world 1 split an apply"
 
-            gs.reset_launches()
+            reset_counters()
             times = []
             for rep_i in range(3):
                 torch.cuda.synchronize()
@@ -1961,7 +1959,7 @@ def sharded_rank(rank, world, tmp):
                 f"host-staged {op.comm.host_staged}{text}, setup {o['setup_s']:.2f} s, "
                 f"{o['setup_mib']:.1f} MiB on the card")
 
-            gs.reset_launches()
+            reset_counters()
             torch.cuda.reset_peak_memory_stats()
             (u, info), walls = timed(lambda: solver.solve_refined(f, tol=1e-10,
                                                                   inner_tol=1e-4))
@@ -1976,7 +1974,7 @@ def sharded_rank(rank, world, tmp):
                 f"{o['ir']['widths']}")
             ug = gather_patches(u, mesh).cpu().numpy()
 
-            gs.reset_launches()
+            reset_counters()
             (us, res), walls = timed(lambda: solver.solve_schur(
                 f, tol=1e-10, max_iter=60, preconditioner="gmg"))
             o["schur"] = {"iterations": res.iterations, "walls": walls, **counts(2),
@@ -1997,14 +1995,14 @@ def sharded_rank(rank, world, tmp):
                 o["dummy_2d"] = [int(op.P - nr), float(np.abs(ug[nr:]).max(initial=0.0)),
                                  float(np.abs(usg[nr:]).max(initial=0.0))]
             if comm == "halo":
-                gs.reset_launches()
+                reset_counters()
                 ov = halo_overlap(torch, dist, op, u.to(torch.float64), rank)
                 o["overlap"] = {**(ov or {}), **counts(2)}
                 if ov:
                     say(f"profiled halo apply (f64): {overlap_text(ov)}")
             del solver, f, exact, u, us, op
 
-        gs.reset_launches()
+        reset_counters()
         solver, f, exact = sharded_setup(torch, port, 3, 3, 2, 8, CycleOpts(), mesh,
                                          refine=False)
         (u, info), walls = timed(lambda: solver.solve_refined(f, tol=1e-10), reps=1)
@@ -2027,7 +2025,7 @@ def sharded_rank(rank, world, tmp):
         # set up again for the forms its cycle built
         js = os.path.join(tmp, "production.json")
         argv = CLI_KRON["production"][1] + ["--shards", str(world)]
-        gs.reset_launches()
+        reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
@@ -2600,6 +2598,36 @@ def graph_stencils(graph, D, bodies=None) -> dict:
     return stencil_nodes(graph_kernel_names(graph, bodies), D)
 
 
+def delta_stencils(delta, D) -> dict:
+    """The ``D``-dimensional stencil launches of a captured piece's counts
+    (a ``utils.counters.minus``), per dtype name."""
+    got = delta.get(f"ghost_stencil.{D}d", {})
+    return {dt: got.get(dt, 0) for dt in ("float32", "float64")}
+
+
+def level_launches(loop) -> dict:
+    """Per level of a composed ``utils.graphs.GraphLoop`` (``"root"`` or a
+    loop slot): the stencil launches of the pieces directly in it, per
+    dimension and dtype name, which the stencil kernel nodes of that
+    level's graph (``graph_levels``) must equal."""
+    from pressurepoissonsolver_torch.utils import graphs
+
+    out = {}
+
+    def walk(tree, level):
+        acc = out.setdefault(level, {D: {"float32": 0, "float64": 0} for D in (2, 3)})
+        for item in tree:
+            if isinstance(item, graphs._Loop):
+                walk(item.body, item.index)
+            else:
+                for D in (2, 3):
+                    for dt, v in delta_stencils(item.launches, D).items():
+                        acc[D][dt] += v
+
+    walk(loop.tree, "root")
+    return out
+
+
 def graph_levels(loop) -> dict:
     """Per level of a composed ``utils.graphs.GraphLoop`` (``"root"`` and
     each WHILE body by its loop slot): the stencil kernel nodes per
@@ -2626,7 +2654,7 @@ def profile_launches(torch, gs, solve, D):
     from pressurepoissonsolver_torch.utils.profiling import kernel_times
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gs.reset_launches()
+        reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         solve()
@@ -2660,7 +2688,7 @@ def graph_cell(torch, gs, card, label, solver, solve, D, cold=None):
     first = None
     for mode in [True, False] + [True, False, False, True, True, False][:2 * GRAPH_TURNS]:
         solver._graphs = CAPTURED if mode else False
-        gs.reset_launches()
+        reset_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         u, counts = solve()
@@ -2690,7 +2718,7 @@ def graph_cell(torch, gs, card, label, solver, solve, D, cold=None):
     traced = {m: prof[m][4] for m in prof}
     entry = next(iter(solver._captured.values()))
     nodes = graph_stencils(entry.graph, D)
-    per_step = dict(entry.launches[D - 2])
+    per_step = delta_stencils(entry.launches, D)
     profiled_same = all(prof[m][5] == counters for m in prof)
     read_launches = {dt: sum(c[D - 2][dt] for c in read) for dt in stencil}
     cap_s = sum(e.capture_s for e in solver._captured.values())
@@ -2785,13 +2813,19 @@ def graph_reads(torch, card, solver, f):
     return med
 
 
+def reset_counters():
+    """Every kernel's launch counter set to 0 (``utils.counters``)."""
+    from pressurepoissonsolver_torch.utils import counters
+
+    counters.reset()
+
+
 def gs_reset():
-    """Every launch counter of the port set to 0: the stencil wrappers'
-    and ``utils.graphs.launches``."""
-    from pressurepoissonsolver_torch.ops import ghost_stencil
+    """Every launch counter of the port set to 0: the kernels'
+    (``utils.counters``) and ``utils.graphs.launches``."""
     from pressurepoissonsolver_torch.utils import graphs
 
-    ghost_stencil.reset_launches()
+    reset_counters()
     graphs.reset_launches()
 
 
@@ -2909,11 +2943,11 @@ def loop_cell(torch, gs, card, label, solver, solve, D, sync_false=None, ref=Non
                   "counts": list(c2), "launches_equal": l2 == launched,
                   "graph_launches": loops2["graph"]}
     levels = graph_levels(gl)
-    want = gl.level_launches()
+    want = level_launches(gl)
     levels_ok = all(levels[lv]["stencils"] == want[lv] for lv in levels)
     # each loop inside a piece: its pass graph (the body of its WHILE
     # nodes) against its accounted launches
-    piece_loops = {slot: (graph_stencils(pl.graph, D), pl.launches[D - 2])
+    piece_loops = {slot: (graph_stencils(pl.graph, D), delta_stencils(pl.launches, D))
                    for slot, pl in gl.inner}
     levels_ok = levels_ok and all(a == b for a, b in piece_loops.values())
     allowed = {"kernel", "memcpy", "memset", "graph", "empty", "conditional"}
@@ -3162,7 +3196,7 @@ def graph_phase(torch, port, cli, gs, timer, card, head):
         for mode in (False, True)[1 if gmres_cell else 0:]:
             run = cli.setup(2, args, device="cuda", timer=timer.Timer())
             run.solver._graphs = mode
-            gs.reset_launches()
+            reset_counters()
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             cli.solve(run, args, timer.Timer("cuda"))
@@ -3346,8 +3380,7 @@ def build_kernels(cuda_build) -> None:
     cuda_build.build_all()
     print(f"built the seven kernel libraries in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    for lib in ("ghost_stencil", "ghost_stencil_3d", "ghost_faces", "graph_loop",
-                "patch_sweep_f32", "patch_sweep_f64", "transfer"):
+    for lib in cuda_build.LIBRARIES:
         info = cuda_build.build_info[lib]
         print(f"  {lib}: nvcc {info['seconds']:.2f} s", flush=True)
         for line in info["log"].splitlines():

@@ -6,6 +6,9 @@ as a shared library with a plain C interface: no PyTorch headers, so a
 build takes seconds.
 The file name carries a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.
+
+:data:`LIBRARIES` lists every library; a kernel's module loads its own
+(:func:`load_library`) and binds its C signatures on it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -27,6 +30,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+#: every kernel library: name -> (sources under ``csrc/``, ``-D`` macros)
+LIBRARIES = {
+    "ghost_stencil": (("ghost_stencil.cu",), ()),
+    "ghost_stencil_3d": (("ghost_stencil_3d.cu",), ()),
+    "ghost_faces": (("ghost_faces.cu",), ()),
+    "graph_loop": (("graph_loop.cu",), ()),
+    "patch_sweep_f32": (("patch_sweep.cu",), ()),
+    "patch_sweep_f64": (("patch_sweep.cu",), ("PPS_SWEEP_F64",)),
+    "transfer": (("transfer.cu",), ()),
+}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 #: per library: seconds the last build took (0.0 when loaded from the
@@ -45,13 +59,13 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def load_library(name: str, sources: Sequence[str],
-                 defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """Compile ``sources`` (file names under ``csrc/``), with the macros
-    ``defines`` (``-D`` arguments), into ``lib<name>-<hash>.so`` unless it
-    exists, and load it."""
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile the library ``name`` of :data:`LIBRARIES` (its sources, with
+    its macros) into ``lib<name>-<hash>.so`` unless it exists, and load
+    it."""
     if name in _libs:
         return _libs[name]
+    sources, defines = LIBRARIES[name]
     paths = [CSRC / s for s in sources]
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     h = hashlib.sha256(" ".join(flags).encode())
@@ -83,11 +97,6 @@ def build_all() -> None:
     one nvcc per library in a thread of its own: the port's set-up on a
     card calls it before its first launch, so that a fresh checkout waits
     for the slowest build rather than for their sum."""
-    from .ops import ghost_stencil, patch_sweep, transfer
-    from .utils import graphs
-
-    jobs = (lambda: ghost_stencil.build(2), lambda: ghost_stencil.build(3),
-            ghost_stencil.build_faces, graphs.build, patch_sweep.build, transfer.build)
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        for fut in [pool.submit(job) for job in jobs]:
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        for fut in [pool.submit(load_library, name) for name in LIBRARIES]:
             fut.result()

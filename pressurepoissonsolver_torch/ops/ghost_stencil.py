@@ -42,6 +42,11 @@ On a CUDA tensor the face term is a kernel of its own
 (``csrc/ghost_faces.cu``, one thread per boundary cell; counted in
 ``launches_faces``), on a CPU tensor its plain version
 :func:`add_ghost_faces_plain`.
+
+The counters are tables of ``utils.counters`` (``ghost_stencil.2d`` /
+``.3d``, ``ghost_stencil.nogf_<D>d``, ``ghost_stencil.widths_<D>d``,
+``ghost_faces.<D>d``), so that a captured launch is counted per replay;
+:func:`counters` reads them.
 """
 
 from __future__ import annotations
@@ -52,15 +57,17 @@ from typing import Optional
 import torch
 
 from .. import cuda_build
+from ..utils import counters as _counters
 
+_DT = ("float32", "float64")
 #: 2D kernel launches per dtype name ("float32", "float64")
-launches = {"float32": 0, "float64": 0}
+launches = _counters.table("ghost_stencil.2d", _DT)
 #: 3D kernel launches per dtype name
-launches_3d = {"float32": 0, "float64": 0}
+launches_3d = _counters.table("ghost_stencil.3d", _DT)
 #: per D: the launches of the no-gf mode per dtype name (also counted above)
-launches_nogf = {2: {"float32": 0, "float64": 0}, 3: {"float32": 0, "float64": 0}}
+launches_nogf = {D: _counters.table(f"ghost_stencil.nogf_{D}d", _DT) for D in (2, 3)}
 #: per D: kernel launches per elements per thread (1, 2 or 4)
-widths = {2: {1: 0, 2: 0, 4: 0}, 3: {1: 0, 2: 0, 4: 0}}
+widths = {D: _counters.table(f"ghost_stencil.widths_{D}d", (1, 2, 4)) for D in (2, 3)}
 #: per D: elements per thread of the last launch (0 before any)
 last_width = {2: 0, 3: 0}
 # the kernels' largest n (3D: a row of the plane tile is at most 512
@@ -68,70 +75,28 @@ last_width = {2: 0, 3: 0}
 _MAX_N = {2: 46340, 3: 512}
 
 _COUNTS = {2: launches, 3: launches_3d}
-# per D: library name, source under csrc/, C entry point prefix
-_LIBS = {2: ("ghost_stencil", "ghost_stencil.cu", "pps_ghost_stencil_2d"),
-         3: ("ghost_stencil_3d", "ghost_stencil_3d.cu", "pps_ghost_stencil_3d")}
+# per D: library name (``cuda_build.LIBRARIES``), C entry point prefix
+_LIBS = {2: ("ghost_stencil", "pps_ghost_stencil_2d"),
+         3: ("ghost_stencil_3d", "pps_ghost_stencil_3d")}
 _NAMES = {torch.float32: "float32", torch.float64: "float64"}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns = {}  # (D, dtype) -> ctypes function
 
 
-def counter_dicts() -> tuple:
-    """Every additive launch counter (``last_width`` is not one)."""
-    return (*_COUNTS.values(), *widths.values(), *launches_nogf.values(),
-            *launches_faces.values())
-
-
-def reset_launches() -> None:
-    _pending.clear()
-    for counts in counter_dicts():
-        for k in counts:
-            counts[k] = 0
-
-
-# The counters are host integers, bumped where a wrapper launches.  A CUDA
-# graph replays its kernels without the wrappers, so a captured piece is
-# accounted for by hand (``utils.graphs``): the difference of two
-# ``counters()`` around its capture is the piece's launches, taken back once
-# (the capture ran nothing) and added once per replay with ``add_launches``,
-# or, for a graph that runs its loops on the card, times the passes the
-# launch made.  A launch whose passes stay on the card until a later read
-# (``solve_refined(sync=False)``) leaves a report in ``_pending``: the next
-# ``counters()`` reads it and adds its launches.  ``last_width`` keeps the
-# capture's widths.
-
-#: launches counted on the card and not read yet: callables that read them
-#: and add them to the counters
-_pending: list = []
-
-
-def defer(report) -> None:
-    """Queue ``report()``, which reads launches counted on the card and
-    adds them, for the next :func:`counters`."""
-    _pending.append(report)
-
-
 def counters() -> list:
-    """A copy of every launch counter (``last_width`` is not one), after
-    the pending reports are read."""
-    while _pending:
-        _pending.pop(0)()
-    return [dict(c) for c in counter_dicts()]
-
-
-def add_launches(delta: list, sign: int = 1) -> None:
-    """Add ``sign`` times the launches ``delta`` (the difference of two
-    :func:`counters`) to the counters."""
-    for c, d in zip(counter_dicts(), delta):
-        for k, v in d.items():
-            c[k] += sign * v
+    """A copy of every launch counter of the module (``last_width`` is not
+    one), after the reports of launches counted on the card
+    (``utils.counters.flush``): the 2D and 3D launches, then ``widths``,
+    ``launches_nogf`` and ``launches_faces`` per D."""
+    _counters.flush()
+    return [dict(c) for c in (*_COUNTS.values(), *widths.values(), *launches_nogf.values(),
+                              *launches_faces.values())]
 
 
 def build(D: int = 2) -> ctypes.CDLL:
     """Compile (at first use) and load the ``D``-dimensional kernel's
     library."""
-    name, source, _ = _LIBS[D]
-    lib = cuda_build.load_library(name, [source])
+    lib = cuda_build.load_library(_LIBS[D][0])
     if (D, torch.float32) not in _fns:
         for dt, fn in bind(lib, D).items():
             _fns[D, dt] = fn
@@ -143,7 +108,7 @@ def bind(lib: ctypes.CDLL, D: int) -> dict:
     launch function per dtype."""
     fns = {}
     for dt, suffix in _SUFFIX.items():
-        fn = getattr(lib, f"{_LIBS[D][2]}_{suffix}")
+        fn = getattr(lib, f"{_LIBS[D][1]}_{suffix}")
         fn.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
         ]
@@ -289,14 +254,14 @@ def _launch(D, u, gf, coef, h2, out) -> int:
 # -- the face term of the split stencil: csrc/ghost_faces.cu -------------------
 
 #: per D: launches of the face-term kernel per dtype name
-launches_faces = {2: {"float32": 0, "float64": 0}, 3: {"float32": 0, "float64": 0}}
+launches_faces = {D: _counters.table(f"ghost_faces.{D}d", _DT) for D in (2, 3)}
 _faces_fns = {}  # (D, dtype) -> ctypes function
 
 
 def build_faces() -> ctypes.CDLL:
     """Compile (at first use) and load the face-term kernels' library
     (``csrc/ghost_faces.cu``, 2D and 3D)."""
-    lib = cuda_build.load_library("ghost_faces", ["ghost_faces.cu"])
+    lib = cuda_build.load_library("ghost_faces")
     if (2, torch.float32) not in _faces_fns:
         for D in (2, 3):
             for dt, suffix in _SUFFIX.items():

@@ -41,10 +41,9 @@ import torch
 from .. import iface as iface_mod
 from ..domain import PatchLevel
 from ..matrix import _dense_case_templates
-from ..utils import profiling
+from ..utils import counters, profiling
 from . import patch_sweep
 from . import transforms as tr
-from .ghost_stencil import counters as _read_launches
 from .ghost_stencil import ghost_stencil, ghost_stencil_3d
 from .patch_bcgs import PatchBicgstab
 from .patch_sweep import _arr_axis, _fold_faces_flat, _spectral_apply
@@ -55,19 +54,15 @@ _STENCIL = {2: ghost_stencil, 3: ghost_stencil_3d}
 #: ``Level.patch_solve`` calls (``passes``, each over every patch of its
 #: level) and the patches they solved, on every device; a captured piece's
 #: are added per replay and per pass of a graph launch, as the kernels'
-#: launch counters are (``utils.graphs.counters``)
-solved = {"passes": 0, "patches": 0}
-
-
-def reset_solved() -> None:
-    for k in solved:
-        solved[k] = 0
+#: launch counters are (the table ``level_ops.patch_solves`` of
+#: ``utils.counters``)
+solved = counters.table("level_ops.patch_solves", ("passes", "patches"))
 
 
 def patch_solves() -> dict:
     """A copy of :data:`solved`, after the counts of a graph launch not
-    read yet (``ghost_stencil.counters()``)."""
-    _read_launches()
+    read yet (``utils.counters.flush``)."""
+    counters.flush()
     return dict(solved)
 
 

@@ -26,15 +26,15 @@ u written once.  An input that is not contiguous or 16-byte aligned is
 copied first; one of another dtype, device or shape than the tables'
 raises.  No switch chooses between the two versions: the tensors do.
 
-Counters (plain integers; ``utils.graphs`` accounts them with the stencil
-kernels', so that a captured sweep counts once per replay or per pass of
-its loop): ``launches`` the kernel's sweeps and ``plain`` the plain sweeps
-run on a CUDA device, per dtype name; :func:`sweeps` reads them.
+Counters (tables of ``utils.counters``, ``patch_sweep.kernel`` and
+``patch_sweep.plain``, so that a captured sweep counts once per replay or
+per pass of its loop): ``launches`` the kernel's sweeps and ``plain`` the
+plain sweeps run on a CUDA device, per dtype name; :func:`sweeps` reads
+them.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -43,13 +43,13 @@ import numpy as np
 import torch
 
 from .. import cuda_build
-from . import ghost_stencil
+from ..utils import counters
 from . import transforms as tr
 
 #: the kernel's sweeps per dtype name ("float32", "float64")
-launches = {"float32": 0, "float64": 0}
+launches = counters.table("patch_sweep.kernel", ("float32", "float64"))
 #: the plain version's sweeps on a CUDA device, per dtype name
-plain = {"float32": 0, "float64": 0}
+plain = counters.table("patch_sweep.plain", ("float32", "float64"))
 
 #: patch sizes the kernel is built for
 KERNEL_N = (8, 16, 32)
@@ -240,8 +240,7 @@ def sweep_tables(neumann: np.ndarray, lam_tab: np.ndarray, lam_idx: np.ndarray,
 # -- the kernel -------------------------------------------------------------------
 
 def _load(suffix: str) -> None:
-    lib = cuda_build.load_library(f"patch_sweep_{suffix}", ["patch_sweep.cu"],
-                                  ("PPS_SWEEP_F64",) if suffix == "f64" else ())
+    lib = cuda_build.load_library(f"patch_sweep_{suffix}")
     fn = getattr(lib, f"pps_patch_sweep_{suffix}")
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
@@ -253,12 +252,11 @@ def _load(suffix: str) -> None:
 
 def build() -> None:
     """Compile (at first use) and load ``csrc/patch_sweep.cu``: one library
-    per precision, the two nvcc runs side by side."""
-    todo = [suffix for suffix, name in _DTYPE_OF.items() if name not in _fns]
-    if todo:
-        with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
-            for fut in [pool.submit(_load, suffix) for suffix in todo]:
-                fut.result()
+    per precision (``cuda_build.build_all`` builds both side by side with
+    the others at a solver's set-up)."""
+    for suffix, name in _DTYPE_OF.items():
+        if name not in _fns:
+            _load(suffix)
 
 
 def _fresh(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -334,14 +332,8 @@ def sweep(st, f: torch.Tensor, gf: Optional[torch.Tensor], h2inv: torch.Tensor,
     return sweep_plain(st, f, gf, h2inv, route, base)
 
 
-def reset_launches() -> None:
-    for counts in (launches, plain):
-        for k in counts:
-            counts[k] = 0
-
-
 def sweeps() -> dict:
     """The sweep counters, after the launches counted on the card and not
     read yet: ``{"kernel": launches, "plain": plain}`` (copies)."""
-    ghost_stencil.counters()
+    counters.flush()
     return {"kernel": dict(launches), "plain": dict(plain)}

@@ -24,11 +24,11 @@ contiguous or 16-byte aligned is copied first; one of another dtype than
 f32 / f64, another device or another shape than the tables' raises.  No
 switch chooses between the two versions: the tensors do.
 
-Counters (plain integers; ``utils.graphs`` accounts them with the other
-kernels', so that a captured transfer counts once per replay or per pass of
-its loop): ``launches`` the kernel's transfers and ``plain`` the plain
-chain's transfers run on a CUDA device, per dtype name; :func:`transfers`
-reads them.
+Counters (tables of ``utils.counters``, ``transfer.kernel`` and
+``transfer.plain``, so that a captured transfer counts once per replay or
+per pass of its loop): ``launches`` the kernel's transfers and ``plain``
+the plain chain's transfers run on a CUDA device, per dtype name;
+:func:`transfers` reads them.
 """
 
 from __future__ import annotations
@@ -40,12 +40,12 @@ import numpy as np
 import torch
 
 from .. import cuda_build
-from . import ghost_stencil
+from ..utils import counters
 
 #: the kernel's transfers (a restriction or a prolong-add each) per dtype name
-launches = {"float32": 0, "float64": 0}
+launches = counters.table("transfer.kernel", ("float32", "float64"))
 #: the plain chain's transfers on a CUDA device, per dtype name
-plain = {"float32": 0, "float64": 0}
+plain = counters.table("transfer.plain", ("float32", "float64"))
 
 _CODES = {torch.float32: 0, torch.float64: 1}  # the kernel's dtype argument
 _NAMES = {torch.float32: "float32", torch.float64: "float64"}
@@ -90,7 +90,7 @@ def build() -> ctypes.CDLL:
     """Compile (at first use) and load ``csrc/transfer.cu``."""
     global _lib
     if _lib is None:
-        lib = cuda_build.load_library("transfer", ["transfer.cu"])
+        lib = cuda_build.load_library("transfer")
         vp = ctypes.c_void_p
         lib.pps_transfer_restrict.argtypes = [ctypes.c_int, vp, vp, vp, ctypes.c_longlong,
                                               ctypes.c_int, vp]
@@ -174,14 +174,8 @@ def count_plain(t: torch.Tensor) -> None:
         plain[_NAMES[t.dtype]] += 1
 
 
-def reset_launches() -> None:
-    for counts in (launches, plain):
-        for k in counts:
-            counts[k] = 0
-
-
 def transfers() -> dict:
     """The transfer counters, after the launches counted on the card and
     not read yet: ``{"kernel": launches, "plain": plain}`` (copies)."""
-    ghost_stencil.counters()
+    counters.flush()
     return {"kernel": dict(launches), "plain": dict(plain)}

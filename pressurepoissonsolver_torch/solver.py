@@ -67,8 +67,8 @@ from . import cuda_build
 from .domain import DomainHierarchy
 from .gmg import CycleOpts, build_gmg
 from .krylov import (KrylovLoop, KrylovResult, While, _go, _norm, bicgstab_loop,
-                     cg_history_loop, cg_loop, gmres_loop, read_scalar,
-                     residual_history_loop, richardson_loop, solve_loop)
+                     cg_history_loop, cg_loop, gmres_loop, host_read,
+                     residual_history_loop, richardson_loop, run_program, solve_loop)
 from .matrix import schur_block_jacobi
 from .ops.level_ops import Level
 from .precond import poly_cheb, schwarz
@@ -418,15 +418,16 @@ class PoissonSolver:
         inner product, or Richardson) in the preconditioner dtype (f32),
         residual updates in f64.
 
-        On one CUDA device the whole loop (the rounds, their residual
-        update, best iterate, stagnation and breakdown rules, and the inner
-        loop) is one graph launch (:class:`_RefineGraph`); with ``sync``
-        the counts are read once after it, and with ``sync=False`` they
-        stay on the device, as the reference leaves them: 0-d tensors
+        The loop (the rounds, their residual update, best iterate,
+        stagnation and breakdown rules, and the inner loop) is one program
+        (:func:`_refinement`).  On one CUDA device it is one graph launch
+        (:class:`_RefineGraph`); elsewhere it runs eagerly
+        (``krylov.run_program``: a host read of the round's guard before
+        each round and of the inner guard before each inner step).  With
+        ``sync`` the counts are read once after it, and with ``sync=False``
+        they stay on the device, as the reference leaves them: 0-d tensors
         (``outer_history`` 1-d, ``max_outer + 1`` slots, 1 where no round
-        wrote) and no host read.  Elsewhere the rounds run on the host with
-        the same rules, reading the relative residual once per round (the
-        plain version), and ``sync=False`` gives the same tensors.  The call
+        wrote) and no read after the loop.  The call
         is the span ``pps.solver.solve_refined``, one solve; under
         ``profiling.device_spans`` its graph is captured with stamps, under
         its own key.
@@ -470,41 +471,10 @@ class PoissonSolver:
                     red)
             return entry.run(f, tol, max_outer, inner_tol, inner_max_iter,
                              one=self._graphs is True, sync=sync)
-        fnorm = _norm(f, red)
-        fnorm = torch.where(fnorm > 0, fnorm, torch.ones_like(fnorm))
-        u = torch.zeros_like(f)
-        r = f
-        best_u, best_rel = u, math.inf
-        rel = 1.0
-        k = inner_total = 0
-        hist = [1.0]
-        while True:
-            e_res = solve_loop(make(), r.to(pdtype), inner_tol, inner_max_iter)
-            e = torch.where(torch.isfinite(e_res.x), e_res.x,
-                            torch.zeros_like(e_res.x))
-            u_new = u + e.to(f.dtype)
-            r = f - apply64(u_new)
-            rel_new = read_scalar(_norm(r, red) / fnorm)
-            breakdown = not math.isfinite(rel_new)
-            k += 1
-            inner_total += e_res.iterations
-            stagnated = k > 3 and rel_new > 0.5 * best_rel and rel_new > 10 * tol
-            # on breakdown, fall back to the best iterate so far
-            u, rel = (best_u, best_rel) if breakdown else (u_new, rel_new)
-            if rel_new < best_rel:
-                best_u, best_rel = u_new, rel_new
-            hist.append(rel)
-            if breakdown or rel_new <= tol or stagnated or k >= max_outer:
-                break
-        if not sync:
-            hist = hist + [1.0] * (max_outer + 1 - len(hist))
-            return u, _device_info(f.device, k, inner_total, rel, hist)
-        return u, {
-            "outer_iterations": k,
-            "inner_iterations": inner_total,
-            "residual": rel,
-            "outer_history": np.asarray(hist),
-        }
+        inputs = _refine_inputs(f, tol, max_outer, inner_tol, inner_max_iter, pdtype)
+        init, _, body, _ = _refinement(make(), apply64, pdtype, max_outer + 1, red, *inputs)
+        s = run_program(init(f), body)
+        return _refined(s, max_outer, host_read(*_read(s)) if sync else None)
 
     def schur_gmg_preconditioner(self) -> Callable:
         """Interface preconditioner from the composite GMG (Woodbury).
@@ -631,17 +601,6 @@ def _has_history(res) -> bool:
     return isinstance(res, tuple) and not isinstance(res, KrylovResult)
 
 
-def _device_info(device, k, inner_total, rel, hist) -> dict:
-    """``solve_refined``'s info as ``sync=False`` gives it: tensors on
-    ``device``."""
-    def t(v, dtype):
-        return torch.as_tensor(v, dtype=dtype, device=device)
-
-    return {"outer_iterations": t(k, torch.int64),
-            "inner_iterations": t(inner_total, torch.int64),
-            "residual": t(rel, torch.float64), "outer_history": t(hist, torch.float64)}
-
-
 class _Refinement(NamedTuple):
     fnorm: torch.Tensor
     u: torch.Tensor
@@ -660,14 +619,92 @@ def _inner_go(state) -> torch.Tensor:
     return state.inner.go
 
 
-class _RefineGraph:
+def _refine_inputs(f: torch.Tensor, tol, max_outer: int, inner_tol, inner_max_iter: int,
+                   pdtype: torch.dtype) -> tuple:
+    """``(f, tol, max_outer, inner_tol, inner_max_iter)``, the numbers as
+    0-d tensors on ``f``'s device: the inputs of :func:`_refinement`."""
+    def t(v, dtype):
+        return torch.full((), v, dtype=dtype, device=f.device)
+
+    return (f, t(tol, f.dtype), t(max_outer, torch.int64), t(inner_tol, pdtype),
+            t(inner_max_iter, torch.int64))
+
+
+def _refinement(inner: KrylovLoop, apply64: Callable, pdtype: torch.dtype, slots: int,
+                red, f: torch.Tensor, tol: torch.Tensor, max_outer: torch.Tensor,
+                inner_tol: torch.Tensor, inner_max_iter: torch.Tensor) -> tuple:
     """``solve_refined``'s loop as the reference's ``lax.while_loop``
-    (``pressurepoissonsolver_tpu/solver.py:436-477``): an init, then while
-    not stopped a round of three parts, the inner Krylov init on
-    ``r.to(pdtype)``, the inner loop (a nested loop of its step) and the
-    round's end (the finite mask of ``e``, ``u_new``, the f64 residual,
-    ``rel``, the best iterate, stagnation, breakdown, the stop flag and
-    ``hist[k]``), all device work, composed into one graph
+    (``pressurepoissonsolver_tpu/solver.py:436-477``), over the inputs of
+    :func:`_refine_inputs`: ``(init, begin, body, step)``.  ``init(f)`` is
+    the state; ``body`` runs while not stopped a round of three parts, the
+    inner Krylov init on ``r.to(pdtype)`` (``begin``), the inner loop (a
+    nested loop of ``step``) and the round's end (the finite mask of
+    ``e``, ``u_new``, the f64 residual, ``rel``, the best iterate,
+    stagnation, breakdown, the stop flag and ``hist[k]``), all device
+    work.  ``slots``: the history's length, at least ``max_outer + 1``."""
+    dev = f.device
+
+    def init(f):
+        fnorm = _norm(f, red)
+        fnorm = torch.where(fnorm > 0, fnorm, torch.ones_like(fnorm))
+        u = torch.zeros_like(f)
+        one = torch.ones((), dtype=f.dtype, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return _Refinement(fnorm, u, f, u, one * math.inf, one, zero, zero,
+                           torch.ones((), dtype=torch.bool, device=dev),
+                           torch.ones(slots, dtype=f.dtype, device=dev), None)
+
+    def begin(s):
+        return s._replace(inner=inner.init(s.r.to(pdtype), inner_tol, inner_max_iter))
+
+    def step(s):
+        return s._replace(inner=inner.step(s.inner))
+
+    def end(s):
+        with span("pps.solver.round_end"):
+            x = s.inner.x
+            e = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+            u_new = s.u + e.to(s.u.dtype)
+            r = f - apply64(u_new)
+            rel_new = _norm(r, red) / s.fnorm
+            breakdown = ~torch.isfinite(rel_new)
+            improved = rel_new < s.best_rel
+            k = s.k + 1
+            stagnated = (k > 3) & (rel_new > 0.5 * s.best_rel) & (rel_new > 10 * tol)
+            stop = breakdown | (rel_new <= tol) | stagnated | (k >= max_outer)
+            # on breakdown, fall back to the best iterate so far
+            rel = torch.where(breakdown, s.best_rel, rel_new)
+            at = torch.arange(slots, device=dev) == k
+            return s._replace(
+                u=torch.where(breakdown, s.best_u, u_new), r=r,
+                best_u=torch.where(improved, u_new, s.best_u),
+                best_rel=torch.where(improved, rel_new, s.best_rel), rel=rel, k=k,
+                inner_total=s.inner_total + s.inner.k, go=~stop,
+                hist=torch.where(at, rel, s.hist))
+
+    return init, begin, (While(_go, (begin, While(_inner_go, (step,)), end)),), step
+
+
+def _read(s: _Refinement) -> tuple:
+    """The fields of a refinement's final state that its info reads."""
+    return s.k, s.inner_total, s.rel, s.hist
+
+
+def _refined(s: _Refinement, max_outer: int, got) -> tuple:
+    """``solve_refined``'s ``(u, info)`` from the final state ``s``: with
+    ``got`` (:func:`_read`'s fields read to the host) host numbers, else
+    (``sync=False``) the state's tensors cloned."""
+    u = s.u.clone()
+    if got is None:
+        return u, {"outer_iterations": s.k.clone(), "inner_iterations": s.inner_total.clone(),
+                   "residual": s.rel.clone(), "outer_history": s.hist[:max_outer + 1].clone()}
+    k = int(got[0][0])
+    return u, {"outer_iterations": k, "inner_iterations": int(got[1][0]),
+               "residual": float(got[2][0]), "outer_history": got[3][:k + 1]}
+
+
+class _RefineGraph:
+    """The refinement program (:func:`_refinement`) composed into one graph
     (``utils.graphs.GraphLoop``) over static inputs: ``f``, ``tol``,
     ``max_outer``, ``inner_tol`` and ``inner_max_iter``.  ``slots``: the
     history's length, ``max_outer + 1`` at the capture; a solve with more
@@ -676,61 +713,13 @@ class _RefineGraph:
     def __init__(self, inner: KrylovLoop, apply64: Callable, f: torch.Tensor, tol,
                  pdtype: torch.dtype, max_outer: int, inner_tol, inner_max_iter: int,
                  red=None):
-        dev = f.device
         self.slots = max_outer + 1
-        self.f = f.clone()
-        self.tol = torch.full((), tol, dtype=f.dtype, device=dev)
-        self.max_outer = torch.full((), max_outer, dtype=torch.int64, device=dev)
-        self.inner_tol = torch.full((), inner_tol, dtype=pdtype, device=dev)
-        self.inner_max_iter = torch.full((), inner_max_iter, dtype=torch.int64, device=dev)
-        slots = self.slots
-
-        def init(f, *_):
-            fnorm = _norm(f, red)
-            fnorm = torch.where(fnorm > 0, fnorm, torch.ones_like(fnorm))
-            u = torch.zeros_like(f)
-            one = torch.ones((), dtype=f.dtype, device=dev)
-            zero = torch.zeros((), dtype=torch.int64, device=dev)
-            return _Refinement(fnorm, u, f, u, one * math.inf, one, zero, zero,
-                               torch.ones((), dtype=torch.bool, device=dev),
-                               torch.ones(slots, dtype=f.dtype, device=dev), None)
-
-        def begin(s):
-            return s._replace(inner=inner.init(s.r.to(pdtype), self.inner_tol,
-                                               self.inner_max_iter))
-
-        def step(s):
-            return s._replace(inner=inner.step(s.inner))
-
-        def end(s):
-            with span("pps.solver.round_end"):
-                x = s.inner.x
-                e = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
-                u_new = s.u + e.to(s.u.dtype)
-                r = self.f - apply64(u_new)
-                rel_new = _norm(r, red) / s.fnorm
-                breakdown = ~torch.isfinite(rel_new)
-                improved = rel_new < s.best_rel
-                k = s.k + 1
-                stagnated = ((k > 3) & (rel_new > 0.5 * s.best_rel)
-                             & (rel_new > 10 * self.tol))
-                stop = breakdown | (rel_new <= self.tol) | stagnated | (k >= self.max_outer)
-                # on breakdown, fall back to the best iterate so far
-                rel = torch.where(breakdown, s.best_rel, rel_new)
-                at = torch.arange(slots, device=dev) == k
-                return s._replace(
-                    u=torch.where(breakdown, s.best_u, u_new), r=r,
-                    best_u=torch.where(improved, u_new, s.best_u),
-                    best_rel=torch.where(improved, rel_new, s.best_rel), rel=rel, k=k,
-                    inner_total=s.inner_total + s.inner.k, go=~stop,
-                    hist=torch.where(at, rel, s.hist))
-
-        def template():
-            s = init(self.f)
-            return begin(s)
-
-        body = (While(_go, (begin, While(_inner_go, (step,)), end)),)
-        self.graphs = GraphLoop((self.f,), init, body, template, step, dev)
+        self.inputs = _refine_inputs(f.clone(), tol, max_outer, inner_tol, inner_max_iter,
+                                     pdtype)
+        init, begin, body, step = _refinement(inner, apply64, pdtype, self.slots, red,
+                                              *self.inputs)
+        self.graphs = GraphLoop(self.inputs[:1], init, body,
+                                lambda: begin(init(self.inputs[0])), step, f.device)
         self.state = self.graphs.state
         self.graph, self.launches = self.graphs.graph, self.graphs.launches
         self.capture_s = self.graphs.capture_s
@@ -739,25 +728,13 @@ class _RefineGraph:
             sync: bool = True):
         """One solve: the inputs copied in, then on the card with ``one``
         one graph launch (else piece by piece, a host read per guard);
-        with ``sync`` one read of the counts, else none."""
-        self.f.copy_(f)
-        self.tol.fill_(tol)
-        self.max_outer.fill_(max_outer)
-        self.inner_tol.fill_(inner_tol)
-        self.inner_max_iter.fill_(inner_max_iter)
-        s, g = self.state, self.graphs
-        if not sync:
-            g.run(one, sync=False)
-            return s.u.clone(), {"outer_iterations": s.k.clone(),
-                                 "inner_iterations": s.inner_total.clone(),
-                                 "residual": s.rel.clone(),
-                                 "outer_history": s.hist[:max_outer + 1].clone()}
-        # the counts read with the passes (for the launch accounting)
-        _, got = g.run(one, s.k, s.inner_total, s.rel, s.hist)
-        k = int(got[0][0])
-        return s.u.clone(), {"outer_iterations": k, "inner_iterations": int(got[1][0]),
-                             "residual": float(got[2][0]),
-                             "outer_history": got[3][:k + 1]}
+        with ``sync`` one read of the counts (with the passes, for the
+        launch accounting), else none."""
+        self.inputs[0].copy_(f)
+        for buf, v in zip(self.inputs[1:], (tol, max_outer, inner_tol, inner_max_iter)):
+            buf.fill_(v)
+        _, got = self.graphs.run(one, *_read(self.state), sync=sync)
+        return _refined(self.state, max_outer, got)
 
 
 def shift_for_neumann(level: Level, f: torch.Tensor) -> torch.Tensor:

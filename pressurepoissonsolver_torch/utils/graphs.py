@@ -30,12 +30,12 @@ driver refuses, or a build that fails, raises; there is no fallback.
 
 Inputs (the right-hand side, ``tol``, the step limits) are static buffers
 copied in before a run, so no new value needs a new capture.  Results are
-fresh tensors, never views of the graph's buffers.  The stencil and sweep
-wrappers count their launches on the host (:func:`counters`), where a
-graph does not pass: the launches of each piece are recorded at capture
+fresh tensors, never views of the graph's buffers.  The kernels' wrappers
+count their launches on the host (``utils.counters``), where a graph does
+not pass: the counts of each piece are recorded at capture, by table name,
 and added per replay, or, after a graph launch, times the passes the
-launch made (read with the results, or later by
-``ghost_stencil.counters()``).  ``launches`` counts
+launch made (read with the results, or later by ``counters.flush``).
+``launches`` counts
 the guard kernel's runs, the WHILE-node passes and the graph launches,
 and ``nodes`` the device nodes that ran (each piece's kernel, memcpy and
 memset nodes, counted at its capture with :func:`count_nodes`, times its
@@ -68,8 +68,7 @@ import torch
 from .. import cuda_build
 from ..krylov import (KrylovLoop, KrylovResult, While, _scalar, host_read, program,
                       read_flag)
-from ..ops import ghost_stencil, patch_sweep, transfer
-from . import profiling
+from . import counters, profiling
 from .profiling import span
 
 #: ``guard``: runs of the guard kernel (one ahead of each entry of a WHILE
@@ -90,7 +89,7 @@ def build() -> ctypes.CDLL:
     """Compile (at first use) and load ``csrc/graph_loop.cu``."""
     global _lib
     if _lib is None:
-        lib = cuda_build.load_library("graph_loop", ["graph_loop.cu"])
+        lib = cuda_build.load_library("graph_loop")
         vp, pp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
         sig = {
             "pps_graph_create": [pp],
@@ -148,37 +147,6 @@ def count_nodes(graph) -> int:
     return sum(counts)
 
 
-def _counts() -> tuple:
-    """Every launch counter a captured piece accounts for: the stencil
-    kernels' (``ghost_stencil``), the sweep kernel's (``patch_sweep``), the
-    transfers' (``transfer``) and, last, the patch solves'
-    (``level_ops.solved``)."""
-    from ..ops import level_ops  # which imports this module
-
-    return (*ghost_stencil.counter_dicts(), patch_sweep.launches, patch_sweep.plain,
-            transfer.launches, transfer.plain, level_ops.solved)
-
-
-def counters() -> list:
-    """A copy of every launch counter (:func:`_counts`), after the launches
-    counted on the card and not read yet (``ghost_stencil.counters()``)."""
-    ghost_stencil.counters()
-    return [dict(c) for c in _counts()]
-
-
-def add_launches(delta: list, sign: int = 1) -> None:
-    """Add ``sign`` times the launches ``delta`` (the difference of two
-    :func:`counters`) to the counters."""
-    for c, d in zip(_counts(), delta):
-        for k, v in d.items():
-            c[k] += sign * v
-
-
-def _minus(after: list, before: list) -> list:
-    """The launches between two :func:`counters`."""
-    return [{k: a[k] - b[k] for k in a} for a, b in zip(after, before)]
-
-
 # set while a capture's warm-up call runs (``warming``), while a piece is
 # captured, the function that cuts it at a loop that runs inside it, and the
 # label of the pieces captured now
@@ -234,8 +202,8 @@ def capture(fn, device: torch.device):
     side stream, as torch requires (the warm-up also fills the lazy caches
     ``fn`` reaches, such as the stencil libraries' loading, and captures
     the pass of each loop that runs inside ``fn``); returns once the
-    warm-up is done.  ``(graph, launches)``: the stencil launches the
-    capture counted, one call's.  The graph keeps its nodes
+    warm-up is done.  ``(graph, launches)``: the counts the capture made,
+    one call's (a ``utils.counters.minus``).  The graph keeps its nodes
     (``keep_graph``), so that it can be composed into another graph and
     read back (``raw_cuda_graph``); it is instantiated here too, for the
     per-piece replay.
@@ -256,11 +224,12 @@ def capture(fn, device: torch.device):
         items: list = []
         pool = torch.cuda.graph_pool_handle()
         open_ = {}
+        first = counters.snapshot()
         label = "pps.graphs.piece." + _capture_state["label"]
 
         def begin():
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            open_["graph"], open_["before"] = graph, counters()
+            open_["graph"], open_["before"] = graph, counters.snapshot()
             graph.capture_begin(pool=pool)
             part = len(items) // 2  # a piece and a loop per cut
             open_["span"] = span(f"{label}.{part}" if part else label)
@@ -269,8 +238,9 @@ def capture(fn, device: torch.device):
         def end():
             open_["span"].__exit__(None, None, None)
             open_["graph"].capture_end()
+            open_["after"] = counters.snapshot()
             items.append(_Piece(open_["graph"],
-                                _minus(counters(), open_["before"])))
+                                counters.minus(open_["after"], open_["before"])))
 
         def cut_here(loop):
             end()
@@ -312,12 +282,7 @@ def capture(fn, device: torch.device):
         torch.cuda.synchronize()
     if len(items) == 1:
         return items[0].graph, items[0].launches
-    total = [{} for _ in pieces[0].launches]
-    for piece in pieces:
-        for acc, d in zip(total, piece.launches):
-            for k, v in d.items():
-                acc[k] = acc.get(k, 0) + v
-    return items, total
+    return items, counters.minus(open_["after"], first)
 
 
 def _clone(state):
@@ -340,7 +305,7 @@ def _write(dst, src) -> None:
 
 class _Piece(NamedTuple):
     graph: object  # the captured torch.cuda.CUDAGraph
-    launches: list  # its stencil launches
+    launches: dict  # its counts (a counters.minus)
     nodes: int = 0  # its device nodes (count_nodes)
 
 
@@ -405,7 +370,7 @@ class PieceLoop:
         else:
             while read_flag(self.go):
                 self.graph.replay()
-                add_launches(self.launches)
+                counters.add(self.launches)
         return self.state
 
     def _launch(self) -> None:
@@ -473,7 +438,7 @@ class GraphLoop:
     def __init__(self, inputs: tuple, init: Callable, body: tuple, template: Callable,
                  step: Callable, device: torch.device):
         t0 = time.perf_counter()
-        before, inner_before = counters(), dict(inner)
+        before, inner_before = counters.snapshot(), dict(inner)
         self.inputs, self.device = inputs, torch.device(device)
         with warm_up():  # loops inside pieces run here without host reads
             self.state = _clone(template())
@@ -489,7 +454,7 @@ class GraphLoop:
         self.graph, self.launches = self.pieces[step][:2]
         self.piece_loops = list({id(pl): pl for _, pl in self.inner}.values())
         self.runs = torch.zeros(len(self.whiles), dtype=torch.int64, device=self.device)
-        add_launches(_minus(counters(), before), -1)
+        counters.add(counters.minus(counters.snapshot(), before), -1)
         inner.update(inner_before)
         self.capture_s = time.perf_counter() - t0
         self.build_s = 0.0
@@ -542,7 +507,7 @@ class GraphLoop:
         largest runs of the loops inside pieces and ``extra``, and the
         launch accounting.  ``(runs, values)``: the passes per loop slot and
         the values of ``extra`` read.  With ``sync=False`` nothing is read
-        (the accounting waits for the next ``ghost_stencil.counters()``);
+        (the accounting waits for the next ``counters.flush``);
         ``(None, None)``."""
         for pl in self.piece_loops:
             pl.largest.zero_()
@@ -558,7 +523,7 @@ class GraphLoop:
         if not sync:
             if counts:
                 snap = torch.cat(counts).clone()
-                ghost_stencil.defer(lambda: self._account(host_read(snap)[0], runs))
+                counters.defer(lambda: self._account(host_read(snap)[0], runs))
             return None, None
         if not counts and not extra:
             return runs, []
@@ -606,7 +571,7 @@ class GraphLoop:
 
     def _replay_piece(self, piece: _Piece) -> None:
         piece.graph.replay()
-        add_launches(piece.launches)
+        counters.add(piece.launches)
         launches["nodes"] += piece.nodes
 
     def _replay_tree(self, tree: list, runs: list) -> None:
@@ -635,7 +600,7 @@ class GraphLoop:
         launches["graph"] += 1
 
     def account(self, runs) -> None:
-        """Add the stencil launches, guard runs and device nodes of a launch
+        """Add the kernel counts, guard runs and device nodes of a launch
         that made ``runs`` passes per loop slot (host integers), and the
         passes and runs of the loops inside pieces."""
         def walk(tree, times):
@@ -647,38 +612,13 @@ class GraphLoop:
                     launches["passes"] += n
                     walk(item.body, n)
                 else:
-                    add_launches(item.launches, times)
+                    counters.add(item.launches, times)
                     launches["nodes"] += item.nodes * times
 
         if self.whiles:
             launches["nodes"] += 1  # the memset that zeroes the pass counters
         walk(self.tree, 1)
         self._account_inner(self.tree, 1, runs)
-
-    def level_launches(self) -> dict:
-        """Per graph level (``"root"`` or a loop slot): the stencil launches
-        of the pieces directly in it, per dimension and dtype name, which
-        the stencil kernel nodes of that level's graph must equal."""
-        out = {}
-
-        def add(level, piece):
-            acc = out.setdefault(level, {2: {"float32": 0, "float64": 0},
-                                         3: {"float32": 0, "float64": 0}})
-            for D in (2, 3):
-                for dt, v in piece.launches[D - 2].items():
-                    acc[D][dt] += v
-
-        def walk(tree, level):
-            out.setdefault(level, {2: {"float32": 0, "float64": 0},
-                                   3: {"float32": 0, "float64": 0}})
-            for item in tree:
-                if isinstance(item, _Loop):
-                    walk(item.body, item.index)
-                else:
-                    add(level, item)
-
-        walk(self.tree, "root")
-        return out
 
     @profiling.spanned("pps.graphs.build", device=False)
     def _build(self) -> None:
@@ -801,6 +741,6 @@ class CapturedLoop:
     def _replay(self, state):
         """One replay of the step alone (its launches added)."""
         self.graph.replay()
-        add_launches(self.launches)
+        counters.add(self.launches)
         return state
 

@@ -44,6 +44,7 @@ from pressurepoissonsolver_torch.ops.level_ops import ActiveSmoother, Level, ext
 from pressurepoissonsolver_torch.ops.patch_sweep import _spectral_apply
 from pressurepoissonsolver_torch.problems import get_problem, init_problem
 from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
+from pressurepoissonsolver_torch.utils import counters
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 RTOL = {"f32": 1e-5, "f64": 1e-12}
@@ -262,7 +263,7 @@ def test_small_solve_on_card_matches_cpu(cuda):
                                       coarse_direct_max_dof=64))
     f, exact = init_problem(h.finest, get_problem("trig", 2))
     out = {}
-    gs.reset_launches()
+    counters.reset()
     for dev in ("cpu", cuda):
         s = PoissonSolver(h, opts, device=dev)
         u, info = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
@@ -365,7 +366,7 @@ def test_small_3d_solve_on_card_matches_cpu(cuda):
     opts = SolveOptions(tol=1e-10, precond_dtype=torch.float32)
     f, exact = init_problem(h.finest, get_problem("trig", 3))
     out = {}
-    gs.reset_launches()
+    counters.reset()
     for dev in ("cpu", cuda):
         s = PoissonSolver(h, opts, device=dev)
         u, info = s.solve_refined(f, tol=1e-10)
@@ -447,7 +448,7 @@ def test_solve_schur_gmg_on_card_matches_cpu(cuda, D):
     out = {}
     for dev in ("cpu", cuda):
         s = PoissonSolver(h, opts, device=dev)
-        gs.reset_launches()
+        counters.reset()
         u, res = s.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
         out[str(dev)] = (u.cpu(), res.iterations, s.report(u, f, exact))
     assert getattr(gs, name)["float32"] > 0 and gs.widths[D][1] == 0
@@ -483,7 +484,7 @@ def test_cli_on_card_matches_cpu(cuda, D, argv, tmp_path):
     out = {}
     for dev in ("cpu", "cuda"):
         path = tmp_path / f"{dev}.json"
-        gs.reset_launches()
+        counters.reset()
         assert cli.main(D, base + argv + ["--out-json", str(path)], device=dev) == 0
         out[dev] = json.loads(path.read_text())
     launches = gs.launches if D == 2 else gs.launches_3d
@@ -523,7 +524,7 @@ def test_w_cycle_apply_on_card(cuda):
     gpu = build_gmg(h, opts, torch.float32, device=cuda)
     f = torch.as_tensor(np.random.default_rng(13).standard_normal((cpu.levels[0].P, 8, 8)),
                         dtype=torch.float32)
-    gs.reset_launches()
+    counters.reset()
     got = gpu.apply(f.to(cuda))
     torch.cuda.synchronize()
     L = len(gpu.levels)
@@ -725,7 +726,7 @@ def test_sharded_world1_solve_on_card_matches_plain(mesh1):
     f, exact = init_problem(h.finest, get_problem("trig", 2))
     out = []
     for mesh in (None, mesh1):
-        gs.reset_launches()
+        counters.reset()
         s = PoissonSolver(h, SolveOptions(**opts), mesh=mesh, device="cuda")
         u, info = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
         out.append((u, info, s.report(u, f, exact), dict(gs.launches)))
@@ -769,7 +770,7 @@ def test_pjit_world1_solve_on_card_matches_plain(mesh1):
     f, exact = init_problem(h.finest, get_problem("trig", 2))
     out = []
     for mesh, comm in ((None, "auto"), (mesh1, "pjit")):
-        gs.reset_launches()
+        counters.reset()
         s = PoissonSolver(h, SolveOptions(comm=comm, **opts), mesh=mesh, device="cuda")
         u, info = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
         us, res = s.solve_schur(f, tol=1e-10, max_iter=60, preconditioner="gmg")
@@ -887,7 +888,7 @@ def test_captured_solve_on_card_matches_eager(cuda, D, case):
     out = {}
     for mode in (True, False, False, True):
         s._graphs = mode
-        gs.reset_launches()
+        counters.reset()
         u, counts = _graph_run(s, f, how)
         torch.cuda.synchronize()
         out.setdefault(mode, []).append((u, counts, gs.counters()))
@@ -906,14 +907,14 @@ def test_captured_graph_holds_the_accounted_stencil_launches(cuda, D, case):
     """The launches the replay accounting adds per replay are the stencil
     kernel nodes of the graph the card replays, read back from the graph
     through the driver API (``chip_smoke.graph_stencils``)."""
-    from chip_smoke import graph_kernel_names, graph_stencils
+    from chip_smoke import delta_stencils, graph_kernel_names, graph_stencils
 
     opts, how = GRAPH_SOLVES[case]
     s, f, _ = _graph_solver(cuda, D, **opts)
     _graph_run(s, f, how)
     (entry,) = s._captured.values()
     nodes = graph_stencils(entry.graph, D)
-    assert nodes == entry.launches[D - 2] and sum(nodes.values()) > 0
+    assert nodes == delta_stencils(entry.launches, D) and sum(nodes.values()) > 0
     assert len(graph_kernel_names(entry.graph)) > sum(nodes.values())
 
 
@@ -1029,22 +1030,19 @@ LOOP_CASES = [(2, c) for c in LOOP_SOLVES] + [(3, "refined-bicgstab"), (3, "solv
 
 def _counted(s, f, how, **kw):
     """One solve with every launch counter set to 0 just before it:
-    ``(u, counts, kernel counters (``graphs.counters()``: the stencils',
-    the sweep's, the transfers' and the patch solves'), graph_loop counters,
-    host reads made inside the solve)``."""
+    ``(u, counts, kernel counters by table name (``utils.counters``: the
+    stencils', the sweep's, the transfers' and the patch solves'),
+    graph_loop counters, host reads made inside the solve)``."""
     from pressurepoissonsolver_torch import krylov
     from pressurepoissonsolver_torch.utils import graphs
 
-    gs.reset_launches()
-    patch_sweep.reset_launches()
-    transfer.reset_launches()
+    counters.reset()
     graphs.reset_launches()
-    level_ops.reset_solved()
     reads = krylov.reads["host"]
     u, counts = _graph_run(s, f, how, **kw)
     reads = krylov.reads["host"] - reads
     torch.cuda.synchronize()
-    return u, counts, graphs.counters(), dict(graphs.launches), reads
+    return u, counts, counters.snapshot(), dict(graphs.launches), reads
 
 
 @pytest.mark.parametrize("D, case", LOOP_CASES)
@@ -1072,7 +1070,7 @@ def test_one_launch_solve_matches_steps_and_eager(cuda, D, case):
     assert one["graph"] == 1 and one_reads == 1
     assert one["guard"] > one["passes"] > 0
     assert steps["graph"] == steps["guard"] == 0 and steps_reads > one["passes"]
-    assert sum(ref_l[D - 2].values()) > 0
+    assert sum(ref_l[f"ghost_stencil.{D}d"].values()) > 0
     assert s.report(ref_u, f, exact)["residual"] <= 1e-9
 
 
@@ -1083,7 +1081,7 @@ def test_while_bodies_hold_the_accounted_stencils(cuda, D, case):
     read back through the driver API, are the launches the accounting adds
     per pass of that level; every node is of a kind a WHILE body may hold;
     each loop has a guard ahead of it and one closing its body."""
-    from chip_smoke import graph_levels, graph_stencils
+    from chip_smoke import graph_levels, graph_stencils, level_launches
 
     opts, how = LOOP_SOLVES[case]
     s, f, _ = _graph_solver(cuda, D, **opts)
@@ -1091,7 +1089,7 @@ def test_while_bodies_hold_the_accounted_stencils(cuda, D, case):
     (entry,) = s._captured.values()
     gl = entry.graphs
     levels = graph_levels(gl)
-    want = gl.level_launches()
+    want = level_launches(gl)
     assert set(levels) == set(want) and len(levels) == len(gl.whiles) + 1
     allowed = {"kernel", "memcpy", "memset", "graph", "empty", "conditional"}
     for level, got in levels.items():
@@ -1201,10 +1199,10 @@ def test_refinement_sync_false_leaves_the_counts_on_the_card(cuda):
 
     s, f, _ = _graph_solver(cuda, precond_dtype=torch.float32)
     u1, info1 = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
-    gs.reset_launches()
+    counters.reset()
     s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
     synced = gs.counters()
-    gs.reset_launches()
+    counters.reset()
     reads = krylov.reads["host"]
     u2, info2 = s.solve_refined(f, tol=1e-10, inner_tol=1e-4, sync=False)
     assert krylov.reads["host"] == reads
@@ -1439,7 +1437,7 @@ def test_one_launch_monitored_and_matrix_solves_match_eager(cuda, case):
     ops, out = {}, {}
     for mode in (True, "steps", False, True):
         s._graphs = mode
-        gs.reset_launches()
+        counters.reset()
         graphs.reset_launches()
         reads = krylov.reads["host"]
         u, counts = _matrix_run(s, f, case, ops)
@@ -1467,12 +1465,12 @@ def test_refinement_sync_false_with_bcgs_smoothing(cuda):
 
     s, f, _ = _graph_solver(cuda, precond_dtype=torch.float64, patch_solver="bcgs")
     u1, info1 = s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
-    gs.reset_launches()
+    counters.reset()
     graphs.reset_launches()
     s.solve_refined(f, tol=1e-10, inner_tol=1e-4)
     synced, inner = gs.counters(), dict(graphs.inner)
     assert inner["passes"] > inner["runs"] > 0
-    gs.reset_launches()
+    counters.reset()
     graphs.reset_launches()
     reads = krylov.reads["host"]
     u2, info2 = s.solve_refined(f, tol=1e-10, inner_tol=1e-4, sync=False)
@@ -1559,7 +1557,7 @@ def test_a_one_launch_schur_solve_at_n16_nests_its_spans_and_counts_its_patch_so
     f = torch.as_tensor(init_problem(h.finest, get_problem("trig", 2))[0], device=cuda)
     u0, (k,) = _graph_run(s, f, "schur")
     assert s._graphs is True and k > 0
-    level_ops.reset_solved()
+    counters.reset()
     graphs.reset_launches()
     u1, (k1,) = _graph_run(s, f, "schur")
     assert graphs.launches["graph"] == 1 and k1 == k and torch.equal(u0, u1)
@@ -1632,6 +1630,7 @@ from pressurepoissonsolver_torch.geometry import refined_tree
 from pressurepoissonsolver_torch.gmg import CycleOpts
 from pressurepoissonsolver_torch.problems import get_problem, init_problem
 from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
+from pressurepoissonsolver_torch.utils import counters
 from pressurepoissonsolver_torch.utils import graphs, profiling
 
 h = DomainHierarchy(refined_tree(2, 4, 2), n=8)
@@ -1817,18 +1816,15 @@ def test_patch_sweep_kernel_refuses_another_dtype_or_device(cuda):
         patch_sweep.sweep(lvl._st, f, lvl._gf_faces(f).cpu(), lvl.h2inv)
 
 
-def _sweep_index():
-    """The place of the sweep kernel's counter in ``graphs.counters()``."""
-    from pressurepoissonsolver_torch.utils import graphs
-
-    return next(i for i, c in enumerate(graphs._counts()) if c is patch_sweep.launches)
+# the sweep kernel's counter table (``utils.counters``)
+SWEEP_TABLE = "patch_sweep.kernel"
 
 
 def _level_sweeps(gl) -> dict:
     """Per level of a composed ``GraphLoop`` (``"root"`` or a loop slot):
     the sweep kernel launches the accounting adds per pass, from the
     pieces directly in it."""
-    idx, out = _sweep_index(), {}
+    out = {}
 
     def walk(tree, level):
         out.setdefault(level, 0)
@@ -1836,7 +1832,7 @@ def _level_sweeps(gl) -> dict:
             if hasattr(item, "body"):
                 walk(item.body, item.index)
             else:
-                out[level] += sum(item.launches[idx].values())
+                out[level] += sum(item.launches.get(SWEEP_TABLE, {}).values())
 
     walk(gl.tree, "root")
     return out
@@ -1856,7 +1852,7 @@ def test_patch_sweep_kernel_counts_once_per_pass_of_a_while_body(cuda):
     for mode in (True, False, "steps", True):
         s._graphs = mode
         u, counts, launched, _, _ = _counted(s, f, how)
-        counted.setdefault(mode, []).append((u, counts, launched[_sweep_index()]))
+        counted.setdefault(mode, []).append((u, counts, launched[SWEEP_TABLE]))
     ref = counted[False][0]
     assert ref[2]["float32"] > 0
     for runs in counted.values():

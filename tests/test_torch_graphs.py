@@ -30,7 +30,7 @@ import pressurepoissonsolver_torch.gmg as tgmg
 import pressurepoissonsolver_torch.krylov as tkrylov
 import pressurepoissonsolver_torch.solver as tsolver
 from pressurepoissonsolver_torch.ops import ghost_stencil as gs
-from pressurepoissonsolver_torch.utils import graphs
+from pressurepoissonsolver_torch.utils import counters, graphs
 
 from _torch_parity import hierarchies
 
@@ -120,21 +120,22 @@ def _counting_plain(plain):
 
 def _emulated_capture(fn, device):
     """``graphs.capture`` on the CPU: the warm-up and the capture call run
-    ``fn`` (the capture's call counts the step's launches); a replay runs
-    ``fn`` again on the same static buffers with the counters held still,
-    as a graph's replay does not pass the wrappers."""
+    ``fn`` (the capture's call counts the step's launches, in every table
+    of ``utils.counters``); a replay runs ``fn`` again on the same static
+    buffers with every counter held still, as a graph's replay does not
+    pass the wrappers."""
     fn()
-    before = gs.counters()
+    before = counters.snapshot()
     fn()
-    launches = graphs._minus(gs.counters(), before)
+    launches = counters.minus(counters.snapshot(), before)
 
     class Replay:
         replays = 0
 
         def replay(self):
-            snap = gs.counters()
+            snap = counters.snapshot()
             fn()
-            gs.add_launches(graphs._minus(gs.counters(), snap), -1)
+            counters.add(counters.minus(counters.snapshot(), snap), -1)
             self.replays += 1
 
     return Replay(), launches
@@ -144,9 +145,9 @@ def _emulated_capture(fn, device):
 def emulated(monkeypatch):
     monkeypatch.setattr(graphs, "capture", _emulated_capture)
     monkeypatch.setattr(gs, "_plain", _counting_plain(gs._plain))
-    gs.reset_launches()
+    counters.reset()
     yield
-    gs.reset_launches()
+    counters.reset()
 
 
 # -- the guarded-step loop ----------------------------------------------------
@@ -278,7 +279,7 @@ def test_solves_match_reference_eager_and_captured(emulated, case):
     out = {}
     for mode in (False, True):
         ts._graphs = mode
-        gs.reset_launches()
+        counters.reset()
         u, counts = _run(ts, tf, how)
         out[mode] = (u, counts, gs.counters())
     (ue, ce, le), (ug, cg, lg) = out[False], out[True]
@@ -342,13 +343,13 @@ def test_launch_accounting(emulated):
     Held for the solve that captures and for one that only replays."""
     _, ts, f, _ = _solvers(SOLVES["refined-bicgstab"][0])
     f = torch.from_numpy(f)
-    gs.reset_launches()
+    counters.reset()
     _, info = ts.solve_refined(f, tol=1e-10, inner_tol=INNER_TOL)
     eager = gs.counters()
 
     ts._graphs = True
     for _ in range(2):  # the capture, then replays only
-        gs.reset_launches()
+        counters.reset()
         ts.solve_refined(f, tol=1e-10, inner_tol=INNER_TOL)
         assert gs.counters() == eager
 
@@ -356,12 +357,12 @@ def test_launch_accounting(emulated):
     low, M = ts._fine_low, ts.gmg.apply
     loop = tkrylov.bicgstab_loop(low.apply, M)
     state = loop.init(f.to(torch.float32), INNER_TOL, 60)
-    before = gs.counters()
+    before = counters.snapshot()
     loop.step(state)
-    one_step = graphs._minus(gs.counters(), before)
+    one_step = counters.minus(counters.snapshot(), before)
     assert entry.launches == one_step
     steps = info["inner_iterations"]
-    step_f32 = one_step[0]["float32"]
+    step_f32 = one_step["ghost_stencil.2d"]["float32"]
     assert step_f32 > 0
     # outside the loop: the f64 residual of each outer round, and nothing
     # in f32 beyond the steps

@@ -29,7 +29,7 @@ import pressurepoissonsolver_torch.ops.level_ops as tlo
 import pressurepoissonsolver_torch.ops.patch_bcgs as tbcgs
 import pressurepoissonsolver_torch.solver as tsolver
 from pressurepoissonsolver_torch.ops import ghost_stencil as gs
-from pressurepoissonsolver_torch.utils import graphs
+from pressurepoissonsolver_torch.utils import counters, graphs
 
 from _torch_parity import DTYPES, RTOL, hierarchies, rel_err
 from test_torch_gmres_loop import _no_host_reads
@@ -126,9 +126,9 @@ def _emulated_capture(fn, device):
         fn()
     _EMU["on"] = True
     try:
-        before = gs.counters()
+        before = counters.snapshot()
         fn()
-        launches = graphs._minus(gs.counters(), before)
+        launches = counters.minus(counters.snapshot(), before)
     finally:
         _EMU["on"] = False
 
@@ -136,7 +136,7 @@ def _emulated_capture(fn, device):
         replays = 0
 
         def replay(self):
-            snap = gs.counters()
+            snap = counters.snapshot()
             outer = dict(_EMU)  # a patch loop's pass replays inside a piece's
             _EMU.update(on=True, pending=[])
             try:
@@ -144,9 +144,9 @@ def _emulated_capture(fn, device):
             finally:
                 pending = _EMU["pending"]
                 _EMU.update(outer)
-            gs.add_launches(graphs._minus(gs.counters(), snap), -1)
+            counters.add(counters.minus(counters.snapshot(), snap), -1)
             for body, n in pending:
-                gs.add_launches(body, n)
+                counters.add(body, n)
                 graphs.note_inner(n)
             self.replays += 1
 
@@ -160,9 +160,9 @@ def emulated_loops(monkeypatch):
     monkeypatch.setattr(graphs, "cut", _inline_cut)
     monkeypatch.setattr(gs, "_plain", _counting_plain(gs._plain))
     graphs.reset_launches()
-    gs.reset_launches()
+    counters.reset()
     yield
-    gs.reset_launches()
+    counters.reset()
     graphs.reset_launches()
 
 
@@ -206,7 +206,7 @@ def test_bcgs_solves_through_the_capture(emulated_loops, monkeypatch, how):
     out = {}
     for mode in (False, True, True):
         ts._graphs = mode
-        gs.reset_launches()
+        counters.reset()
         graphs.reset_launches()
         u, count = _bcgs_run(ts, torch.from_numpy(f), how)
         out.setdefault(mode, []).append((u, count, gs.counters(), dict(graphs.inner)))

@@ -1,16 +1,19 @@
 """The port's refinement loop on the CPU against the JAX package's
-``solve_refined``: the loop the card runs as one graph launch
-(``solver._RefineGraph``: the rounds and the inner loop as pieces and
-nested loops), here piece by piece through an emulation of the capture
-(``test_torch_graphs.emulated``), and the host-driven plain loop.
+``solve_refined``: the program (``solver._refinement``: the rounds and the
+inner loop as pieces and nested loops) as the card runs it, one graph
+launch (``solver._RefineGraph``), here piece by piece through an emulation
+of the capture (``test_torch_graphs.emulated``), and the same program run
+eagerly (``krylov.run_program``).
 
 Held, on the small 2D mesh with an f32 cycle: with each inner method, and
 with a breakdown (a NaN-producing operator), stagnation (inner solves
-that take no step) and ``max_outer``, the two port loops agree bit for
-bit (iterate, counts, residual, history, stencil launches) and hold the
-reference's outer count exactly and its inner count within one (as
-``tests/test_torch_bench.py``) and its residual; ``sync=False`` gives 0-d
-tensors equal to ``sync=True``'s values and the reference's
+that take no step) and ``max_outer``, the two runs agree bit for bit
+(iterate, counts, residual, history, stencil launches, host reads), the
+eager run reads the round's guard once a round and the inner guard once
+an inner step (and once more at each loop's end) and its counts once, and
+both hold the reference's outer count exactly and its inner count within
+one (as ``tests/test_torch_bench.py``) and its residual; ``sync=False``
+gives 0-d tensors equal to ``sync=True``'s values and the reference's
 ``max_outer + 1`` history slots; and the pieces (the init, the inner
 init, the inner step, the round's end) make no host read."""
 
@@ -26,8 +29,10 @@ import pressurepoissonsolver_tpu.gmg as jgmg
 import pressurepoissonsolver_tpu.problems as jprob
 import pressurepoissonsolver_tpu.solver as jsolver
 import pressurepoissonsolver_torch.gmg as tgmg
+import pressurepoissonsolver_torch.krylov as tkrylov
 import pressurepoissonsolver_torch.solver as tsolver
 from pressurepoissonsolver_torch.ops import ghost_stencil as gs
+from pressurepoissonsolver_torch.utils import counters
 
 from _torch_parity import hierarchies
 from test_torch_gmres_loop import _no_host_reads
@@ -65,10 +70,12 @@ def _solvers(opts, op):
 
 
 def _port(ts, f, mode, **kw):
+    """``(u, info, stencil launches, host reads)`` of one solve."""
     ts._graphs = mode
-    gs.reset_launches()
+    counters.reset()
+    reads = tkrylov.reads["host"]
     u, info = ts.solve_refined(torch.from_numpy(f), inner_tol=INNER_TOL, **kw)
-    return u, info, gs.counters()
+    return u, info, gs.counters(), tkrylov.reads["host"] - reads
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -78,10 +85,14 @@ def test_refine_loop_matches_reference(emulated, case):
     kw = {"tol": 1e-10, **kw}
     _, jinfo = js.solve_refined(jnp.asarray(f), inner_tol=INNER_TOL, **kw)
     jk, jinner = int(jinfo["outer_iterations"]), int(jinfo["inner_iterations"])
-    ug, ig, lg = _port(ts, f, True, **kw)
-    ue, ie, le = _port(ts, f, False, **kw)
+    ug, ig, lg, rg = _port(ts, f, True, **kw)
+    ue, ie, le, re = _port(ts, f, False, **kw)
     assert "refined" in next(iter(ts._captured))
     assert torch.equal(ug, ue) and lg == le
+    # eager: a guard read before each round and after the last, one before
+    # each inner step and after each inner loop's last, one read of the counts
+    k_e, inner_e = ie["outer_iterations"], ie["inner_iterations"]
+    assert re == (k_e + 1) + (inner_e + k_e) + 1 == rg
     assert {k: v for k, v in ig.items() if k != "outer_history"} == {
         k: v for k, v in ie.items() if k != "outer_history"}
     assert np.array_equal(ig["outer_history"], ie["outer_history"])
@@ -105,10 +116,10 @@ def test_refine_loop_sync_false_returns_tensors(emulated, mode):
     """``sync=False``: 0-d tensors on the solver's device (and the 1-d
     history of ``max_outer + 1`` slots, 1 past the rounds, as the
     reference's) equal to the ``sync=True`` values, from the loop of the
-    card (``mode`` True) and from the plain loop."""
+    card (``mode`` True) and from the program run eagerly."""
     _, ts, f = _solvers({}, None)
-    u1, i1, _ = _port(ts, f, mode, tol=1e-10, max_outer=6)
-    u2, i2, _ = _port(ts, f, mode, tol=1e-10, max_outer=6, sync=False)
+    u1, i1, _, _ = _port(ts, f, mode, tol=1e-10, max_outer=6)
+    u2, i2, _, _ = _port(ts, f, mode, tol=1e-10, max_outer=6, sync=False)
     assert torch.equal(u1, u2)
     for key in ("outer_iterations", "inner_iterations", "residual"):
         v = i2[key]

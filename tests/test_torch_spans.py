@@ -18,7 +18,7 @@ from pressurepoissonsolver_torch.geometry import refined_tree
 from pressurepoissonsolver_torch.gmg import CycleOpts
 from pressurepoissonsolver_torch.krylov import While
 from pressurepoissonsolver_torch.solver import PoissonSolver, SolveOptions
-from pressurepoissonsolver_torch.utils import graphs, profiling
+from pressurepoissonsolver_torch.utils import counters, graphs, profiling
 
 GMG = CycleOpts(pre_sweeps=2, post_sweeps=1, fac_smoothing="active", coarse_direct_max_dof=64)
 
@@ -237,7 +237,7 @@ class _Graph:
 
 def _emulated_capture(fn, device):
     fn()
-    return _Graph(fn), [{"float32": 0, "float64": 0}, {"float32": 0, "float64": 0}]
+    return _Graph(fn), {}
 
 
 @pytest.fixture
@@ -420,7 +420,7 @@ def test_the_patch_solve_counter_counts_each_pass(emulated, mode):
     s, f = _solver()
     s._graphs = mode
     _schur(s, f)  # captures, where it does
-    level_ops.reset_solved()
+    counters.reset()
     assert level_ops.patch_solves() == {"passes": 0, "patches": 0}
     _, r = _schur(s, f)
     got = level_ops.patch_solves()
@@ -428,22 +428,22 @@ def test_the_patch_solve_counter_counts_each_pass(emulated, mode):
     assert got["patches"] == got["passes"] * s.fine_level.P
     got["passes"] = -1
     assert level_ops.solved["passes"] == 2 * r.iterations + 2
-    level_ops.reset_solved()
+    counters.reset()
     assert level_ops.solved == {"passes": 0, "patches": 0}
 
 
 def test_the_patch_solve_counter_is_in_the_launch_accounting():
-    """The counter is one of the counters a captured piece accounts for, so
-    a graph launch adds a piece's patch solves times its passes."""
+    """The counter is one of the tables a captured piece accounts for
+    (``utils.counters``, by name), so a graph launch adds a piece's patch
+    solves times its passes."""
     from pressurepoissonsolver_torch.ops import level_ops
 
-    assert any(c is level_ops.solved for c in graphs._counts())
-    level_ops.reset_solved()
-    delta = [{k: 0 for k in c} for c in graphs._counts()]
-    delta[-1] = {"passes": 1, "patches": 19}
-    graphs.add_launches(delta, 3)
+    assert counters.table("level_ops.patch_solves", ("passes", "patches")) is level_ops.solved
+    counters.reset()
+    assert "level_ops.patch_solves" in counters.snapshot()
+    counters.add({"level_ops.patch_solves": {"passes": 1, "patches": 19}}, 3)
     assert level_ops.patch_solves() == {"passes": 3, "patches": 57}
-    level_ops.reset_solved()
+    counters.reset()
 
 
 def test_schur_spans_off_record_nothing():

@@ -25,7 +25,7 @@ from pressurepoissonsolver_torch.geometry import refined_tree
 from pressurepoissonsolver_torch.ops import transfer
 from pressurepoissonsolver_torch.ops.level_ops import Level
 from pressurepoissonsolver_torch.parallel.sharding import pad_level
-from pressurepoissonsolver_torch.utils import graphs
+from pressurepoissonsolver_torch.utils import counters
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 RTOL = {"f32": 1e-6, "f64": 1e-14}
@@ -211,7 +211,7 @@ def test_cpu_and_3d_take_the_plain_chain_and_count_nothing():
     """Off the card no transfer has the kernel's tables and none is
     counted; the kernel fits 2D transfers on a card at n a multiple of 4 in
     f32 or f64 only."""
-    transfer.reset_launches()
+    counters.reset()
     for D, tree in ((2, (2, 4, 2)), (3, (3, 2, 1))):
         h = DomainHierarchy(refined_tree(*tree), n=8)
         lv = [Level(pl, dtype=torch.float64, device="cpu") for pl in h.levels[:2]]
@@ -232,10 +232,15 @@ def test_cpu_and_3d_take_the_plain_chain_and_count_nothing():
 
 def test_the_counters_are_accounted_with_the_graphs():
     """A captured transfer is counted once per replay: the counters are
-    among those ``utils.graphs`` accounts for."""
-    counts = graphs._counts()
-    assert any(c is transfer.launches for c in counts)
-    assert any(c is transfer.plain for c in counts)
+    tables of ``utils.counters``, which ``utils.graphs`` accounts for by
+    name."""
+    assert counters.table("transfer.kernel", ("float32", "float64")) is transfer.launches
+    assert counters.table("transfer.plain", ("float32", "float64")) is transfer.plain
+    counters.reset()
+    counters.add({"transfer.kernel": {"float64": 2}, "transfer.plain": {"float32": 1}}, 3)
+    assert transfer.transfers() == {"kernel": {"float32": 0, "float64": 6},
+                                    "plain": {"float32": 3, "float64": 0}}
+    counters.reset()
 
 
 def test_the_wrapper_refuses_another_dtype_or_shape(monkeypatch):
