@@ -38,8 +38,12 @@ Phases, any failure of which raises and exits non-zero:
    transfers' kernel (``csrc/transfer.cu``) against the plain chain on the
    benchmark cells' hierarchies (``TRANSFER_SHAPES``), timed cold and warm
    against its byte bound, and the plain chain at the 2D cell's last
-   transfer profiled kernel by kernel (``transfer_kernels``); a main-path
-   solve at n=16 whose every sweep and transfer takes its kernel;
+   transfer profiled kernel by kernel (``transfer_kernels``); the per-side
+   trace kernel (``csrc/traces.cu``) against the plain chain at level 0 of
+   the d4 and 2D cells (``TRACE_SHAPES``), apply and sweep builds, f32 and
+   f64, timed cold and warm against its byte bound (``trace_kernels``); a
+   main-path solve at n=16 whose every sweep, transfer and trace build takes
+   its kernel;
 4. 3D: the same for the 3D kernel and the 3D FAC solve of
    ``scripts/bench3d.py`` with its defaults, on a generated mesh
    (``refined_tree(3, 3, 2)`` refined once, n=32, 624 patches, 20,447,232
@@ -345,6 +349,8 @@ SWEEP_REPLACES = "pressurepoissonsolver_tpu/ops/level_ops.py::_spectral_apply"
 # counterpart; it stands for the reference's transfers as XLA ops
 TRANSFER_SOURCE = "pressurepoissonsolver_torch/csrc/transfer.cu"
 TRANSFER_REPLACES = "pressurepoissonsolver_tpu/gmg.py::Transfer"
+TRACES_SOURCE = "pressurepoissonsolver_torch/csrc/traces.cu"
+TRACES_REPLACES = "pressurepoissonsolver_tpu/ops/level_ops.py::Level._gf_parts"
 # patch shapes (P, n) off the main path, checked against the plain version;
 # n=6 in f32 and n=1 take the kernels' one-element-per-thread path
 ODD_SHAPES = {2: [(37, 12), (37, 6), (3, 1)], 3: [(37, 6), (3, 1)]}
@@ -621,6 +627,105 @@ def transfer_kernels(torch, timer, card, bw, shapes=TRANSFER_SHAPES) -> dict:
     return table
 
 
+# (label, divide, level) of the trace kernel's timed shapes: level 0 of the
+# benchmark's 2D cells at divide 4 and 2
+TRACE_SHAPES = [("d4-L0", 4, 0), ("2d-L0", 2, 0)]
+
+
+def trace_bytes(tables, n, itemsize):
+    """Bytes one trace build must move: every 32-byte sector of ``u`` that
+    its entries' face rows touch (a column of an f32 16 x 16 patch touches
+    a sector in each row), read once; ``gf`` written once; the int32 tables
+    read once."""
+    ent = tables.ent.cpu().numpy().astype(np.int64)
+    depth_log2 = tables.pal.depth - 1
+    src = ent >> 5
+    face = src & ((1 << (2 + depth_log2)) - 1)
+    side, d = face >> depth_log2, face & ((1 << depth_log2) - 1)
+    line = np.where(side & 1, n - 1 - d, d)
+    j = np.arange(n)
+    offs = np.where((side < 2)[:, None], j[None, :] * n + line[:, None],
+                    line[:, None] * n + j[None, :])
+    sectors = np.unique(((src >> (2 + depth_log2))[:, None] * n * n + offs) * itemsize // 32)
+    return (32 * sectors.size + tables.patches * 4 * n * itemsize
+            + 4 * (tables.rowptr.numel() + ent.size))
+
+
+def trace_kernels(torch, timer, card, bw, shapes=TRACE_SHAPES) -> dict:
+    """The trace kernel against the plain chain at ``shapes``: per level, f32
+    and f64, the apply's build (``Level._gf_parts``' ``w_mix * mix``) and
+    the sweep's (``Level._gf_faces``), each one kernel launch, within 1e-6
+    (f32) / 1e-14 (f64) of max|gf|; device ms cold (inputs rotated over
+    copies exceeding 4x the L2) and warm, kernel and plain, against the byte
+    bound (``trace_bytes`` at ``bw``); the plain chain's kernels of a build
+    at the 2D cell's level 0, profiled.  Runs alone::
+
+        python3 -c "import torch, chip_smoke as c; from
+        pressurepoissonsolver_torch.utils import profiling, timer;
+        c.trace_kernels(torch, timer, profiling.card_line(),
+        profiling._device_bw('cuda'))"
+    """
+    from pressurepoissonsolver_torch.domain import DomainHierarchy
+    from pressurepoissonsolver_torch.ops import traces
+    from pressurepoissonsolver_torch.ops.level_ops import Level
+
+    dev = torch.device("cuda")
+    table = {}
+    for label, divide, k in shapes:
+        t0 = time.perf_counter()
+        pl = DomainHierarchy(cell_tree(divide), n=16).levels[k]
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).replace("torch.", "")
+            lvl = Level(pl, dtype=dtype, device=dev)
+            n = lvl.n
+            print(f"trace kernel {label} {name}: P={lvl.P} n={n} refinement interfaces "
+                  f"{lvl._nref}, set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+            def field():
+                return torch.randn(lvl.P, n, n, device=dev, dtype=dtype)
+
+            u = field()
+            for which, tab, plain in (("apply", lvl._trace_apply, lambda x: lvl._gf_parts(x)[0]),
+                                      ("sweep", lvl._trace_sweep, lvl._gf_faces)):
+                before = traces.builds()
+                got = traces.build(tab, u)
+                torch.cuda.synchronize()
+                after = traces.builds()
+                assert after["kernel"][name] == before["kernel"][name] + 1, label
+                ref = plain(u)
+                err = float((got - ref).abs().max() / ref.abs().max())
+                line = (f"kernel traces {label} {which} {name} P={lvl.P} n={n} entries "
+                        f"{tab.ent.numel()} [{card}]: max|err|/max = {err:.3e}")
+                tol = 1e-6 if dtype == torch.float32 else 1e-14
+                if not err <= tol:
+                    raise AssertionError(line)
+                nbytes = trace_bytes(tab, n, u.element_size())
+                sets = [[u]] + [[field()] for _ in range(timer.cold_sets(nbytes) - 1)]
+                r = {"bytes": nbytes, "bound_ms": 1e3 * nbytes / bw, "max_rel_err": err,
+                     "entries": tab.ent.numel()}
+                for how, fn in (("kernel", lambda x: traces.build(tab, x)), ("plain", plain)):
+                    r[f"{how}_ms"] = timer.cold_median_ms(fn, sets)
+                    r[f"{how}_warm_ms"] = timer.cuda_median_ms(lambda: fn(u), reps=50, hold=True)
+                del sets
+                if label == "2d-L0" and name == "float32":
+                    ks = profile_kernels(torch, lambda: plain(u))
+                    r["plain_kernels"] = len(ks)
+                    print(f"plain {which} build at {label}, kernel by kernel: "
+                          + json.dumps(ks), flush=True)
+                print(f"{line}; device ms cold: kernel {r['kernel_ms']:.5f} "
+                      f"({100 * r['bound_ms'] / r['kernel_ms']:.1f}% of the bound "
+                      f"{r['bound_ms']:.5f}, {nbytes / 1e6:.1f} MB) plain {r['plain_ms']:.5f}; "
+                      f"warm kernel {r['kernel_warm_ms']:.5f} plain {r['plain_warm_ms']:.5f}",
+                      flush=True)
+                print("TRACES_JSON " + json.dumps({"label": label, "build": which, "dtype": name,
+                                                   "P": lvl.P, "n": n, "card": card, **r}),
+                      flush=True)
+                table[f"{label}-{which}-{name}"] = r
+                del got, ref
+            del lvl, u
+    return table
+
+
 # (label, level slots, active slots or None, n) of the sweep kernel's
 # timed shapes: level 0 of the benchmark's 2D cells (divide 2 and 4) and
 # level 2 of the divide-4 cell (its FAC active set, 16 x the divide-2
@@ -719,12 +824,13 @@ def sweep_kernels(torch, timer, card, bw, shapes=SWEEP_SHAPES) -> dict:
 
 
 def sweep_solve(torch, port, gs) -> dict:
-    """The sweep and transfer kernels' launches in a main-path solve:
+    """The sweep, transfer and trace kernels' launches in a main-path solve:
     ``solve_refined`` (one graph launch) of a 2D adaptive mesh at the cells'
     n=16 with their cycle (f32 V(2,1), FAC active sets), every launch count
-    set to 0 just before it and read just after; every sweep and every
-    transfer takes its kernel.  ``{"sweeps": ..., "transfers": ...}``."""
-    from pressurepoissonsolver_torch.ops import patch_sweep, transfer
+    set to 0 just before it and read just after; every sweep, every transfer
+    and every trace build takes its kernel.  ``{"sweeps": ..., "transfers":
+    ..., "traces": ...}``."""
+    from pressurepoissonsolver_torch.ops import patch_sweep, traces, transfer
 
     hier = port.DomainHierarchy(port.refined_tree(2, 4, 2), n=16)
     opts = port.SolveOptions(
@@ -735,7 +841,8 @@ def sweep_solve(torch, port, gs) -> dict:
     f, exact = port.init_problem(hier.finest, port.get_problem("trig", 2))
     reset_counters()
     u, info = solver.solve_refined(f, tol=1e-10, inner_tol=1e-4)
-    counts = {"sweeps": patch_sweep.sweeps(), "transfers": transfer.transfers()}
+    counts = {"sweeps": patch_sweep.sweeps(), "transfers": transfer.transfers(),
+              "traces": traces.builds()}
     rep = solver.report(u, f, exact)
     print(f"sweep solve (n=16, one graph launch): outer {info['outer_iterations']} inner "
           f"{info['inner_iterations']} residual {rep['residual']:.3e}; {counts}",
@@ -3378,7 +3485,7 @@ def build_kernels(cuda_build) -> None:
 
     t0 = time.perf_counter()
     cuda_build.build_all()
-    print(f"built the seven kernel libraries in {time.perf_counter() - t0:.2f} s",
+    print(f"built the eight kernel libraries in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for lib in cuda_build.LIBRARIES:
         info = cuda_build.build_info[lib]
@@ -3443,6 +3550,7 @@ def main() -> None:
     tables = {2: check_kernels(torch, gs, timer, card, bw, 2, stencil_shapes(solver))}
     sweep_table = sweep_kernels(torch, timer, card, bw)
     transfer_table = transfer_kernels(torch, timer, card, bw)
+    trace_table = trace_kernels(torch, timer, card, bw)
     solve_counts = sweep_solve(torch, port, gs)
     sweep_counts = solve_counts["sweeps"]
     solve_small(torch, port)
@@ -3576,6 +3684,24 @@ def main() -> None:
             "shapes": {label: row[op] for label, row in transfer_table.items()},
         }
         for op in ("restrict", "prolong")
+    ] + [
+        {
+            "name": f"traces_{which}_float32",
+            "route": "cuda",
+            "source": TRACES_SOURCE,
+            "replaces": TRACES_REPLACES,
+            # the builds of the main-path solve at n=16 (sweep_solve), the
+            # apply's and the sweep's together
+            "launches": solve_counts["traces"]["kernel"]["float32"],
+            "plain_launches": solve_counts["traces"]["plain"]["float32"],
+            # cold, at the d4 cell's level 0; every shape below
+            "ms": trace_table[f"d4-L0-{which}-float32"]["kernel_ms"],
+            "warm_ms": trace_table[f"d4-L0-{which}-float32"]["kernel_warm_ms"],
+            "plain_ms": trace_table[f"d4-L0-{which}-float32"]["plain_ms"],
+            "bound_ms": trace_table[f"d4-L0-{which}-float32"]["bound_ms"],
+            "shapes": {key: row for key, row in trace_table.items() if f"-{which}-" in key},
+        }
+        for which in ("apply", "sweep")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

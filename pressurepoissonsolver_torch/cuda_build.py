@@ -40,6 +40,7 @@ LIBRARIES = {
     "patch_sweep_f32": (("patch_sweep.cu",), ()),
     "patch_sweep_f64": (("patch_sweep.cu",), ("PPS_SWEEP_F64",)),
     "transfer": (("transfer.cu",), ()),
+    "traces": (("traces.cu",), ()),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -20,6 +20,11 @@ main-path linear maps batched over the leading patch axis:
 :class:`ActiveSmoother` is the FAC active-set form of the sweep on a
 static subset of patches.
 
+The per-side traces that the apply and the sweeps read (``gf[P, 2D, m]``)
+are built on a 2D level on the card by one launch of the trace kernel
+(:mod:`.traces`), elsewhere by the plain chain ``_gf_parts`` /
+``_gf_faces`` (and ``ActiveSmoother._gamma_faces``).
+
 Port of ``pressurepoissonsolver_tpu.ops.level_ops``.  Layout: fields
 ``[P, ny, nx]`` or ``[P, nz, ny, nx]`` (x fastest), face vectors
 ``[P, 2D, m]`` with ``m = n**(D-1)``; index tables are int64.  The f32
@@ -42,7 +47,7 @@ from .. import iface as iface_mod
 from ..domain import PatchLevel
 from ..matrix import _dense_case_templates
 from ..utils import counters, profiling
-from . import patch_sweep
+from . import patch_sweep, traces
 from . import transforms as tr
 from .ghost_stencil import ghost_stencil, ghost_stencil_3d
 from .patch_bcgs import PatchBicgstab
@@ -427,6 +432,17 @@ class Level:
         # so only refinement-boundary interfaces need the contribution
         # pipeline (a compact one)
         self._build_gf_tables(t)
+        # on a card, the trace kernel's tables (ops.traces): each build of
+        # the apply's and the sweep's traces is one launch from u
+        self._trace_pal = self._trace_apply = self._trace_sweep = None
+        if traces.kernel_fits(self.D, self.n, self.face_depth, ncase, self.P, self.device):
+            self._trace_pal = traces.palette(case_T, self._case_scalar, dtype,
+                                             self.face_depth, self.device)
+        if self._trace_pal is not None:
+            every = np.arange(self.P)
+            self._trace_apply = traces.trace_tables(
+                t, every, self._trace_pal, own_dropped=self._gf_w_own_np[:, :, 0] == 0.5)
+            self._trace_sweep = traces.trace_tables(t, every, self._trace_pal)
 
         # stencil coefficients
         h2inv = (1.0 / patch_level.spacings**2).astype(np.float64)
@@ -556,6 +572,16 @@ class Level:
         mix_scaled, own = self._gf_parts(u)
         return self._gf_w_own.to(u.dtype) * own + mix_scaled
 
+    def _apply_traces(self, u: torch.Tensor) -> torch.Tensor:
+        """The apply's traces ``w_mix * mix`` (:func:`.traces.build_or_plain`:
+        the trace kernel on a card, else ``_gf_parts``)."""
+        return traces.build_or_plain(self._trace_apply, u, lambda x: self._gf_parts(x)[0])
+
+    def _sweep_traces(self, u: torch.Tensor) -> torch.Tensor:
+        """The sweep's traces (the trace kernel on a card, else
+        ``_gf_faces``)."""
+        return traces.build_or_plain(self._trace_sweep, u, self._gf_faces)
+
     def apply(self, u: torch.Tensor) -> torch.Tensor:
         """Composite-grid operator ``A u`` (``SchurHelper.h:360-376``):
         ``ghost = c*u_b + 2*(w_own*u_b + w_mix*mix)``, with the own-face
@@ -563,7 +589,7 @@ class Level:
         (exactly 0 on direct sides, where the ghost is the neighbour-face
         halo), through the ghost-stencil kernel."""
         u = u.contiguous()
-        mix_scaled, _ = self._gf_parts(u)
+        mix_scaled = self._apply_traces(u)
         return _STENCIL[self.D](
             u, mix_scaled, self.ghost_coef_eff.to(u.dtype), self.h2inv.to(u.dtype)
         )
@@ -574,7 +600,7 @@ class Level:
         BiCGStab patch solves with the traces of ``u``."""
         if self.patch_solver_kind == "bcgs":
             return self.patch_solve(f, self.interpolate(u))
-        return patch_sweep.sweep(self._st, f, self._gf_faces(u), self.h2inv)
+        return patch_sweep.sweep(self._st, f, self._sweep_traces(u), self.h2inv)
 
     def smooth_zero(self, f: torch.Tensor) -> torch.Tensor:
         """``smooth(f, 0)``: with a zero iterate the traces vanish, so the
@@ -758,6 +784,11 @@ class ActiveSmoother:
         gidx = np.asarray(remap[ii], dtype=np.int64).copy()
         gidx[~mm] = self.num_sub_ifaces
         self._g_flat = torch.as_tensor(gidx.reshape(-1), device=dev)
+        # on a card, the trace kernel's tables over the active sides, read
+        # from the whole field (ops.traces)
+        self._trace = None
+        if level._trace_pal is not None and self.num_sub_ifaces:
+            self._trace = traces.trace_tables(t, act, level._trace_pal)
 
         self._st = (
             _build_solver_tables(level.pl, level.dtype, act, dev) if build_solver else None
@@ -775,10 +806,15 @@ class ActiveSmoother:
         gp = torch.cat([gamma, gamma.new_zeros(1, self.m)], dim=0)
         return gp.index_select(0, self._g_flat).reshape(self.Pa, 2 * self.D, self.m)
 
+    def _traces(self, u: torch.Tensor) -> torch.Tensor:
+        """The active sides' traces (:func:`.traces.build_or_plain`: the
+        trace kernel on a card, else ``_gamma_faces``)."""
+        return traces.build_or_plain(self._trace, u, self._gamma_faces)
+
     def smooth(self, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """One sweep of the active patches from ``u``, which the other
         patches keep (:func:`.patch_sweep.sweep`)."""
-        gf = self._gamma_faces(u) if self.num_sub_ifaces else None
+        gf = self._traces(u) if self.num_sub_ifaces else None
         return patch_sweep.sweep(self._st, f, gf, self._h2inv_act, self._route, u)
 
     def smooth_zero(self, f: torch.Tensor) -> torch.Tensor:
@@ -794,7 +830,7 @@ class ActiveSmoother:
         ``A u`` is then in the subset.  Used for the FAC coarse-level
         residual ``r = f − A u`` after active-set pre-smoothing."""
         if self.num_sub_ifaces:
-            gf = self._gamma_faces(u)
+            gf = self._traces(u)
         else:
             gf = u.new_zeros(self.Pa, 2 * self.D, self.m)
         out = _STENCIL[self.D](

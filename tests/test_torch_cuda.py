@@ -20,7 +20,11 @@ n, dtype, full and active sweeps, and its nodes inside WHILE bodies; the
 grid transfers' kernel (``csrc/transfer.cu``) against the plain chain on
 every transfer of the benchmark cells' hierarchy at divide 0 and 1, both
 prolongation modes and dtypes, its copies of strided inputs and its
-refusals, and the transfers of one-launch solves all on the kernel.
+refusals, and the transfers of one-launch solves all on the kernel; the
+per-side trace kernel (``csrc/traces.cu``) against the plain chain on every
+level and active set of a small hierarchy, one kernel node a build, its
+copies and refusals, no plain build on the card, and every build of a
+one-launch solve on the kernel.
 
 Every test here needs a card and skips without one (the CUDA kernel has no
 CPU mode).  This file imports no JAX, so it runs on a machine without it;
@@ -1965,6 +1969,161 @@ def test_one_launch_solve_runs_every_transfer_on_the_kernel(cuda, case):
         counted.setdefault(mode, []).append((u, counts, transfer.transfers()))
     ref = counted[False][0][2]
     assert ref["kernel"]["float32"] > 0 and not any(ref["plain"].values())
+    for runs in counted.values():
+        for u, counts, got in runs:
+            assert got == ref and torch.equal(u, counted[False][0][0])
+
+
+# -- the per-side trace kernel: csrc/traces.cu -------------------------------------
+
+def _trace_cycle(cuda, dtype, n=8, scheme="bilinear"):
+    """A FAC cycle on the small 2D hierarchy (levels with refinement sides,
+    pass-through levels, the active smoothers of the smoothing and the
+    residual)."""
+    h = DomainHierarchy(refined_tree(2, 4, 2), n=n)
+    if scheme != "bilinear":
+        return [Level(pl, dtype=dtype, device=cuda, iface_scheme=scheme) for pl in h.levels]
+    return build_gmg(h, CycleOpts(fac_smoothing="active", coarse_direct_max_dof=64),
+                     dtype=dtype, device=cuda)
+
+
+def _trace_kernel_takes(build):
+    """``build()``, which must be one build of the trace kernel and no plain
+    chain's."""
+    from pressurepoissonsolver_torch.ops import traces
+
+    before = traces.builds()
+    out = build()
+    torch.cuda.synchronize()
+    after = traces.builds()
+    assert after["plain"] == before["plain"]
+    assert sum(after["kernel"].values()) == sum(before["kernel"].values()) + 1
+    return out
+
+
+@pytest.mark.parametrize("scheme, n", [("bilinear", 8), ("bilinear", 16), ("bilinear", 6),
+                                       ("quadratic", 8)])
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_trace_kernel_matches_plain(cuda, dt, scheme, n):
+    """On every level of a small 2D hierarchy: the apply's and the sweep's
+    traces (``Level._gf_parts``' ``w_mix * mix``, ``Level._gf_faces``) and,
+    in the FAC cycle, the active smoothers' (``ActiveSmoother._gamma_faces``,
+    the smoothing's and the residual's sets) are one kernel build each and
+    agree with the plain chain on the same CUDA tensors, within 1e-6 (f32) /
+    1e-14 (f64) of max|gf|."""
+    tol = {"f32": 1e-6, "f64": 1e-14}[dt]
+    cyc = _trace_cycle(cuda, DTYPES[dt], n, scheme)
+    levels = cyc if scheme != "bilinear" else cyc.levels
+    rng = np.random.default_rng(n)
+    for lvl in levels:
+        assert lvl._trace_apply is not None and lvl._trace_sweep is not None
+        u = torch.as_tensor(rng.standard_normal((lvl.P, n, n)), dtype=DTYPES[dt], device=cuda)
+        for got, ref in ((lambda: lvl._apply_traces(u), lambda: lvl._gf_parts(u)[0]),
+                         (lambda: lvl._sweep_traces(u), lambda: lvl._gf_faces(u))):
+            g, r = _trace_kernel_takes(got), ref()
+            assert g.shape == r.shape
+            assert _rel(r, g) <= tol if r.any() else not g.any()
+    if scheme != "bilinear":
+        return
+    active = [s for s in cyc._asmooth + cyc._aapply if s is not None and s._trace is not None]
+    assert active and any(s.Pa < s.level.P for s in active)
+    for sm in active:
+        u = torch.as_tensor(rng.standard_normal((sm.level.P, n, n)), dtype=DTYPES[dt],
+                            device=cuda)
+        g = _trace_kernel_takes(lambda: sm._traces(u))
+        assert _rel(sm._gamma_faces(u), g) <= tol
+
+
+@pytest.mark.parametrize("dt", ["f32", "f64"])
+def test_trace_build_is_one_kernel_node(cuda, dt):
+    """A captured build is one kernel node (the trace kernel's) and nothing
+    else; a captured apply is that node and the stencil's, a captured sweep
+    that node and the sweep kernel's."""
+    from chip_smoke import graph_nodes
+
+    cyc = _trace_cycle(cuda, DTYPES[dt])
+    lvl = cyc.levels[0]
+    sm = next(s for s in cyc._asmooth if s is not None and s._trace is not None)
+    u = torch.randn(lvl.P, 8, 8, dtype=DTYPES[dt], device=cuda)
+    f = torch.randn_like(u)
+    ua = torch.randn(sm.level.P, 8, 8, dtype=DTYPES[dt], device=cuda)
+    for fn, want in ((lambda: lvl._apply_traces(u), ["traces_kernel"]),
+                     (lambda: lvl._sweep_traces(u), ["traces_kernel"]),
+                     (lambda: sm._traces(ua), ["traces_kernel"]),
+                     (lambda: lvl.apply(u), ["traces_kernel", "ghost_stencil_2d_kernel"]),
+                     (lambda: lvl.smooth(f, u), ["traces_kernel", "patch_sweep_kernel"])):
+        fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            fn()
+        names, kinds = graph_nodes(g)
+        assert kinds == {"kernel": len(want)}, (kinds, names)
+        assert all(sum(w in name for name in names) == 1 for w in want), names
+
+
+def test_trace_kernel_copies_strided_inputs_and_refuses_others(cuda):
+    """A field at an element offset or a strided one is copied and built by
+    the kernel, bit for bit as its contiguous copy; a field of another dtype
+    than f32 / f64, on the CPU beside tables on the card, or of another
+    shape raises."""
+    from pressurepoissonsolver_torch.ops import traces
+
+    lvl = _trace_cycle(cuda, torch.float32).levels[0]
+    P = lvl.P
+    x = torch.randn(P * 64 + 1, device=cuda)[1:].view(P, 8, 8)
+    y = torch.randn(P, 8, 16, device=cuda)[:, :, ::2]
+    assert x.data_ptr() % 16 and not y.is_contiguous()
+    for u in (x, y):
+        got = _trace_kernel_takes(lambda: lvl._apply_traces(u))
+        assert torch.equal(got, lvl._apply_traces(u.contiguous().clone()))
+    tab = lvl._trace_apply
+    with pytest.raises(TypeError):
+        traces.build(tab, x.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        traces.build(tab, x.cpu())
+    with pytest.raises(ValueError):
+        traces.build(tab, x[1:])
+
+
+def test_plain_traces_never_run_on_the_card(cuda, monkeypatch):
+    """On a CUDA tensor of a taken shape no build reaches the plain chain:
+    with ``_gf_parts``, ``_gf_faces`` and ``_gamma_faces`` made to raise, a
+    one-launch ``solve_refined`` and ``solve_schur`` with the V-cycle run, as
+    eager solves do."""
+    def refuse(*a, **kw):
+        raise AssertionError("a plain trace build on the card")
+
+    for cls, name in ((Level, "_gf_parts"), (Level, "_gf_faces"),
+                      (ActiveSmoother, "_gamma_faces")):
+        monkeypatch.setattr(cls, name, refuse)
+    for case in ("refined-bicgstab", "schur-gmg"):
+        opts, how = LOOP_SOLVES[case]
+        s, f, _ = _graph_solver(cuda, 2, **opts)
+        for mode in (True, False):
+            s._graphs = mode
+            _graph_run(s, f, how)
+
+
+@pytest.mark.parametrize("case", ["refined-bicgstab", "schur-gmg"])
+def test_one_launch_solve_builds_every_trace_on_the_kernel(cuda, case):
+    """A one-launch ``solve_refined`` (the f32 V-cycle and the f64 round
+    ends of the IR cells) and ``solve_schur`` (the Woodbury V-cycle) count
+    every trace build as a kernel launch and none as plain: 100% of the
+    builds, as many as the eager solve makes."""
+    from pressurepoissonsolver_torch.ops import traces
+
+    opts, how = LOOP_SOLVES[case]
+    s, f, _ = _graph_solver(cuda, 2, **opts)
+    counted = {}
+    for mode in (True, False, True):
+        s._graphs = mode
+        u, counts, _, _, _ = _counted(s, f, how)
+        counted.setdefault(mode, []).append((u, counts, traces.builds()))
+    ref = counted[False][0][2]
+    assert ref["kernel"]["float32"] > 0 and not any(ref["plain"].values())
+    if case == "refined-bicgstab":
+        assert ref["kernel"]["float64"] > 0
     for runs in counted.values():
         for u, counts, got in runs:
             assert got == ref and torch.equal(u, counted[False][0][0])
