@@ -153,8 +153,8 @@ class Transfer:
     On a CUDA tensor, a transfer between 2D levels on a card at n a
     multiple of 4 in f32 or f64 (``ops.transfer.kernel_fits``) is one
     kernel launch (:mod:`.ops.transfer`); every other transfer runs the
-    plain chain (``restrict_plain`` / ``prolong_add_plain``), counted in
-    ``ops.transfer.plain`` on a card.
+    plain chain (``restrict_plain`` / ``prolong_add_plain``) in the span
+    ``pps.transfer.plain``, counted in ``ops.transfer.plain`` on a card.
     """
 
     @profiling.spanned("pps.gmg.transfer", device=False)
@@ -267,7 +267,8 @@ class Transfer:
         if self._kt is not None and fine_u.is_cuda:
             return transfer.restrict(self._kt, fine_u)
         transfer.count_plain(fine_u)
-        return self.restrict_plain(fine_u)
+        with span("pps.transfer.plain"):
+            return self.restrict_plain(fine_u)
 
     def prolong_add(self, coarse_u: torch.Tensor, fine_u: torch.Tensor) -> torch.Tensor:
         """Prolongation (constant or linear) added into ``fine_u``, as a new
@@ -276,7 +277,8 @@ class Transfer:
         if self._kt is not None and fine_u.is_cuda:
             return transfer.prolong_add(self._kt, coarse_u, fine_u)
         transfer.count_plain(fine_u)
-        return self.prolong_add_plain(coarse_u, fine_u)
+        with span("pps.transfer.plain"):
+            return self.prolong_add_plain(coarse_u, fine_u)
 
     def restrict_plain(self, fine_u: torch.Tensor) -> torch.Tensor:
         """The plain version of :meth:`restrict`: per orthant, gather the

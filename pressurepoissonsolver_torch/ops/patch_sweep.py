@@ -25,6 +25,8 @@ products and the routing of an active set's rows in one pass, f read and
 u written once.  An input that is not contiguous or 16-byte aligned is
 copied first; one of another dtype, device or shape than the tables'
 raises.  No switch chooses between the two versions: the tensors do.
+:func:`sweep` runs the plain version in the span ``pps.patch_sweep.plain``
+(``utils.profiling``); the kernel opens none.
 
 Counters (tables of ``utils.counters``, ``patch_sweep.kernel`` and
 ``patch_sweep.plain``, so that a captured sweep counts once per replay or
@@ -43,7 +45,7 @@ import numpy as np
 import torch
 
 from .. import cuda_build
-from ..utils import counters
+from ..utils import counters, profiling
 from . import transforms as tr
 
 #: the kernel's sweeps per dtype name ("float32", "float64")
@@ -323,13 +325,14 @@ def sweep(st, f: torch.Tensor, gf: Optional[torch.Tensor], h2inv: torch.Tensor,
 
     A CUDA tensor of a level whose tables carry :class:`SweepTables` always
     takes the kernel; a CPU tensor or a level without them (3D, n = 64)
-    the plain chain."""
+    the plain chain, in the span ``pps.patch_sweep.plain``."""
     tables = getattr(st, "sweep", None)
     if tables is not None and f.is_cuda:
         return _kernel(tables, f, gf, h2inv, route, base)
     if f.is_cuda:
         plain[_NAMES[f.dtype]] += 1
-    return sweep_plain(st, f, gf, h2inv, route, base)
+    with profiling.span("pps.patch_sweep.plain"):
+        return sweep_plain(st, f, gf, h2inv, route, base)
 
 
 def sweeps() -> dict:

@@ -28,7 +28,8 @@ a palette over the kernel's shared memory).  On
 a CUDA tensor a level with the tables always takes the kernel: an input that
 is not contiguous or 16-byte aligned is copied first; one of another dtype
 than f32 / f64, another device or another shape raises.  No switch chooses
-between the two versions: the tensors do.
+between the two versions: the tensors do.  The plain chain runs in the
+span ``pps.traces.plain`` (``utils.profiling``); the kernel opens none.
 
 Counters (tables of ``utils.counters``, ``traces.kernel`` and
 ``traces.plain``, so that a captured build counts once per replay or per
@@ -46,7 +47,7 @@ import numpy as np
 import torch
 
 from .. import cuda_build
-from ..utils import counters
+from ..utils import counters, profiling
 
 #: the kernel's builds per dtype name
 launches = counters.table("traces.kernel", ("float32", "float64"))
@@ -222,13 +223,14 @@ def build(tables: TraceTables, u: torch.Tensor) -> torch.Tensor:
 def build_or_plain(tables: Optional[TraceTables], u: torch.Tensor,
                    plain_chain: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
     """The traces of ``u``: :func:`build` where there are ``tables`` and
-    ``u`` is on a card, else ``plain_chain(u)``, counted in :data:`plain`
-    when it runs on a card."""
+    ``u`` is on a card, else ``plain_chain(u)`` in the span
+    ``pps.traces.plain``, counted in :data:`plain` when it runs on a card."""
     if tables is not None and u.is_cuda:
         return build(tables, u)
     if u.is_cuda and u.dtype in _NAMES:
         plain[_NAMES[u.dtype]] += 1
-    return plain_chain(u)
+    with profiling.span("pps.traces.plain"):
+        return plain_chain(u)
 
 
 def builds() -> dict:

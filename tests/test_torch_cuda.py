@@ -24,7 +24,9 @@ refusals, and the transfers of one-launch solves all on the kernel; the
 per-side trace kernel (``csrc/traces.cu``) against the plain chain on every
 level and active set of a small hierarchy, one kernel node a build, its
 copies and refusals, no plain build on the card, and every build of a
-one-launch solve on the kernel.
+one-launch solve on the kernel; and the 3D benchmark configuration's
+one-launch solve: the 3D stencil kernel at every apply, the plain chains
+elsewhere, each in its span, and none of those spans in a 2D solve.
 
 Every test here needs a card and skips without one (the CUDA kernel has no
 CPU mode).  This file imports no JAX, so it runs on a machine without it;
@@ -2127,3 +2129,62 @@ def test_one_launch_solve_builds_every_trace_on_the_kernel(cuda, case):
     for runs in counted.values():
         for u, counts, got in runs:
             assert got == ref and torch.equal(u, counted[False][0][0])
+
+
+PLAIN_SPANS = ("pps.patch_sweep.plain", "pps.traces.plain", "pps.transfer.plain")
+
+
+def test_a_one_launch_3d_solve_takes_the_3d_stencil_and_spans_its_plain_chains(cuda, tmp_path):
+    """The 3D benchmark configuration (``poisson3d-2refine``, its mesh at
+    divide 1 and n=16: 120 patches), one graph launch a solve: every
+    composite apply runs the 3D stencil kernel (no 2D launch), every sweep,
+    trace build and transfer the plain chain (none on a kernel).  Stamped,
+    the solve is bit for bit the unstamped one and opens
+    ``pps.patch_sweep.plain``, ``pps.traces.plain`` and
+    ``pps.transfer.plain`` once for each plain run the counters count,
+    never one inside another; a 2D one-launch solve opens none of them."""
+    from benchmark import harness, mesh, spec
+    from pressurepoissonsolver_torch.geometry import Tree
+    from pressurepoissonsolver_torch.ops import traces
+    from pressurepoissonsolver_torch.utils import profiling
+
+    cfg = spec.find_cell("poisson3d-2refine.ir").config
+    path = str(tmp_path / "m.bin")
+    mesh.write_mesh(mesh.build(dict(cfg["mesh"], divide=1), 3), path)
+    h = DomainHierarchy(Tree.from_file(path, 3), n=16)
+    s = PoissonSolver(h, harness.solve_options(cfg), device=cuda)
+    f = torch.randn((h.finest.num_patches, 16, 16, 16), dtype=torch.float64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    u0, _ = s.solve_refined(f, tol=1e-10)
+    assert s._graphs is True
+    counters.reset()
+    u1, _ = s.solve_refined(f, tol=1e-10)
+    torch.cuda.synchronize()
+    stencil = gs.counters()
+    plain = {"pps.patch_sweep.plain": patch_sweep.sweeps(),
+             "pps.traces.plain": traces.builds(), "pps.transfer.plain": transfer.transfers()}
+    assert torch.equal(u0, u1)
+    assert stencil[1]["float32"] > 0 and stencil[1]["float64"] > 0
+    assert not any(stencil[0].values())
+    for counts in plain.values():
+        assert not any(counts["kernel"].values()) and counts["plain"]["float32"] > 0
+    with profiling.device_spans(cuda):  # captures the stamped graph
+        s.solve_refined(f, tol=1e-10)
+    with profiling.device_spans(cuda) as rec:
+        u2, _ = s.solve_refined(f, tol=1e-10)
+    assert torch.equal(u0, u2) and rec.overflow == 0
+    sp = rec.spans()
+    names = [x.name for x in sp]
+    for name, counts in plain.items():
+        assert names.count(name) == sum(counts["plain"].values())
+    for x in sp:
+        if x.name in PLAIN_SPANS:
+            assert x.parent >= 0 and sp[x.parent].name not in PLAIN_SPANS
+
+    s2, f2, _ = _graph_solver(cuda, 2, **LOOP_SOLVES["refined-bicgstab"][0])
+    with profiling.device_spans(cuda):
+        _graph_run(s2, f2, "refined")
+    with profiling.device_spans(cuda) as rec2:
+        _graph_run(s2, f2, "refined")
+    assert s2._graphs is True and rec2.spans()
+    assert not {x.name for x in rec2.spans()} & set(PLAIN_SPANS)
